@@ -1,0 +1,142 @@
+"""The PyTorch engine (kmergma_tpu_torch.ops.scan.ScanEngine) against the
+JAX engine (kmergma_tpu.ops.scan.ScanEngine): (dist0, stream) bit-identical
+on every record of the four fixtures and on seeded random records with
+planted genes.  Zero tolerance: the streams are integer distances divided
+by the same float64 scale.
+
+The JAX engine runs with ``full_fetch_windows = 0``, so it assembles the
+minimal run-reduced stream that the port always produces (its raw-distance
+cutover is another route to the same hits, not the same stream)."""
+
+import numpy as np
+import pytest
+
+from kmergma_tpu.ops import scan as jscan
+from kmergma_tpu.ops.kmers import kmer_count
+from kmergma_tpu.ops.reference import gen_ref_ws_cons
+from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
+from kmergma_tpu.utils.fasta import as_records
+from kmergma_tpu_torch.ops import scan as tscan
+
+from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
+
+
+def _jax_engine(s, k, ws, r, **kw):
+    eng = jscan.ScanEngine(s, k=k, ws=ws, r=r, **kw)
+    eng.full_fetch_windows = 0
+    return eng
+
+
+def _planted(seed, n=50_000, k=6, ws=240, r=5):
+    """Random background with mutated copies of r random references."""
+    rng = np.random.default_rng(seed)
+    s = np.zeros(4**k, dtype=np.int64)
+    refs = [rng.integers(0, 4, ws, dtype=np.int8) for _ in range(r)]
+    for ref in refs:
+        s += kmer_count(ref, k).astype(np.int64)
+    codes = rng.integers(0, 4, n, dtype=np.int8)
+    for pos in range(2_000, n - ws - 100, 5_000):
+        mutant = refs[pos % r].copy()
+        idx = rng.integers(0, ws, ws // 5)
+        mutant[idx] = rng.integers(0, 4, idx.shape[0])
+        codes[pos : pos + ws] = mutant
+    return s, codes
+
+
+@pytest.fixture(scope="module")
+def profile6(ref_fasta):
+    return gen_ref_ws_cons(ref_fasta, 6)
+
+
+@pytest.mark.parametrize(
+    "fixture,thr",
+    [
+        ("Alp_V_locus.fasta", 30.0),
+        ("Loci.fasta", 30.0),
+        ("8_ident_Alp_V_loci.fasta", 36.0),
+        ("Alp_V_ref.fasta", 36.0),
+    ],
+)
+def test_streams_match_jax_on_fixtures(fixture, thr, profile6):
+    from pathlib import Path
+
+    path = Path(__file__).parent / "data" / fixture
+    p = profile6
+    port = tscan.ScanEngine(p.sum_kfv, k=6, ws=p.windowsize, r=p.n_records, device="cpu")
+    ref = _jax_engine(p.sum_kfv, 6, p.windowsize, p.n_records)
+    if fixture == "Alp_V_ref.fasta":
+        ref.plan_regions = 2  # its records hold one region each
+    n_streamed = 0
+    for rec in as_records(str(path)):
+        if len(rec) < p.windowsize:
+            continue
+        got = port.record_stream(rec.codes, thr)
+        want = ref.record_stream(rec.codes, thr)
+        assert got[0] == want[0], rec.identifier
+        assert got[1] == want[1], rec.identifier
+        assert got[2] is None
+        n_streamed += len(got[1])
+    assert n_streamed > 0
+
+
+@pytest.mark.parametrize("seed,thr_pct,small_buckets", [(0, 3.0, False), (1, 5.0, True), (2, 30.0, True)])
+def test_streams_match_jax_on_planted_records(seed, thr_pct, small_buckets, monkeypatch):
+    s, codes = _planted(seed)
+    k, ws, r = 6, 240, 5
+    port = tscan.ScanEngine(s, k=k, ws=ws, r=r, device="cpu")
+    ref = _jax_engine(s, k, ws, r, chunk_windows=1 << 15)
+    d = scan_window_distances_np_i64(codes, s, k, ws, r)
+    thr = float(np.percentile(d / port.scale, thr_pct))
+    calls = {"regions": 0, "reduce": 0}
+    if small_buckets:
+        # buckets far below the record's needs: both must rerun per record
+        port.plan_regions = 2
+        port.run_bucket = 4
+        real_regions, real_reduce = port._regions, tscan._device_run_reduce
+
+        def regions(*a, **kw):
+            calls["regions"] += 1
+            return real_regions(*a, **kw)
+
+        def reduce(*a, **kw):
+            calls["reduce"] += 1
+            return real_reduce(*a, **kw)
+
+        monkeypatch.setattr(port, "_regions", regions)
+        monkeypatch.setattr(tscan, "_device_run_reduce", reduce)
+    got = port.record_stream(codes, thr)
+    want = ref.record_stream(codes, thr)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert len(got[1]) > 8
+    if small_buckets:
+        assert calls["regions"] == 2  # one rerun at the bucket that fits
+        assert calls["reduce"] == 3  # plus one rerun of the reduce alone
+        assert port.plan_regions == 2 and port.run_bucket == 4  # no engine-wide change
+
+
+def test_collect_dists_matches_jax():
+    s, codes = _planted(3, n=30_000)
+    k, ws, r = 6, 240, 5
+    port = tscan.ScanEngine(s, k=k, ws=ws, r=r, device="cpu")
+    port.chunk = 7_000  # several chunks: the stream stitches across them
+    ref = _jax_engine(s, k, ws, r)
+    d = scan_window_distances_np_i64(codes, s, k, ws, r)
+    thr = float(np.percentile(d / port.scale, 4.0))
+    got = port.record_stream(codes, thr, collect_dists=True)
+    want = ref.record_stream(codes, thr, collect_dists=True)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[2], d / port.scale)
+
+
+def test_tiny_record_and_full_activity():
+    """Every window below threshold, and a record shorter than one region:
+    the plan clamps to the record."""
+    s, codes = _planted(5, n=900)
+    port = tscan.ScanEngine(s, k=6, ws=240, r=5, device="cpu")
+    ref = _jax_engine(s, 6, 240, 5)
+    got = port.record_stream(codes, 1e9)
+    want = ref.record_stream(codes, 1e9)
+    assert got[:2] == want[:2]
