@@ -11,6 +11,12 @@ integer arithmetic), checks the golden hits through
 (four 16 Mbp contigs of hashed background with the 84 Alp_V reference genes
 planted every 500 kb) against the JAX-free int64 host oracle, and shows
 through the kernels' launch counts that the run went through both kernels.
+Last it prints where one ``find_genes`` call's wall goes: each stage timed
+alone, and the device's busy share of one profiled call.
+
+It imports only the port (``kmergma_tpu_torch``); the JAX package's
+JAX-free host modules that the port shares (FASTA, reference profile,
+threshold, int64 host engine) come through ``kmergma_tpu_torch.host``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Its last line is
@@ -118,20 +124,106 @@ def timed_ms(fn, sync, reps: int = 5):
     return statistics.median(times), out
 
 
+def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_card: bool, label: str, reps: int = 3) -> None:
+    """Print where one ``find_genes`` call on ``fasta`` spends its wall.
+
+    Each stage of the call runs alone with a device synchronise around it
+    (median of ``reps`` over all records); shares are of ``wall_s``, the
+    unprofiled median wall.  Then one call runs under torch.profiler, after
+    a first profiled call that only starts the tracer: the device's busy
+    time (the union of its kernel, copy and fill intervals) and the wall
+    are both read from that one call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.host import (
+        as_records, estimate_optimal_threshold, gen_ref_ws_cons, replay_single, semiglobal_align_batch,
+    )
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    names = [
+        "FASTA parse (as_records)", "reference profile (gen_ref_ws_cons)", "threshold estimate",
+        "ScanEngine set-up (S to the device)", "H2D incl. host zero-padding (prepare_codes)",
+        "planned pass: K1 + plan + K2 + run reduce + D2H", "  of which K1 bitmap alone (incl. l0, bases)",
+        "replay (replay_single)", "alignment (semiglobal_align_batch)",
+    ]
+    runs = []
+    for _ in range(reps):
+        ms = dict.fromkeys(names, 0.0)
+        ms[names[0]], records = clock(lambda: as_records(str(fasta)))
+        ms[names[1]], _ = clock(lambda: gen_ref_ws_cons(REF, k))
+        ms[names[2]], _ = clock(lambda: estimate_optimal_threshold(profile.mean_kfv, ws, buffer=8.0))
+        ms[names[3]], engine = clock(lambda: ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device="cuda" if on_card else "cpu"))
+        thr_int = int(engine._thr_int(thr))
+        for rec in records:
+            nw = len(rec) - ws + 1
+            t, prep = clock(lambda: engine.prepare_codes(rec.codes))
+            ms[names[4]] += t
+            t, (dist0, stream) = clock(lambda: engine._planned_record(prep, nw, thr))
+            ms[names[5]] += t
+            t, _ = clock(lambda: engine._record_bitmap(prep, nw, thr_int))
+            ms[names[6]] += t
+            t, raw = clock(lambda: replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=len(rec), buff=50))
+            ms[names[7]] += t
+            windows = [rec.seq[h.start - 1 : h.stop].decode("ascii").upper() for h in raw]
+            if windows:
+                t, _ = clock(lambda: semiglobal_align_batch(profile.consensus_ws, windows, -69, -1))
+                ms[names[8]] += t
+        runs.append(ms)
+    print(f"stage breakdown of one find_genes call, median of {reps} per stage, shares of the "
+          f"{wall_s * 1e3:.3f} ms median wall [{label}]:")
+    staged = 0.0
+    for i, name in enumerate(names):
+        med = statistics.median(run_ms[name] for run_ms in runs)
+        if i != 6:
+            staged += med
+        print(f"  {name:<52} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
+    print(f"  {'sum of the stages (K1 alone not added)':<52} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with torch_profile(activities=activities):
+        kt.find_genes(str(fasta), REF, verbose=False)
+    with torch_profile(activities=activities) as prof:
+        wall_ms, _ = clock(lambda: kt.find_genes(str(fasta), REF, verbose=False))
+    dev_events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in dev_events):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    print(f"profiled find_genes call: wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"(union of {len(dev_events)} device intervals), busy share {busy_us / 1e3 / wall_ms:.4f}, "
+          f"idle share {1 - busy_us / 1e3 / wall_ms:.4f} [{label}]")
+    totals: dict = {}
+    for ev in dev_events:
+        n, t = totals.get(ev.name, (0, 0.0))
+        totals[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
+    for name, (n, t) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  device: {t / 1e3:9.3f} ms in {n:4d} x {name[:90]}")
+
+
 def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, label: str = "") -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     Returns the kernels' report."""
     import numpy as np
     import torch
 
-    from kmergma_tpu.ops.reference import gen_ref_ws_cons
-    from kmergma_tpu.ops.scan_host import HostScanEngine
-    from kmergma_tpu.ops.thresholds import estimate_optimal_threshold
-    from kmergma_tpu.utils.fasta import as_records
-    from kmergma_tpu.utils.native import scan_rolling_i64_native
-
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch import _kernels
+    from kmergma_tpu_torch.host import (
+        HostScanEngine, as_records, estimate_optimal_threshold, gen_ref_ws_cons, scan_rolling_i64_native,
+    )
     from kmergma_tpu_torch.models.miner import mine_genome
     from kmergma_tpu_torch.ops.scan import (
         ScanEngine, _first_window_l0, _plan_regions, rolling_kmer_codes, scan_window_distances,
@@ -151,7 +243,7 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         built = not lib_path.exists()
         t0 = time.perf_counter()
         _kernels.load()
-        print(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled now: {built}, {lib_path})")
+        print(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled now: {built}, {lib_path}) [{label}]")
         if log_path.exists():
             for line in log_path.read_text().splitlines():
                 if "registers" in line or "Compiling entry" in line:
@@ -259,7 +351,8 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
             str(fasta), profile, thr=thr,
             engine=HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r),
         )
-        print(f"int64 host oracle (HostScanEngine): {time.perf_counter() - t0:.3f} s, {len(oracle_res.hits)} hits")
+        print(f"int64 host oracle (HostScanEngine): {time.perf_counter() - t0:.3f} s, {len(oracle_res.hits)} hits [{label}]")
+        stage_breakdown(fasta, profile, thr, t_med, sync, on_card, label)
     require(len(hits) > 0, "no hits on the planted genome")
     require(
         [(h.description, h.seq) for h in hits] == [(h.description, h.seq) for h in oracle_res.hits],

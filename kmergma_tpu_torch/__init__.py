@@ -2,7 +2,8 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The JAX package stays the reference; this package reuses its JAX-free host
-modules by import and ports what runs on the device.  Public API:
+modules by import (all through ``kmergma_tpu_torch.host``) and ports what
+runs on the device.  Public API:
 ``find_genes``, ``write_results``, ``record_kmergma``.
 """
 

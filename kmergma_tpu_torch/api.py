@@ -15,10 +15,7 @@ import logging
 import warnings
 from typing import Iterable
 
-from kmergma_tpu.ops.reference import gen_ref_ws_cons
-from kmergma_tpu.ops.thresholds import estimate_optimal_threshold
-from kmergma_tpu.utils.fasta import FastaRecord, write_fasta
-
+from .host import FastaRecord, estimate_optimal_threshold, gen_ref_ws_cons, write_fasta
 from .models.miner import mine_genome
 
 logger = logging.getLogger("kmergma_tpu_torch")

@@ -17,17 +17,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from kmergma_tpu.models.state_machine import replay_single
-from kmergma_tpu.ops.align import (
+from ..host import (
     AlignResult,
+    FastaRecord,
+    HostScanEngine,
+    PathOrRecords,
+    RefProfile,
+    as_records,
     cigar_to_unitrange,
+    replay_single,
     semiglobal_align,
     semiglobal_align_batch,
 )
-from kmergma_tpu.ops.reference import RefProfile
-from kmergma_tpu.ops.scan_host import HostScanEngine
-from kmergma_tpu.utils.fasta import FastaRecord, PathOrRecords, as_records
-
 from ..ops.scan import ScanEngine
 
 

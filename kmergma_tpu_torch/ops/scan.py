@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmergma_tpu.ops.reference import RefProfile
+from ..host import RefProfile
 
 _INT32_MAX = 2**31 - 1
 
@@ -400,20 +400,18 @@ class ScanEngine:
         padded[:n] = codes
         return torch.from_numpy(padded).to(self.device)
 
-    def record_stream(self, codes: np.ndarray, thr: float, collect_dists: bool = False, codes_dev: "torch.Tensor | None" = None):
+    def record_stream(self, codes: np.ndarray, thr: float, collect_dists: bool = False):
         """Scan one record; return (dist0, stream, dists_or_None).
 
         ``dist0`` is the first-window distance, ``stream`` a sorted list of
         (window index >= 1, exact float64 distance) covering every window
-        that can influence the minima state machine at threshold ``thr``.
-        ``codes_dev`` may pass the record already on the device
-        (``prepare_codes``)."""
+        that can influence the minima state machine at threshold ``thr``."""
         n = codes.shape[0]
         _check_record_len(n)
         nw = n - self.ws + 1
         if nw < 1:
             raise ValueError(f"record of {n} bp is shorter than the windowsize {self.ws}")
-        prep = self.prepare_codes(codes) if codes_dev is None else codes_dev
+        prep = self.prepare_codes(codes)
         if collect_dists:
             return self._full_record(prep, nw, thr)
         dist0, stream = self._planned_record(prep, nw, thr)

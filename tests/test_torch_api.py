@@ -118,7 +118,7 @@ def test_overflow_falls_back_to_host_engine(ref_fasta, mini_genome):
 def test_port_never_imports_jax(mini_genome, ref_fasta):
     # a subprocess: this test process has jax loaded (tests/conftest.py)
     code = (
-        "import sys, kmergma_tpu_torch as kt\n"
+        "import sys, kmergma_tpu_torch as kt, kmergma_tpu_torch.host\n"
         f"hits = kt.find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False)[0]\n"
         "assert len(hits) == 3, hits\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
@@ -132,3 +132,92 @@ def test_port_never_imports_jax(mini_genome, ref_fasta):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_host_names_are_the_shared_originals():
+    """kmergma_tpu_torch.host re-exports the JAX package's host objects
+    themselves, not copies."""
+    import importlib
+
+    from kmergma_tpu_torch import host
+
+    origins = {
+        "kmergma_tpu.models.state_machine": ["replay_single"],
+        "kmergma_tpu.ops.align": ["AlignResult", "cigar_to_unitrange", "semiglobal_align", "semiglobal_align_batch"],
+        "kmergma_tpu.ops.reference": ["RefProfile", "gen_ref_ws_cons"],
+        "kmergma_tpu.ops.scan_host": ["HostScanEngine"],
+        "kmergma_tpu.ops.thresholds": ["estimate_optimal_threshold"],
+        "kmergma_tpu.utils.fasta": ["FastaRecord", "PathOrRecords", "as_records", "write_fasta"],
+        "kmergma_tpu.utils.native": ["scan_rolling_i64_native"],
+    }
+    assert sorted(n for names in origins.values() for n in names) == sorted(host.__all__)
+    for mod, names in origins.items():
+        origin = importlib.import_module(mod)
+        for name in names:
+            assert getattr(host, name) is getattr(origin, name), name
+
+
+def _imported_modules(path: Path) -> set[str]:
+    import ast
+
+    tree = ast.parse(path.read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+_ROOT = Path(__file__).resolve().parent.parent
+_PORT_FILES = sorted(
+    str(p.relative_to(_ROOT)) for p in [_ROOT / "chip_smoke.py", *(_ROOT / "kmergma_tpu_torch").rglob("*.py")]
+)
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
+def test_jax_package_reached_only_through_host(rel):
+    """No file of the port, and not chip_smoke.py, imports jax; only
+    kmergma_tpu_torch/host.py names modules of the JAX package."""
+    mods = _imported_modules(_ROOT / rel)
+    assert not {m for m in mods if m == "jax" or m.startswith(("jax.", "jaxlib"))}, rel
+    jax_pkg = {m for m in mods if m == "kmergma_tpu" or m.startswith("kmergma_tpu.")}
+    if rel == "kmergma_tpu_torch/host.py":
+        assert jax_pkg
+    else:
+        assert not jax_pkg, (rel, jax_pkg)
+
+
+def test_chip_smoke_phases_on_cpu(capsys):
+    """chip_smoke.run drives every phase, the stage breakdown included, on
+    CPU tensors at a small size: the wrappers take their plain twins, so
+    the kernels' report shows no launch and no error."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, label="cpu")
+    out = capsys.readouterr().out
+    assert [k["name"] for k in report["kernels"]] == ["fused_record_bitmaps", "match_counts"]
+    assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
+    assert "hits equal the host oracle's" in out
+    assert "idle share" in out
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_refuses_without_cuda(tmp_path, where):
+    """Without a CUDA device (and so here, on the CPU) chip_smoke.py exits
+    non-zero and prints no result, in the checkout and copied alone."""
+    import shutil
+
+    script = _ROOT / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    proc = subprocess.run(
+        [sys.executable, str(script)], cwd=script.parent, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
