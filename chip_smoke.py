@@ -4,15 +4,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
-``build/kmergma_tpu_torch/``), holds each kernel against its plain PyTorch
-twin on the card at the main path's shapes (bit-identical: the scan is
-integer arithmetic), checks the golden hits through
-``kmergma_tpu_torch.find_genes``, then mines a 64 Mbp synthetic genome
-(four 16 Mbp contigs of hashed background with the 84 Alp_V reference genes
-planted every 500 kb) against the JAX-free int64 host oracle, and shows
-through the kernels' launch counts that the run went through both kernels.
-Last it prints where one ``find_genes`` call's wall goes: each stage timed
-alone, and the device's busy share of one profiled call.
+``build/kmergma_tpu_torch/``) and drives both paths of the port:
+
+* single profile: K1 and K2 against their plain PyTorch twins on the card
+  at the main path's shapes (bit-identical: the scan is integer
+  arithmetic), the golden hits through ``kmergma_tpu_torch.find_genes``,
+  then a 64 Mbp synthetic genome (four 16 Mbp contigs of hashed background
+  with the 84 Alp_V reference genes planted every 500 kb) mined against the
+  JAX-free int64 host oracle, and where one call's wall goes: each stage
+  timed alone, and the device's busy share of one profiled call;
+* cluster mode (the Alp_V set in six clusters): K3, K8 and K5 against
+  their twins, the cluster goldens through ``find_genes_cluster_mode``
+  (the split route, so K5), both routes on one record, then the same
+  genome plus one short contig (the split route again) mined against an
+  int64 host cluster oracle, and where one call's wall goes, stage by
+  stage and on the device.
+
+Each path's kernels are shown to have launched in that path's run: their
+launch counts are set to 0 just before it and read just after.
 
 It imports only the port (``kmergma_tpu_torch``); the JAX package's
 JAX-free host modules that the port shares (FASTA, reference profile,
@@ -20,7 +29,8 @@ threshold, int64 host engine) come through ``kmergma_tpu_torch.host``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Its last line is
-``{"ok": true, "device": {...}}``; the line before it the kernels' JSON.
+``{"ok": true, "device": {...}}``; before it the kernels' JSON and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -44,6 +54,15 @@ GOLDEN_LOCUS = [
     "AM773548.1 | dist = 10.99 | MatchPos = 33845:34133 | GenomePos = 0 | Len = 289",
 ]
 GOLDEN_LOCI = [8543, 20425, 221912, 234018, 450875, 467930, 477868]
+GOLDEN_CLUSTER_THRS = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+GOLDEN_CLUSTER = [
+    "AM773548.1 | Dist = 20.17 | KFV = 3 | MatchPos = 6852:7139 | GenomePos = 0 | Len = 288",
+    "AM773548.1 | Dist = 33.96 | KFV = 4 | MatchPos = 23907:24193 | GenomePos = 0 | Len = 287",
+    "AM773548.1 | Dist = 26.17 | KFV = 3 | MatchPos = 33845:34132 | GenomePos = 0 | Len = 288",
+]
+#: the cluster path's extra contig: shorter than K3's cutover of 65,536
+#: windows, so it takes the split route (K5)
+SHORT_CONTIG_BP = 60_000
 
 
 class SmokeFailure(Exception):
@@ -108,6 +127,28 @@ def write_fasta(path: Path, contigs) -> None:
                 fh.write(seq[full:].tobytes() + b"\n")
 
 
+class HostClusterOracle:
+    """The exact int64 host oracle of cluster mode: one ``HostScanEngine``
+    per cluster, full streams (``mine_genome_clusters(engine=...)``)."""
+
+    def __init__(self, profiles, k: int):
+        from kmergma_tpu_torch.host import HostScanEngine
+
+        self.engines = [HostScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records) for p in profiles]
+
+    def record_streams(self, codes, thrs):
+        return [e.record_stream(codes, thr)[:2] for e, thr in zip(self.engines, thrs)]
+
+
+def clock(fn, sync):
+    """(wall ms, result) of one call of ``fn`` between device synchronises."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
 def timed_ms(fn, sync, reps: int = 5):
     """Median wall time of ``fn`` in ms over ``reps`` runs after one
     warm-up, with ``sync`` (the device synchronise) around each run;
@@ -133,10 +174,6 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
     a first profiled call that only starts the tracer: the device's busy
     time (the union of its kernel, copy and fill intervals) and the wall
     are both read from that one call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch.host import (
         as_records, estimate_optimal_threshold, gen_ref_ws_cons, replay_single, semiglobal_align_batch,
@@ -144,13 +181,6 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
     from kmergma_tpu_torch.ops.scan import ScanEngine
 
     k, ws, r = profile.k, profile.windowsize, profile.n_records
-
-    def clock(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return (time.perf_counter() - t0) * 1e3, out
 
     names = [
         "FASTA parse (as_records)", "reference profile (gen_ref_ws_cons)", "threshold estimate",
@@ -161,24 +191,24 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
     runs = []
     for _ in range(reps):
         ms = dict.fromkeys(names, 0.0)
-        ms[names[0]], records = clock(lambda: as_records(str(fasta)))
-        ms[names[1]], _ = clock(lambda: gen_ref_ws_cons(REF, k))
-        ms[names[2]], _ = clock(lambda: estimate_optimal_threshold(profile.mean_kfv, ws, buffer=8.0))
-        ms[names[3]], engine = clock(lambda: ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device="cuda" if on_card else "cpu"))
+        ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
+        ms[names[1]], _ = clock(lambda: gen_ref_ws_cons(REF, k), sync)
+        ms[names[2]], _ = clock(lambda: estimate_optimal_threshold(profile.mean_kfv, ws, buffer=8.0), sync)
+        ms[names[3]], engine = clock(lambda: ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device="cuda" if on_card else "cpu"), sync)
         thr_int = int(engine._thr_int(thr))
         for rec in records:
             nw = len(rec) - ws + 1
-            t, prep = clock(lambda: engine.prepare_codes(rec.codes))
+            t, prep = clock(lambda: engine.prepare_codes(rec.codes), sync)
             ms[names[4]] += t
-            t, (dist0, stream) = clock(lambda: engine._planned_record(prep, nw, thr))
+            t, (dist0, stream) = clock(lambda: engine._planned_record(prep, nw, thr), sync)
             ms[names[5]] += t
-            t, _ = clock(lambda: engine._record_bitmap(prep, nw, thr_int))
+            t, _ = clock(lambda: engine._record_bitmap(prep, nw, thr_int), sync)
             ms[names[6]] += t
-            t, raw = clock(lambda: replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=len(rec), buff=50))
+            t, raw = clock(lambda: replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=len(rec), buff=50), sync)
             ms[names[7]] += t
             windows = [rec.seq[h.start - 1 : h.stop].decode("ascii").upper() for h in raw]
             if windows:
-                t, _ = clock(lambda: semiglobal_align_batch(profile.consensus_ws, windows, -69, -1))
+                t, _ = clock(lambda: semiglobal_align_batch(profile.consensus_ws, windows, -69, -1), sync)
                 ms[names[8]] += t
         runs.append(ms)
     print(f"stage breakdown of one find_genes call, median of {reps} per stage, shares of the "
@@ -191,18 +221,96 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
         print(f"  {name:<52} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
     print(f"  {'sum of the stages (K1 alone not added)':<52} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
 
+    device_share("find_genes", lambda: kt.find_genes(str(fasta), REF, verbose=False), sync, on_card, label)
+
+
+def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
+    """Print where one ``find_genes_cluster_mode`` call on ``fasta`` spends
+    its wall, each stage run alone with a device synchronise around it,
+    median of ``reps`` over all records; shares are of ``wall_s``.  The
+    replay and the alignment are timed through ``mine_genome_clusters`` on
+    the streams already computed (without, then with, the alignment)."""
+    from kmergma_tpu_torch.host import as_records, cluster_ref_api, eliminate_null_params, estimate_optimal_thresholds
+    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
+    from kmergma_tpu_torch.ops.scan import _planned_streams
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+
+    class Recorded:
+        def __init__(self, streams):
+            self.streams = iter(streams)
+
+        def record_streams(self, codes, thrs):
+            return next(self.streams)
+
+    names = [
+        "FASTA parse (as_records)", "clustering (cluster_ref_api)", "threshold estimates",
+        "ClusterScanEngine set-up (S to the device)", "H2D incl. host zero-padding (prepare_codes)",
+        "bitmap pass: K3 (K8 on the first record), or K5's split pass", "planned passes of all clusters + one D2H",
+        "replay (replay_omn)", "alignment, one candidate at a time",
+    ]
+    runs = []
+    for _ in range(reps):
+        ms = dict.fromkeys(names, 0.0)
+        ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
+        ms[names[1]], clusters = clock(lambda: eliminate_null_params(cluster_ref_api(REF, 6)), sync)
+        ms[names[2]], _ = clock(lambda: estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0), sync)
+        ms[names[3]], eng = clock(lambda: ClusterScanEngine(clusters.profiles, k=6, device=device), sync)
+        kept, streams = [], []
+        for rec in records:
+            n = len(rec)
+            if n - eng.max_ws - eng.k + 2 < 1:
+                continue
+            kept.append(rec)
+            nws = [n - e.ws + 1 for e in eng.engines]
+            thr_ints = [int(e._thr_int(x)) for e, x in zip(eng.engines, thrs)]
+            t, prep = clock(lambda: eng.prepare_codes(rec.codes), sync)
+            ms[names[4]] += t
+            split = max(nws) < eng.fused_min_windows
+            t, bm = clock(lambda: (eng._split_bitmaps if split else eng._fused_bitmaps)(prep, nws, thr_ints), sync)
+            ms[names[5]] += t
+            mis = [min(nw - 1, n - eng.max_ws - eng.k + 2) for nw in nws]
+            t, pairs = clock(lambda: _planned_streams(eng.engines, prep, list(bm), nws, thrs, mis), sync)
+            ms[names[6]] += t
+            streams.append(pairs)
+        kw = dict(thr_vec=thrs, buff=100)
+        ms[names[7]], _ = clock(lambda: mine_genome_clusters(kept, clusters.profiles, do_align=False, engine=Recorded(streams), **kw), sync)
+        t, _ = clock(lambda: mine_genome_clusters(kept, clusters.profiles, engine=Recorded(streams), **kw), sync)
+        ms[names[8]] = t - ms[names[7]]
+        runs.append(ms)
+    print(f"stage breakdown of one find_genes_cluster_mode call, median of {reps} per stage, shares of the "
+          f"{wall_s * 1e3:.3f} ms median wall [{label}]:")
+    staged = 0.0
+    for name in names:
+        med = statistics.median(run_ms[name] for run_ms in runs)
+        staged += med
+        print(f"  {name:<62} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
+    print(f"  {'sum of the stages':<62} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
+
+
+def device_share(what: str, call, sync, on_card: bool, label: str) -> None:
+    """Run ``call`` under torch.profiler, after a first profiled call that
+    only starts the tracer, and print the device's busy time (the union of
+    its kernel, copy and fill intervals) and the wall, both from that one
+    call, with the ten largest device totals by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with torch_profile(activities=activities):
-        kt.find_genes(str(fasta), REF, verbose=False)
+        call()
     with torch_profile(activities=activities) as prof:
-        wall_ms, _ = clock(lambda: kt.find_genes(str(fasta), REF, verbose=False))
+        sync()
+        t0 = time.perf_counter()
+        call()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     dev_events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
     busy_us, end = 0.0, float("-inf")
     for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in dev_events):
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    print(f"profiled find_genes call: wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+    print(f"profiled {what} call: wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"(union of {len(dev_events)} device intervals), busy share {busy_us / 1e3 / wall_ms:.4f}, "
           f"idle share {1 - busy_us / 1e3 / wall_ms:.4f} [{label}]")
     totals: dict = {}
@@ -213,25 +321,47 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
         print(f"  device: {t / 1e3:9.3f} ms in {n:4d} x {name[:90]}")
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, label: str = "") -> dict:
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "") -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
-    Returns the kernels' report."""
+    ``runs`` timed runs follow one warm-up at size, and each stage of the
+    breakdowns is the median of ``runs``.  Returns the kernels' report."""
     import numpy as np
     import torch
 
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch import _kernels
     from kmergma_tpu_torch.host import (
-        HostScanEngine, as_records, estimate_optimal_threshold, gen_ref_ws_cons, scan_rolling_i64_native,
+        HostScanEngine, as_records, cluster_ref_api, eliminate_null_params, estimate_optimal_threshold,
+        estimate_optimal_thresholds, gen_ref_ws_cons, scan_rolling_i64_native,
     )
     from kmergma_tpu_torch.models.miner import mine_genome
+    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
     from kmergma_tpu_torch.ops.scan import (
         ScanEngine, _first_window_l0, _plan_regions, rolling_kmer_codes, scan_window_distances,
     )
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster_fused import (
+        _lookup_roundtrip_plain, cluster_tables_in_smem, fused_cluster_record_bitmaps,
+        fused_cluster_record_bitmaps_plain, lookup_roundtrip,
+    )
     from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
     from kmergma_tpu_torch.ops.scan_kernels import (
-        _match_counts_plain, match_counts, scan_window_distances_kernel,
+        _codes_pair_multi_plain, _match_counts_plain, codes_pair_multi, match_counts,
+        scan_window_distances_kernel,
     )
+
+    wrappers = {
+        "fused_record_bitmaps": fused_record_bitmaps, "match_counts": match_counts,
+        "fused_cluster_record_bitmaps": fused_cluster_record_bitmaps,
+        "codes_pair_multi": codes_pair_multi, "lookup_roundtrip": lookup_roundtrip,
+    }
+
+    def reset_counts() -> None:
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     device = torch.device(device)
     on_card = device.type == "cuda"
@@ -329,20 +459,19 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
     with tempfile.TemporaryDirectory() as tmp:
         fasta = Path(tmp) / "genome.fasta"
         write_fasta(fasta, contigs)
-        fused_record_bitmaps.launches = 0
-        match_counts.launches = 0
+        reset_counts()
         times = []
-        for i in range(4):  # one warm-up, then three timed runs
+        for i in range(runs + 1):  # one warm-up, then the timed runs
             sync()
             t0 = time.perf_counter()
             hits = kt.find_genes(str(fasta), REF, verbose=False)[0]
             sync()
             if i:
                 times.append(time.perf_counter() - t0)
-        launches = {"fused_record_bitmaps": fused_record_bitmaps.launches, "match_counts": match_counts.launches}
+        launches = read_counts()
         t_med = statistics.median(times)
         print(
-            f"find_genes {total_bp} bp ({n_contigs} contigs): median of 3 {t_med:.3f} s "
+            f"find_genes {total_bp} bp ({n_contigs} contigs): median of {runs} {t_med:.3f} s "
             f"= {total_bp / t_med / 1e6:.2f} Mbp/s (runs {', '.join(f'{x:.3f}' for x in times)} s), "
             f"{len(hits)} hits [{label}]"
         )
@@ -352,27 +481,167 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
             engine=HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r),
         )
         print(f"int64 host oracle (HostScanEngine): {time.perf_counter() - t0:.3f} s, {len(oracle_res.hits)} hits [{label}]")
-        stage_breakdown(fasta, profile, thr, t_med, sync, on_card, label)
+        stage_breakdown(fasta, profile, thr, t_med, sync, on_card, label, reps=runs)
     require(len(hits) > 0, "no hits on the planted genome")
     require(
         [(h.description, h.seq) for h in hits] == [(h.description, h.seq) for h in oracle_res.hits],
         "find_genes hits differ from the int64 host oracle",
     )
-    print(f"hits equal the host oracle's; launch counts over the four runs: {launches}")
+    print(f"hits equal the host oracle's; launch counts over the {runs + 1} runs: {launches}")
     if on_card:
-        require(all(v > 0 for v in launches.values()), f"a kernel of the main path never launched: {launches}")
+        require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0,
+                f"a kernel of the single-profile path never launched: {launches}")
+
+    # --- cluster mode: the Alp_V set in six clusters -------------------------
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6))
+    profiles = clusters.profiles
+    cthrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+    ceng = ClusterScanEngine(profiles, k=6, device=device)
+    m = len(profiles)
+    widths = [ws_c - k + 1 for ws_c, _r in ceng.specs]
+    print(
+        f"cluster mode: {m} clusters, windowsizes {clusters.windowsizes}, R {[p.n_records for p in profiles]}, "
+        f"{len(ceng.groups)} windowsize groups, pair depth {ceng.depth}, auto thresholds (buffer 7) {cthrs} [{label}]"
+    )
+
+    # --- K3 vs its plain twin: one whole contig, all clusters --------------
+    record = contigs[0]
+    nws = [record.shape[0] - ws_c + 1 for ws_c, _r in ceng.specs]
+    cprep = ceng.prepare_codes(record)
+    cthr_ints = [int(e._thr_int(x)) for e, x in zip(ceng.engines, cthrs)]
+    l0s = torch.stack([
+        _first_window_l0(cprep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=ceng.depth) for e in ceng.engines
+    ])
+    kw3 = dict(k=k, specs=ceng.specs, depth=ceng.depth, t=ceng.fused_t, block=ceng.block,
+               n_tiles=-(-max(nws) // ceng.fused_t))
+    k3_ms, bm3 = timed_ms(lambda: fused_cluster_record_bitmaps(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), sync)
+    k3_plain_ms, bm3_plain = timed_ms(
+        lambda: fused_cluster_record_bitmaps_plain(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), sync
+    )
+    k3_err = int((bm3 - bm3_plain).abs().max())
+    placement = "the plain twin's gather"
+    if on_card:
+        placement = "shared memory" if cluster_tables_in_smem(m, k, ceng.fused_t, min(widths), max(widths)) else "__ldg"
+    print(
+        f"K3 fused_cluster_record_bitmaps, {record.shape[0]} bp record, {m} clusters, tables read through {placement}: "
+        f"{k3_ms:.3f} ms, plain twin {k3_plain_ms:.3f} ms, bit-identical={k3_err == 0}, "
+        f"active blocks per cluster {[int(x) for x in bm3.sum(dim=1)]} of {bm3.shape[1]} [{label}]"
+    )
+    require(k3_err == 0, "K3 bitmaps differ from the plain twin")
+    require(int(bm3.sum()) > 0, "K3 flagged no block on a record with planted genes")
+
+    # --- K8: every table entry through K3's lookup ------------------------
+    rt = dict(t=ceng.fused_t, w_min=min(widths), w_max=max(widths))
+    k8_ms, back = timed_ms(lambda: lookup_roundtrip(ceng.s_stack, **rt), sync)
+    k8_plain_ms, back_plain = timed_ms(lambda: _lookup_roundtrip_plain(ceng.s_stack), sync)
+    k8_err = max(int((back - ceng.s_stack).abs().max()), int((back - back_plain).abs().max()))
+    print(
+        f"K8 lookup_roundtrip, {m} x {4**k} entries: {k8_ms:.3f} ms, plain twin {k8_plain_ms:.3f} ms, "
+        f"equal to the stack={k8_err == 0} [{label}]"
+    )
+    require(k8_err == 0, "K8 read a table entry back wrong")
+    del cprep, bm3, bm3_plain, back, back_plain
+
+    # --- K5 vs its plain twin: the split pass's shapes ----------------------
+    ws_groups = tuple(g[0] for g in ceng.groups)
+    k5 = {}
+    for n_bp in (SHORT_CONTIG_BP, whole_bp):
+        pp = ceng.prepare_codes(record[:n_bp])
+        span = ceng._split_span(n_bp - min(clusters.windowsizes) + 1)
+        args = (pp, k, ws_groups, span - 1, span + max(widths) - 1, ceng.depth)
+        ms, (ab5, kc5) = timed_ms(lambda: codes_pair_multi(*args), sync)
+        pms, (ab5p, kc5p) = timed_ms(lambda: _codes_pair_multi_plain(*args), sync)
+        err = max(int((ab5 - ab5p).abs().max()), int((kc5 - kc5p).abs().max()))
+        k5[n_bp] = (ms, pms, err)
+        print(
+            f"K5 codes_pair_multi, {n_bp} bp record, span {span}, groups {ws_groups}, depth {ceng.depth}: "
+            f"{ms:.3f} ms, plain twin {pms:.3f} ms, bit-identical={err == 0} [{label}]"
+        )
+        require(err == 0, f"K5 differs from its plain twin on a {n_bp} bp record")
+    k5_err = max(v[2] for v in k5.values())
+
+    # --- cluster goldens through find_genes_cluster_mode (the split route) --
+    reset_counts()
+    hits = kt.find_genes_cluster_mode(
+        str(DATA / "Alp_V_locus.fasta"), REF, kmer_dist_thrs=GOLDEN_CLUSTER_THRS, buffer=100, verbose=False,
+    )[0]
+    golden_launches = read_counts()
+    require([h.description for h in hits] == GOLDEN_CLUSTER, "Alp_V_locus cluster golden hits")
+    print(f"cluster goldens: Alp_V_locus 3 hits exact; launch counts {golden_launches} [{label}]")
+    if on_card:
+        require(golden_launches["codes_pair_multi"] > 0 and golden_launches["match_counts"] > 0,
+                f"the cluster golden did not run K5 and K2: {golden_launches}")
+
+    # --- both routes agree ------------------------------------------------------
+    # the cluster path's short contig (hashed background, three genes) takes
+    # the split route by default; a whole contig takes K3 by default
+    short_contig = hash_codes(SHORT_CONTIG_BP, n_contigs * contig_bp, seed=1)
+    for j, pos in enumerate(range(10_000, SHORT_CONTIG_BP - 1_000, 20_000)):
+        short_contig[pos : pos + genes[j].shape[0]] = genes[j]
+    for codes_r, other in ((short_contig, 1), (record, 1 << 30)):
+        a = ClusterScanEngine(profiles, k=6, device=device)
+        b = ClusterScanEngine(profiles, k=6, device=device)
+        b.fused_min_windows = other
+        sa, sb = a.record_streams(codes_r, cthrs), b.record_streams(codes_r, cthrs)
+        require(sa == sb, f"K3 and split-route streams differ on a {codes_r.shape[0]} bp record")
+        require(any(x[1] for x in sa), f"no cluster stream entries on a {codes_r.shape[0]} bp record with planted genes")
+        print(f"both routes agree on a {codes_r.shape[0]} bp record: {[len(x[1]) for x in sa]} stream entries [{label}]")
+
+    # --- the cluster path at size ------------------------------------------------
+    ccontigs = [*contigs, short_contig]
+    ctotal = sum(c.shape[0] for c in ccontigs)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = Path(tmp) / "genome.fasta"
+        write_fasta(fasta, ccontigs)
+        reset_counts()
+        times = []
+        for i in range(runs + 1):  # one warm-up, then the timed runs
+            sync()
+            t0 = time.perf_counter()
+            chits = kt.find_genes_cluster_mode(str(fasta), REF, verbose=False)[0]
+            sync()
+            if i:
+                times.append(time.perf_counter() - t0)
+        claunches = read_counts()
+        t_med = statistics.median(times)
+        print(
+            f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
+            f"median of {runs} {t_med:.3f} s = {ctotal / t_med / 1e6:.2f} Mbp/s "
+            f"(runs {', '.join(f'{x:.3f}' for x in times)} s), {len(chits)} hits [{label}]"
+        )
+        t0 = time.perf_counter()
+        coracle = mine_genome_clusters(str(fasta), profiles, thr_vec=cthrs, buff=100, engine=HostClusterOracle(profiles, k))
+        print(f"int64 host cluster oracle ({m} x HostScanEngine): {time.perf_counter() - t0:.3f} s, "
+              f"{len(coracle.hits)} hits [{label}]")
+        cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
+        device_share("find_genes_cluster_mode", lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False),
+                     sync, on_card, label)
+    require(len(chits) > 0, "no cluster hits on the planted genome")
+    require(
+        [(h.description, h.seq) for h in chits] == [(h.description, h.seq) for h in coracle.hits],
+        "find_genes_cluster_mode hits differ from the int64 host cluster oracle",
+    )
+    print(f"cluster hits equal the host oracle's; launch counts over the {runs + 1} runs: {claunches}")
+    if on_card:
+        missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts")
+                   if claunches[n] == 0]
+        require(not missing, f"a kernel of the cluster path never launched: {claunches}")
+
+    def entry(name, source, replaces, count, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": f"kmergma_tpu_torch/csrc/{source}", "replaces": replaces,
+                "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     return {"kernels": [
-        {"name": "fused_record_bitmaps", "route": "cuda",
-         "source": "kmergma_tpu_torch/csrc/fused_bitmaps.cu",
-         "replaces": "kmergma_tpu/ops/scan_fused.py:165",
-         "launches": launches["fused_record_bitmaps"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "match_counts", "route": "cuda",
-         "source": "kmergma_tpu_torch/csrc/match_counts.cu",
-         "replaces": "kmergma_tpu/ops/scan_pallas.py:43",
-         "launches": launches["match_counts"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("fused_record_bitmaps", "fused_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
+              launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms),
+        entry("match_counts", "match_counts.cu", "kmergma_tpu/ops/scan_pallas.py:43",
+              launches["match_counts"], k2_err, k2_ms, k2_plain_ms),
+        entry("fused_cluster_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:187",
+              claunches["fused_cluster_record_bitmaps"], k3_err, k3_ms, k3_plain_ms),
+        entry("lookup_roundtrip", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:169",
+              claunches["lookup_roundtrip"], k8_err, k8_ms, k8_plain_ms),
+        entry("codes_pair_multi", "pair_multi.cu", "kmergma_tpu/ops/scan_pallas.py:368",
+              claunches["codes_pair_multi"], k5_err, k5[SHORT_CONTIG_BP][0], k5[SHORT_CONTIG_BP][1]),
     ]}
 
 

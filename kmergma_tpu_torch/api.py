@@ -1,5 +1,5 @@
-"""User-facing single-profile API on the PyTorch scan (counterpart of
-``kmergma_tpu.api``): ``find_genes`` and ``write_results``.
+"""User-facing API on the PyTorch scan (counterpart of ``kmergma_tpu.api``):
+``find_genes``, ``find_genes_cluster_mode`` and ``write_results``.
 
 Kwarg names, defaults, validation, warning texts and output ordering are
 those of the JAX package: the return value is a list whose first element
@@ -15,10 +15,33 @@ import logging
 import warnings
 from typing import Iterable
 
-from .host import FastaRecord, estimate_optimal_threshold, gen_ref_ws_cons, write_fasta
+import numpy as np
+
+from .host import (
+    FastaRecord,
+    cluster_ref_api,
+    eliminate_null_params,
+    estimate_optimal_threshold,
+    estimate_optimal_thresholds,
+    gen_ref_ws_cons,
+    write_fasta,
+)
 from .models.miner import mine_genome
 
 logger = logging.getLogger("kmergma_tpu_torch")
+
+
+def _refuse_unported(devices, checkpoint_path) -> None:
+    if devices is not None:
+        raise NotImplementedError(
+            "devices= (the sharded multi-GPU scan) is not ported yet: "
+            "ROADMAP.md Queue 1 item 10"
+        )
+    if checkpoint_path is not None:
+        raise NotImplementedError(
+            "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
+            "ROADMAP.md Queue 1 item 4"
+        )
 
 
 def _warn_helper(k: int, do_return_dists: bool) -> None:
@@ -51,16 +74,7 @@ def find_genes(
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
     alignments and per-window distances.  ``devices`` and
     ``checkpoint_path`` are not ported yet and raise."""
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= (the sharded multi-GPU scan) is not ported yet: "
-            "ROADMAP.md Queue 1 item 10"
-        )
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4"
-        )
+    _refuse_unported(devices, checkpoint_path)
     if verbose:
         logger.info("pre-processing references and parameters...")
     _warn_helper(k, do_return_dists)
@@ -98,6 +112,87 @@ def find_genes(
         get_hit_loci=do_return_hit_loci,
     )
 
+    return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
+
+
+def find_genes_cluster_mode(
+    genome_path: str,
+    ref_path: str,
+    cluster_cutoffs: list | None = None,
+    k: int = 6,
+    kmer_dist_thrs: "list | np.ndarray | None" = None,
+    buffer: int = 100,
+    do_align: bool = True,
+    gap_open_score: int = -200,
+    gap_extend_score: int = -1,
+    do_return_dists: bool = False,
+    do_return_hit_loci: bool = False,
+    do_return_align: bool = False,
+    verbose: bool = True,
+    kmer_dist_threshold_buffer: float = 7.0,
+    devices: int | None = None,
+    checkpoint_path: str | None = None,
+) -> list:
+    """Cluster-mode (multi-profile) homology search on the first CUDA
+    device (the CPU when there is none): the reference set is clustered by
+    distance to its mean profile and every cluster's profile scans the
+    genome in one pass per record.
+
+    Returns ``[hits]`` plus, in priority order when requested, hit loci,
+    alignments and per-cluster per-window distances.  ``devices`` and
+    ``checkpoint_path`` are not ported yet and raise."""
+    from .models.omn_miner import mine_genome_clusters
+
+    _refuse_unported(devices, checkpoint_path)
+    if cluster_cutoffs is None:
+        cluster_cutoffs = [7, 12, 20, 25]
+    if verbose:
+        logger.info("pre-processing references and parameters...")
+    _warn_helper(k, do_return_dists)
+
+    clusters = eliminate_null_params(cluster_ref_api(ref_path, k, cutoffs=cluster_cutoffs))
+    if k >= min(clusters.windowsizes):
+        raise ValueError(
+            "some/all of the average reference sequence lengths exceeds/is equal to "
+            f"the chosen kmer length {k}. please reduce k. "
+        )
+
+    estimated = estimate_optimal_thresholds(
+        clusters.kfvs, clusters.windowsizes, buffer=kmer_dist_threshold_buffer
+    )
+    if kmer_dist_thrs is None or (len(kmer_dist_thrs) and kmer_dist_thrs[0] == 0):
+        kmer_dist_thrs = estimated
+    else:
+        too_high = [
+            (i + 1, num) for i, num in enumerate(kmer_dist_thrs) if num > estimated[i]
+        ]
+        if too_high:
+            inds = ", ".join(str(i) for i, _ in too_high)
+            warnings.warn(
+                f"The kmer distance thresholds {list(kmer_dist_thrs)} at index/indicies {inds} "
+                f"for k = {k} is potentially too high, and may result in more false positives."
+            )
+
+    if verbose:
+        logger.info("initializing iteration...")
+    res = mine_genome_clusters(
+        genome_path,
+        clusters.profiles,
+        thr_vec=list(map(float, kmer_dist_thrs)),
+        buff=buffer,
+        do_align=do_align,
+        gap_open=gap_open_score,
+        gap_extend=gap_extend_score,
+        do_return_dists=do_return_dists,
+        do_return_align=do_return_align,
+        get_hit_loci=do_return_hit_loci,
+    )
+    return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
+
+
+def _outputs(res, do_return_hit_loci: bool, do_return_align: bool, do_return_dists: bool, verbose: bool) -> list:
+    """[hits] plus hit loci, alignments and distances, in that order when
+    requested; logs the scan stats when ``verbose``."""
     out: list = [res.hits]
     if do_return_hit_loci:
         out.append(res.hit_loci)

@@ -40,6 +40,14 @@ def profile_to_torch(profile: RefProfile, device) -> tuple[torch.Tensor, int, in
     return s, profile.k, profile.windowsize, profile.n_records
 
 
+def profiles_to_torch(profiles: list[RefProfile], device) -> tuple[torch.Tensor, list[tuple[int, int]]]:
+    """The cluster scan's parameters: (int32 stack S[m, 4^k] on ``device``,
+    [(ws, r) per cluster]), from the same numpy ``RefProfile``s the JAX
+    ``ClusterScanEngine`` stacks."""
+    stack = np.stack([np.asarray(p.sum_kfv, dtype=np.int32) for p in profiles])
+    return torch.as_tensor(stack, device=device), [(p.windowsize, p.n_records) for p in profiles]
+
+
 def rolling_kmer_codes(codes: torch.Tensor, k: int) -> torch.Tensor:
     """K[..., i] = code of the k-mer at i along the last axis (int32).
 
@@ -55,6 +63,12 @@ def profile_lookup(kcodes: torch.Tensor, s_profile: torch.Tensor) -> torch.Tenso
     """g = S[K], a plain gather (the JAX one-hot MXU route is a TPU
     workaround for its missing wide gather)."""
     return s_profile[kcodes]
+
+
+def profile_lookup_multi(kcodes: torch.Tensor, s_stack: torch.Tensor) -> torch.Tensor:
+    """g[c, i] = S_c[K[i]] for a stack of m profiles (int32[m, len(K)]): a
+    plain gather (the JAX one-hot MXU route is a TPU workaround)."""
+    return s_stack[:, kcodes]
 
 
 def _cumsum32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -340,6 +354,58 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
+def _planned_streams(engines: list, prep: torch.Tensor, flats: list, nws: list, thrs: list, mis: list) -> list:
+    """The planned pass after the bitmap, for one or more profiles of one
+    record (the cluster engine passes one ``ScanEngine`` per cluster).
+
+    Per profile i: the device region plan from ``flats[i]`` (a flat bool
+    block bitmap), the K2 exact recompute of the planned regions, the
+    below mask at the exact threshold of ``thrs[i]`` and the device run
+    reduce up to stream index ``mis[i]``; then ONE device-to-host copy for
+    all profiles.  A profile whose region bucket overflows reruns its plan
+    and recompute at the next power of two >= its true region count (one
+    more copy, for those profiles only); one whose run bucket overflows
+    reruns its reduce alone.  The engines' buckets never change.  Returns
+    [(dist0, stream)] in engine order."""
+    rspan = engines[0].rspan
+    thr_exact = [int(e._thr_exact(t)) for e, t in zip(engines, thrs)]
+    # a record never holds more regions than rspan-grid cells
+    n_regions = [min(e.plan_regions, -(-nw // rspan)) for e, nw in zip(engines, nws)]
+    buckets = [e.run_bucket for e in engines]
+    outs: list = [None] * len(engines)
+    kept: list = [None] * len(engines)
+    todo = list(range(len(engines)))
+    while todo:
+        parts = []
+        for i in todo:
+            starts, nvr_t, d, below = engines[i]._regions(prep, flats[i], nws[i], thr_exact[i], n_regions[i])
+            red = _device_run_reduce(d, below, starts, rspan, mis[i], buckets[i])
+            kept[i] = (starts, d, below)
+            parts.append(torch.cat([nvr_t.view(1), d[0, :1], red]))
+        host = torch.cat(parts).cpu().numpy()
+        again = []
+        off = 0
+        for i, part in zip(todo, parts):
+            out = host[off : off + part.shape[0]]
+            off += part.shape[0]
+            if int(out[0]) > n_regions[i]:
+                n_regions[i] = _next_pow2(int(out[0]))
+                again.append(i)
+            else:
+                outs[i] = out
+        todo = again
+    result = []
+    for i, eng in enumerate(engines):
+        dist0 = float(np.int64(outs[i][1])) / eng.scale
+        red_np, R = outs[i][2:], buckets[i]
+        if int(red_np[0]) > R:
+            R = _next_pow2(int(red_np[0]))
+            starts, d, below = kept[i]
+            red_np = _device_run_reduce(d, below, starts, rspan, mis[i], R).cpu().numpy()
+        result.append((dist0, eng._stream_from_device_reduce(red_np, dist0, R)))
+    return result
+
+
 class ScanEngine:
     """Runs the device scan of whole records for one reference profile.
 
@@ -472,33 +538,10 @@ class ScanEngine:
 
     def _planned_record(self, prep: torch.Tensor, nw: int, thr: float):
         """One planned pass: K1 bitmap, device region plan, K2 exact region
-        recompute, device run reduce, and a single device-to-host copy.
-
-        A bucket that overflows reruns this record only: the region plan
-        and recompute at the next power of two >= the true region count,
-        or the run reduce alone at the next power of two >= the true run
-        count.  Returns (dist0, stream)."""
-        thr_int = int(self._thr_int(thr))
-        thr_exact = int(self._thr_exact(thr))
-        rspan = self.rspan
-        flat = self._record_bitmap(prep, nw, thr_int)
-        # a record never holds more regions than rspan-grid cells
-        n_regions = min(self.plan_regions, -(-nw // rspan))
-        R = self.run_bucket
-        while True:
-            starts, nvr_t, d, below = self._regions(prep, flat, nw, thr_exact, n_regions)
-            red = _device_run_reduce(d, below, starts, rspan, nw - 1, R)
-            out = torch.cat([nvr_t.view(1), d[0, :1], red]).cpu().numpy()
-            nvr = int(out[0])
-            if nvr <= n_regions:
-                break
-            n_regions = _next_pow2(nvr)
-        dist0 = float(np.int64(out[1])) / self.scale
-        red_np = out[2:]
-        if int(red_np[0]) > R:
-            R = _next_pow2(int(red_np[0]))
-            red_np = _device_run_reduce(d, below, starts, rspan, nw - 1, R).cpu().numpy()
-        return dist0, self._stream_from_device_reduce(red_np, dist0, R)
+        recompute, device run reduce, and a single device-to-host copy
+        (``_planned_streams``).  Returns (dist0, stream)."""
+        flat = self._record_bitmap(prep, nw, int(self._thr_int(thr)))
+        return _planned_streams([self], prep, [flat], [nw], [thr], [nw - 1])[0]
 
     def _stream_from_device_reduce(self, red: np.ndarray, dist0: float, run_bucket: int):
         """Stream assembly from a fetched ``_device_run_reduce`` section

@@ -1,0 +1,233 @@
+"""One-pass multi-profile (cluster) scan in PyTorch (counterpart of
+``kmergma_tpu.ops.scan_cluster``).
+
+Cluster mode scans every record against m cluster profiles.  What does not
+depend on the profile is shared: one host-to-device copy per record, the K
+codes, and the depth-limited pair counts, which depend only on the window
+width, so clusters are grouped by windowsize (the Alp_V set at k = 6: six
+clusters, three groups).  Per record the engine builds the m activity
+bitmaps by one of two routes:
+
+  * records with at least ``fused_min_windows`` windows in the largest
+    cluster: K3, the fused multi-cluster bitmap kernel
+    (``ops/scan_cluster_fused.py``); the first such record of an engine
+    also runs K8, which checks K3's table staging and raises on a mismatch;
+  * shorter records: the split pass (``_cluster_record_bitmaps``), whose
+    pair counts come from K5 (``ops/scan_kernels.codes_pair_multi``) in
+    one launch for every windowsize group.
+
+Both give each cluster the bitmap of its own single-profile K1 pass.  Then
+the single-profile planned pass runs per cluster (device region plan, K2
+exact region recompute, device run reduce, ``scan._planned_streams``),
+with one device-to-host copy for all m, and each stream stops at the
+cluster loop's bound (see ``record_streams``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..host import RefProfile
+from .scan import (
+    ScanEngine,
+    _check_record_len,
+    _cumsum32,
+    _k1_halo,
+    _planned_streams,
+    profile_lookup_multi,
+    profiles_to_torch,
+    rolling_kmer_codes,
+)
+from .scan_cluster_fused import MAX_CLUSTERS
+
+
+def _shared_p0(kcodes: torch.Tensor, w: int, depth: int) -> torch.Tensor:
+    """First-window equal-k-mer pair count at partner distance <= depth
+    (0-dim int64): the profile-independent part of the first-window
+    lower bound, shared by a windowsize group."""
+    k0 = kcodes[:w]
+    p0 = torch.zeros((), dtype=torch.int64, device=kcodes.device)
+    for d in range(1, depth + 1):
+        p0 = p0 + (k0[d:] == k0[: w - d]).sum()
+    return p0
+
+
+def _first_bounds(kcodes: torch.Tensor, g_all: torch.Tensor, s2: torch.Tensor, groups: tuple, k: int) -> torch.Tensor:
+    """Every cluster's first-window lower bound L[0] = r^2 (w + 2 P̂_0) -
+    2 r G_0 + ||S||^2 (int32[m], as ``scan._lower_bound_base``), from the K
+    codes and the lookups g_all[c, i] = S_c[K[i]] of a record."""
+    l0 = torch.empty(g_all.shape[0], dtype=torch.int32, device=g_all.device)
+    for ws, depth, idxs, rs in groups:
+        w = ws - k + 1
+        sel = list(idxs)
+        r = torch.tensor(rs, dtype=torch.int64, device=g_all.device)
+        p0 = _shared_p0(kcodes, w, depth)
+        g0 = g_all[sel, :w].sum(dim=1, dtype=torch.int64)
+        l0[sel] = (r * r * (w + 2 * p0) - 2 * r * g0 + s2[sel]).to(torch.int32)
+    return l0
+
+
+def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_stack: torch.Tensor, thr_ints: torch.Tensor, *, k: int, span: int, block: int, groups: tuple) -> torch.Tensor:
+    """The split pass over a whole record as one span of ``span`` windows
+    (the record's, rounded up to the region grid): bool[m, span // block],
+    cluster-major.  The JAX pass cuts long records into spans; here only
+    records under ``fused_min_windows`` windows take this pass, so one
+    span always holds the record.
+
+    groups: (ws, depth, cluster indices, r per cluster) per windowsize;
+    thr_ints / n_valids: int32[m] conservative thresholds and window
+    counts on the device.  The K codes and every group's pair deltas come
+    from one K5 call (which reads zeros past the end of ``codes_dev``), all
+    m lookups from one gather; each group's clusters then run their delta,
+    prefix sum, threshold, validity mask and block any() together."""
+    from .scan_kernels import codes_pair_multi
+
+    s2 = (s_stack.to(torch.int64) ** 2).sum(dim=1)
+    pos = torch.arange(span, dtype=torch.int64, device=codes_dev.device)
+    nt = span - 1
+    max_w = max(g[0] for g in groups) - k + 1
+    depth = groups[0][1]
+    ab_multi, kcodes = codes_pair_multi(codes_dev, k, tuple(g[0] for g in groups), nt, span + max_w - 1, depth)
+    g_all = profile_lookup_multi(kcodes, s_stack)  # (m, span + max_w - 1)
+    l0 = _first_bounds(kcodes, g_all, s2, groups, k)
+    bitmaps: list = [None] * s_stack.shape[0]
+    for gi, (ws, _depth, idxs, rs) in enumerate(groups):
+        w = ws - k + 1
+        sel = list(idxs)
+        g_g = g_all[sel]
+        r = torch.tensor(rs, dtype=torch.int32, device=g_all.device)[:, None]
+        delta = (2 * r * r) * ab_multi[gi][None, :] + (2 * r) * (g_g[:, :nt] - g_g[:, w : w + nt])
+        l0_g = l0[sel][:, None]
+        bounds = torch.cat([l0_g, l0_g + _cumsum32(delta, dim=1)], dim=1)
+        below = (bounds < thr_ints[sel][:, None]) & (pos[None, :] < n_valids[sel][:, None])
+        bm = below.view(len(sel), span // block, block).any(dim=2)
+        for j, ci in enumerate(idxs):
+            bitmaps[ci] = bm[j]
+    return torch.stack(bitmaps)
+
+
+class ClusterScanEngine:
+    """Scans whole records against m cluster profiles on ``device``.
+
+    Holds one ``ScanEngine`` per cluster, which supply the thresholds, the
+    scale, the planned pass after the bitmap and the whole-record
+    distances; the cluster engine replaces their m bitmap passes with one
+    (``record_streams``).  Every cluster must share one pair depth: a
+    cluster whose window is shorter than k + 16 clamps its depth, and such
+    mixed sets raise ``NotImplementedError``."""
+
+    def __init__(self, profiles: list[RefProfile], k: int, device=None):
+        if not 1 <= len(profiles) <= MAX_CLUSTERS:
+            raise ValueError(f"cluster mode takes 1..{MAX_CLUSTERS} profiles, got {len(profiles)}")
+        self.k = k
+        self.engines = [
+            ScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records, device=device) for p in profiles
+        ]
+        e0 = self.engines[0]
+        self.device = e0.device
+        self.block, self.fused_t = e0.block, e0.fused_t
+        self.max_ws = max(e.ws for e in self.engines)
+        self.s_stack, self.specs = profiles_to_torch(profiles, self.device)
+        depths = sorted({e.bound_depth for e in self.engines})
+        if len(depths) != 1:
+            raise NotImplementedError(
+                f"cluster profiles with mixed pair depths {depths} (a windowsize below k + 16) "
+                "need the K4/K6 pair kernels, not ported yet: ROADMAP.md Queue 1 item 5 "
+                "(deferred) and Queue 2 K4/K6"
+            )
+        self.depth = depths[0]
+        by_ws: dict[int, list[int]] = {}
+        for ci, e in enumerate(self.engines):
+            by_ws.setdefault(e.ws, []).append(ci)
+        #: (ws, depth, cluster indices, r per cluster) per windowsize group
+        self.groups = tuple(
+            (ws, self.depth, tuple(cis), tuple(self.engines[ci].r for ci in cis))
+            for ws, cis in sorted(by_ws.items())
+        )
+        #: records whose largest cluster has at least this many windows go
+        #: through K3; shorter ones through the split pass (tests change it)
+        self.fused_min_windows = 1 << 16
+        self._lookup_checked = False
+
+    def _split_span(self, nw_max: int) -> int:
+        """Windows of the split pass's one span: the record's, rounded up
+        to the region grid."""
+        rspan = self.engines[0].rspan
+        return -(-nw_max // rspan) * rspan
+
+    def prepare_codes(self, codes: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy of a record as int8 codes, zero-padded for
+        the widest cluster: for K3's tiles and halo, the split pass's span
+        and K5's tiles, and region rows near the record end."""
+        from .scan_kernels import _pair_multi_need
+
+        codes = np.asarray(codes, dtype=np.int8)
+        n = codes.shape[0]
+        _check_record_len(n)
+        nw_max = max(1, n - min(e.ws for e in self.engines) + 1)
+        max_w = self.max_ws - self.k + 1
+        n_tiles = -(-nw_max // self.fused_t)
+        span = self._split_span(nw_max)
+        split_need = _pair_multi_need(tuple(g[0] for g in self.groups), span - 1, span + max_w - 1)[1]
+        total = max(n + self.engines[0].rspan + 1, n_tiles * self.fused_t + _k1_halo(max_w), split_need)
+        padded = np.zeros(total, dtype=np.int8)
+        padded[:n] = codes
+        return torch.from_numpy(padded).to(self.device)
+
+    def record_streams(self, codes: np.ndarray, thrs: list[float]) -> list[tuple[float, list[tuple[int, float]]]]:
+        """Scan one record against every cluster; return one (dist0, stream)
+        per cluster, the contract ``replay_omn`` consumes.
+
+        Each stream is the single-profile engine's minimal stream cut at the
+        cluster loop's bound: the loop scans windows i <= imax = n - max(ws)
+        - k + 2 only (KmerGMA.jl OmnGenomeMiner.jl:89), so cluster c's last
+        stream index is min(nw_c - 1, imax)."""
+        if len(thrs) != len(self.engines):
+            raise ValueError(f"{len(self.engines)} clusters but {len(thrs)} thresholds")
+        n = codes.shape[0]
+        _check_record_len(n)
+        nws = [n - e.ws + 1 for e in self.engines]
+        if min(nws) < 1:
+            raise ValueError("record shorter than a cluster windowsize")
+        prep = self.prepare_codes(codes)
+        thr_ints = [int(e._thr_int(t)) for e, t in zip(self.engines, thrs)]
+        if max(nws) >= self.fused_min_windows:
+            bitmaps = self._fused_bitmaps(prep, nws, thr_ints)
+        else:
+            bitmaps = self._split_bitmaps(prep, nws, thr_ints)
+        imax = n - self.max_ws - self.k + 2
+        mis = [min(nw - 1, imax) for nw in nws]
+        return _planned_streams(self.engines, prep, list(bitmaps), nws, list(thrs), mis)
+
+    def _split_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int]) -> torch.Tensor:
+        """The split pass (K5): bool[m, n_blocks]."""
+        span = self._split_span(max(nws))
+        nws_t = torch.tensor(nws, dtype=torch.int32, device=self.device)
+        thr_t = torch.tensor(thr_ints, dtype=torch.int32, device=self.device)
+        return _cluster_record_bitmaps(
+            prep, nws_t, self.s_stack, thr_t,
+            k=self.k, span=span, block=self.block, groups=self.groups,
+        )
+
+    def _fused_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int]) -> torch.Tensor:
+        """K3 over the whole record: bool[m, n_tiles * t // block].  The
+        engine's first K3 record runs K8 first and raises on a mismatch."""
+        from .scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
+
+        t = self.fused_t
+        if not self._lookup_checked:
+            widths = [ws - self.k + 1 for ws, _r in self.specs]
+            got = lookup_roundtrip(self.s_stack, t=t, w_min=min(widths), w_max=max(widths))
+            if not torch.equal(got, self.s_stack):
+                raise RuntimeError("K8: a profile table entry came back wrong through K3's lookup")
+            self._lookup_checked = True
+        head = rolling_kmer_codes(prep[: self.max_ws], self.k)
+        s2 = (self.s_stack.to(torch.int64) ** 2).sum(dim=1)
+        l0s = _first_bounds(head, profile_lookup_multi(head, self.s_stack), s2, self.groups, self.k)
+        bm = fused_cluster_record_bitmaps(
+            prep, self.s_stack, thr_ints, l0s, nws,
+            k=self.k, specs=self.specs, depth=self.depth, t=t, block=self.block,
+            n_tiles=-(-max(nws) // t),
+        )
+        return bm.bool()

@@ -1,0 +1,157 @@
+"""K3, the fused multi-cluster bitmap pass (counterpart of
+``kmergma_tpu.ops.scan_cluster_fused.fused_cluster_record_bitmaps``), K8,
+the round trip of every table entry through K3's lookup (counterpart of
+``pack_lookup_roundtrip``), and their plain twins.
+
+Both wrappers launch hand-written CUDA kernels of
+``csrc/fused_cluster_bitmaps.cu`` on CUDA tensors and run their plain
+PyTorch twins on CPU tensors; any other device raises.  K3's bitmap is,
+per cluster, exactly that cluster's K1 bitmap (``fused_record_bitmaps``
+with its own table, threshold, first-window bound and window count),
+cluster-major: int32[m, n_tiles * t // block].
+
+Source note.  K3 replaces ``kmergma_tpu/ops/scan_cluster_fused.py::
+_fused_cluster_kernel``: K1 for m profiles in one pass, bound like K1 by
+shared-memory reads.  The pair counts are computed once per window for
+every cluster (``csrc/pair_counts.cuh``), each cluster then adds two
+table reads and a block scan; the m tables sit in shared memory when they
+fit beside the tile (m = 6 at k = 6) and are read through ``__ldg``
+otherwise, and the carry chain is K1's two passes with the tile bases
+scanned here in torch.  K8 replaces the kernel of ``pack_lookup_roundtrip``,
+which certified the TPU's MXU one-hot lookup per chip; here it stages the
+tables as K3 does and reads every entry back through K3's lookup, the
+check of K3's table staging on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .scan import _k1_halo, profile_lookup_multi
+from .scan_fused import _THREADS, fused_record_bitmaps_plain
+
+#: clusters one K3 launch takes (the per-cluster scalars ride the launch)
+MAX_CLUSTERS = 32
+
+
+def fused_cluster_record_bitmaps_plain(codes: torch.Tensor, s_stack: torch.Tensor, thrs, l0s: torch.Tensor, nws, *, k: int, specs, depth: int, t: int, block: int, n_tiles: int) -> torch.Tensor:
+    """The plain PyTorch twin of K3: each cluster's K1 plain twin
+    (``fused_record_bitmaps_plain``) with its own (S_c, thr_c, l0_c, nw_c,
+    ws_c, r_c).  int32[m, n_tiles * t // block]."""
+    return torch.stack([
+        fused_record_bitmaps_plain(
+            codes, s_stack[c], int(thrs[c]), l0s[c], int(nws[c]),
+            k=k, ws=ws, r=r, depth=depth, t=t, block=block, n_tiles=n_tiles,
+        ).reshape(-1)
+        for c, (ws, r) in enumerate(specs)
+    ])
+
+
+def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thrs, l0s: torch.Tensor, nws, *, k: int, specs, depth: int, t: int = 4096, block: int = 512, n_tiles: int) -> torch.Tensor:
+    """Whole-record fused bitmap pass for m cluster profiles.
+
+    codes: int8[>= n_tiles * t + halo] record codes (0..3), zero-padded;
+    s_stack: int32[m, 4^k]; specs: (ws_c, r_c) per cluster; thrs: the
+    conservative integer thresholds; l0s: int32[m], each cluster's
+    first-window lower bound at ``depth``; nws: the window counts.
+    Returns int32[m, n_tiles * t // block] activity flags."""
+    m = len(specs)
+    widths = [ws - k + 1 for ws, _r in specs]
+    if codes.dim() != 1 or codes.dtype != torch.int8 or codes.shape[0] < n_tiles * t + _k1_halo(max(widths)):
+        raise ValueError(
+            f"fused_cluster_record_bitmaps wants int8[>= {n_tiles * t + _k1_halo(max(widths))}] codes, "
+            f"got {codes.dtype}{tuple(codes.shape)}"
+        )
+    if s_stack.dtype != torch.int32 or s_stack.shape != (m, 4**k) or not 1 <= m <= MAX_CLUSTERS:
+        raise ValueError(
+            f"fused_cluster_record_bitmaps wants int32[m, {4**k}] S with 1 <= m <= {MAX_CLUSTERS}, "
+            f"got {s_stack.dtype}{tuple(s_stack.shape)} for {m} specs"
+        )
+    if len(thrs) != m or len(nws) != m or l0s.shape != (m,):
+        raise ValueError(f"fused_cluster_record_bitmaps: {m} clusters need m thresholds, bounds and window counts")
+    if t % block or block % _THREADS or not 0 <= depth < min(widths) or depth > 255:
+        raise ValueError(
+            f"fused_cluster_record_bitmaps: need t % block == 0, block % {_THREADS} == 0, "
+            f"0 <= depth < min(w), depth <= 255 (t={t}, block={block}, depth={depth}, w_min={min(widths)})"
+        )
+    kw = dict(k=k, specs=specs, depth=depth, t=t, block=block, n_tiles=n_tiles)
+    if codes.device.type == "cpu":
+        return fused_cluster_record_bitmaps_plain(codes, s_stack, thrs, l0s, nws, **kw)
+    if codes.device.type != "cuda":
+        raise ValueError(f"fused_cluster_record_bitmaps: unsupported device {codes.device}")
+    if not (codes.is_contiguous() and s_stack.is_contiguous() and s_stack.device == codes.device):
+        raise ValueError("fused_cluster_record_bitmaps: codes and S must be contiguous on one device")
+    from .._kernels import check, int_array, load
+
+    lib = load()
+    dev = codes.device
+    totals = torch.empty((m, n_tiles), dtype=torch.int64, device=dev)
+    bitmap = torch.empty((m, n_tiles * (t // block)), dtype=torch.int32, device=dev)
+    scalars = [int_array(v) for v in (widths, [r for _ws, r in specs], thrs, nws)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (codes.data_ptr(), s_stack.data_ptr(), m, 4**k, k, *scalars, depth, t, block, n_tiles)
+        check(lib.kmg_fused_cluster_bitmaps(*args, None, totals.data_ptr(), None, 0, stream), "fused_cluster_record_bitmaps pass 1")
+        fused_cluster_record_bitmaps.launches += 1
+        # per cluster, K1's tile bases: l0_c plus an exclusive prefix sum of
+        # the tile totals, in int64, checked to fit int32
+        bases64 = l0s.to(torch.int64)[:, None] + torch.cumsum(totals, 1) - totals
+        if not bool(((bases64 >= -(2**31)) & (bases64 < 2**31)).all()):
+            raise OverflowError("fused_cluster_record_bitmaps: a tile base overflows int32")
+        bases = bases64.to(torch.int32)
+        check(lib.kmg_fused_cluster_bitmaps(*args, bases.data_ptr(), None, bitmap.data_ptr(), 1, stream), "fused_cluster_record_bitmaps pass 2")
+        fused_cluster_record_bitmaps.launches += 1
+    return bitmap
+
+
+#: K3 launches (two per call: totals, then bitmap) since the count was
+#: last set to 0
+fused_cluster_record_bitmaps.launches = 0
+
+
+def cluster_tables_in_smem(m: int, k: int, t: int, w_min: int, w_max: int) -> bool:
+    """Whether K3 (and K8) stage the m tables in shared memory on the
+    current CUDA device for tiles of t windows and widths w_min..w_max
+    (else they read them through ``__ldg``)."""
+    from .._kernels import check, load
+
+    got = load().kmg_cluster_tables_in_smem(m, 4**k, t, w_min, w_max)
+    if got < 0:
+        check(-got, "cluster_tables_in_smem")
+    return bool(got)
+
+
+def _lookup_roundtrip_plain(s_stack: torch.Tensor) -> torch.Tensor:
+    """The plain twin of K8: every S_c[v] through ``profile_lookup_multi``."""
+    return profile_lookup_multi(torch.arange(s_stack.shape[1], device=s_stack.device), s_stack)
+
+
+def lookup_roundtrip(s_stack: torch.Tensor, *, t: int, w_min: int, w_max: int) -> torch.Tensor:
+    """Every entry S_c[v] read back through K3's lookup, with the tables
+    placed as K3 places them for tiles of t windows and window widths
+    w_min..w_max.  int32[m, 4^k], equal to ``s_stack`` when K3's staging is
+    right.  Launches K8 on a CUDA tensor, the plain twin on a CPU tensor."""
+    m = s_stack.shape[0]
+    if s_stack.dim() != 2 or s_stack.dtype != torch.int32 or not 1 <= m <= MAX_CLUSTERS:
+        raise ValueError(f"lookup_roundtrip wants int32[m, 4^k] with 1 <= m <= {MAX_CLUSTERS}, got {s_stack.dtype}{tuple(s_stack.shape)}")
+    if s_stack.device.type == "cpu":
+        return _lookup_roundtrip_plain(s_stack)
+    if s_stack.device.type != "cuda":
+        raise ValueError(f"lookup_roundtrip: unsupported device {s_stack.device}")
+    from .._kernels import check, load
+
+    lib = load()
+    s_stack = s_stack.contiguous()
+    out = torch.empty_like(s_stack)
+    with torch.cuda.device(s_stack.device):
+        stream = torch.cuda.current_stream(s_stack.device).cuda_stream
+        check(
+            lib.kmg_lookup_roundtrip(s_stack.data_ptr(), m, s_stack.shape[1], t, w_min, w_max, out.data_ptr(), stream),
+            "lookup_roundtrip",
+        )
+    lookup_roundtrip.launches += 1
+    return out
+
+
+#: K8 launches since the count was last set to 0
+lookup_roundtrip.launches = 0

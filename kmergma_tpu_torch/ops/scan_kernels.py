@@ -1,38 +1,58 @@
 """K2, the full-depth match-count kernel (counterpart of
 ``kmergma_tpu.ops.scan_pallas.match_counts``), its plain twin, and the
-whole-record distance scan built on it.
+whole-record distance scan built on it; K5, the multi-windowsize pair
+kernel of the cluster split pass (counterpart of ``codes_pair_multi`` and
+``codes_pair_roll_multi``), and its plain twin.
 
-``match_counts`` launches the hand-written CUDA kernel
-``csrc/match_counts.cu`` on CUDA tensors and runs the plain PyTorch twin on
-CPU tensors; any other device raises.
+``match_counts`` and ``codes_pair_multi`` launch the hand-written CUDA
+kernels ``csrc/match_counts.cu`` and ``csrc/pair_multi.cu`` on CUDA
+tensors and run their plain PyTorch twins on CPU tensors; any other
+device raises.
 
-Source note.  Replaces ``kmergma_tpu/ops/scan_pallas.py::_match_counts_kernel``.
+Source note (K2).  Replaces ``kmergma_tpu/ops/scan_pallas.py::_match_counts_kernel``.
 On the H100 it is bound by shared-memory reads: 2w compares per position
 (568 at ws = 289, k = 6) against one read of K and one write of AB in
 device memory.  One block stages a row of t + w int32 K codes in shared
 memory and neighbouring threads take neighbouring positions, so the reads
 are free of bank conflicts; rows may overlap in memory (a row stride), so
 the whole-record scan tiles K without a copy.
+
+Source note (K5).  Replaces ``_codes_pair_roll_multi_kernel`` (K5r) and
+``_codes_pair_multi_kernel`` (K5) of ``kmergma_tpu/ops/scan_pallas.py``,
+bit-identical variants that differ only in how Mosaic kept VMEM, so one
+kernel serves both contracts.  Bound by shared-memory reads: 2 * depth
+compares per position for all G windowsize groups together, because
+ab_g[p] = Lc[p + w_g] - Rc[p] with left and right pair counts shared by
+every group (``csrc/pair_counts.cuh``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .scan import _cumsum32, _first_window_d0, profile_lookup, rolling_kmer_codes
+from .scan import _cumsum32, _first_window_d0, _pair_ab, profile_lookup, rolling_kmer_codes
 
 
 def _match_counts_plain(tiles_k: torch.Tensor, w: int, t: int) -> torch.Tensor:
     """AB[:, p] = sum_{d=1..w} [K[p+w-d] == K[p+w]] - [K[p+d-1] == K[p]]
-    per row: the plain PyTorch twin of K2."""
-    kl = tiles_k[:, :t]
-    kr = tiles_k[:, w : w + t]
-    a = torch.zeros(kl.shape, dtype=torch.int32, device=tiles_k.device)
-    b = torch.zeros_like(a)
-    for d in range(1, w + 1):
-        a += tiles_k[:, w - d : w - d + t] == kr
-        b += tiles_k[:, d - 1 : d - 1 + t] == kl
-    return a - b
+    per row: the plain PyTorch twin of K2.
+
+    Both sums count one code among the row's columns [p, p + w): the
+    entering code K[p+w] and the leaving code K[p].  They are read off each
+    row's sorted (code, column) keys v * L + c: the count of code v among
+    columns [lo, hi) is the number of keys in [v L + lo, v L + hi), two
+    binary searches instead of 2w passes over the row (cluster mode runs
+    this twin m times per record on the CPU)."""
+    n_cols = tiles_k.shape[1]
+    cols = torch.arange(n_cols, device=tiles_k.device)
+    keys = torch.sort(tiles_k.to(torch.int64) * n_cols + cols, dim=1).values
+    p = cols[:t]
+
+    def in_window(v: torch.Tensor) -> torch.Tensor:
+        lo = v * n_cols + p
+        return torch.searchsorted(keys, lo + w) - torch.searchsorted(keys, lo)
+
+    return (in_window(tiles_k[:, w : w + t].to(torch.int64)) - in_window(tiles_k[:, :t].to(torch.int64))).to(torch.int32)
 
 
 def match_counts(tiles_k: torch.Tensor, w: int, t: int) -> torch.Tensor:
@@ -96,3 +116,74 @@ def scan_window_distances_kernel(codes: torch.Tensor, s_profile: torch.Tensor, k
     delta = r2 * (kl != kr).to(torch.int32) + r2 * ab[: nw - 1] + (2 * r) * (g[: nw - 1] - g[w : w + nw - 1])
     d0 = _first_window_d0(kcodes, s_profile, w, r)
     return torch.cat([d0.view(1), d0 + _cumsum32(delta)])
+
+
+#: K5's tile: positions per CUDA block
+_PAIR_T = 4096
+
+
+def _pair_multi_need(ws_tuple: tuple, nt: int, nkc: int) -> tuple[int, int]:
+    """(tiles, codes the kernel reads) of ``codes_pair_multi``: each tile
+    builds _PAIR_T + w_max K codes, from _PAIR_T + max(ws) codes."""
+    n_tiles = max(1, -(-max(nt, nkc) // _PAIR_T))
+    return n_tiles, n_tiles * _PAIR_T + max(ws_tuple)
+
+
+def _codes_pair_multi_plain(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc: int, depth: int):
+    """The plain PyTorch twin of K5: (ab int32[G, nt], kcodes int32[nkc])
+    with ab[g] = ``_pair_ab(K, ws_g - k + 1, nt, depth)``; codes past the
+    end read as zeros."""
+    need = max(nt + max(ws_tuple) - k + 1, nkc) + k - 1
+    codes = torch.nn.functional.pad(codes[:need], (0, max(0, need - codes.shape[0])))
+    kc = rolling_kmer_codes(codes, k)
+    ab = torch.stack([_pair_ab(kc, ws - k + 1, nt, depth) for ws in ws_tuple])
+    return ab, kc[:nkc]
+
+
+def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc: int, depth: int):
+    """Net pair deltas of every windowsize group plus the K codes, one pass.
+
+    codes: int8[n] 2-bit codes (zero-padded when shorter than the tiles
+    read); ws_tuple: the G group windowsizes; one pair ``depth`` < every
+    window width.  Returns (ab int32[G, nt], kcodes int32[nkc]), ab[g]
+    bit-identical to ``_pair_ab(K, ws_tuple[g] - k + 1, nt, depth)``.
+    Launches K5 on a CUDA tensor, the plain twin on a CPU tensor."""
+    ws_tuple = tuple(int(ws) for ws in ws_tuple)
+    w_min = min(ws_tuple) - k + 1
+    if codes.dim() != 1 or codes.dtype != torch.int8:
+        raise ValueError(f"codes_pair_multi wants int8[n] codes, got {codes.dtype}{tuple(codes.shape)}")
+    if not 1 <= len(ws_tuple) <= 32 or not 0 <= depth < w_min or depth > 255:
+        raise ValueError(
+            f"codes_pair_multi: need 1..32 groups, 0 <= depth < min(w) and depth <= 255 "
+            f"(groups={len(ws_tuple)}, depth={depth}, w_min={w_min})"
+        )
+    if codes.device.type == "cpu":
+        return _codes_pair_multi_plain(codes, k, ws_tuple, nt, nkc, depth)
+    if codes.device.type != "cuda":
+        raise ValueError(f"codes_pair_multi: unsupported device {codes.device}")
+    from .._kernels import check, int_array, load
+
+    lib = load()
+    n_tiles, need = _pair_multi_need(ws_tuple, nt, nkc)
+    if codes.shape[0] < need:
+        codes = torch.nn.functional.pad(codes, (0, need - codes.shape[0]))
+    codes = codes.contiguous()
+    dev = codes.device
+    ab = torch.empty((len(ws_tuple), nt), dtype=torch.int32, device=dev)
+    kc = torch.empty(nkc, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        widths = int_array(ws - k + 1 for ws in ws_tuple)
+        check(
+            lib.kmg_pair_multi(
+                codes.data_ptr(), k, len(ws_tuple), widths, depth, _PAIR_T, n_tiles, nt, nkc,
+                ab.data_ptr(), kc.data_ptr(), stream,
+            ),
+            "codes_pair_multi",
+        )
+    codes_pair_multi.launches += 1
+    return ab, kc
+
+
+#: K5 launches since the count was last set to 0
+codes_pair_multi.launches = 0

@@ -121,6 +121,8 @@ def test_port_never_imports_jax(mini_genome, ref_fasta):
         "import sys, kmergma_tpu_torch as kt, kmergma_tpu_torch.host\n"
         f"hits = kt.find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False)[0]\n"
         "assert len(hits) == 3, hits\n"
+        f"hits = kt.find_genes_cluster_mode({mini_genome!r}, {ref_fasta!r}, verbose=False)[0]\n"
+        "assert len(hits) > 0, hits\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -142,11 +144,13 @@ def test_host_names_are_the_shared_originals():
     from kmergma_tpu_torch import host
 
     origins = {
-        "kmergma_tpu.models.state_machine": ["replay_single"],
+        "kmergma_tpu.models.state_machine": ["OmnHitEvent", "replay_omn", "replay_single"],
         "kmergma_tpu.ops.align": ["AlignResult", "cigar_to_unitrange", "semiglobal_align", "semiglobal_align_batch"],
-        "kmergma_tpu.ops.reference": ["RefProfile", "gen_ref_ws_cons"],
+        "kmergma_tpu.ops.reference": [
+            "ClusterRefs", "RefProfile", "cluster_ref_api", "eliminate_null_params", "gen_ref_ws_cons",
+        ],
         "kmergma_tpu.ops.scan_host": ["HostScanEngine"],
-        "kmergma_tpu.ops.thresholds": ["estimate_optimal_threshold"],
+        "kmergma_tpu.ops.thresholds": ["estimate_optimal_threshold", "estimate_optimal_thresholds"],
         "kmergma_tpu.utils.fasta": ["FastaRecord", "PathOrRecords", "as_records", "write_fasta"],
         "kmergma_tpu.utils.native": ["scan_rolling_i64_native"],
     }
@@ -190,20 +194,26 @@ def test_jax_package_reached_only_through_host(rel):
 
 
 def test_chip_smoke_phases_on_cpu(capsys):
-    """chip_smoke.run drives every phase, the stage breakdown included, on
-    CPU tensors at a small size: the wrappers take their plain twins, so
-    the kernels' report shows no launch and no error."""
+    """chip_smoke.run drives every phase of both paths, single profile and
+    cluster mode, the stage breakdown and the busy shares included, on CPU
+    tensors at a small size: the wrappers take their plain twins, so the
+    kernels' report shows no launch and no error."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, label="cpu")
+    report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu")
     out = capsys.readouterr().out
-    assert [k["name"] for k in report["kernels"]] == ["fused_record_bitmaps", "match_counts"]
+    assert [k["name"] for k in report["kernels"]] == [
+        "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
+    ]
     assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
+    assert all(k["replaces"].startswith("kmergma_tpu/") and (_ROOT / k["source"]).exists() for k in report["kernels"])
     assert "hits equal the host oracle's" in out
-    assert "idle share" in out
+    assert "cluster hits equal the host oracle's" in out
+    assert "cluster goldens: Alp_V_locus 3 hits exact" in out
+    assert out.count("idle share") == 2
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

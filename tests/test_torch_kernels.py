@@ -16,12 +16,22 @@ import pytest
 import torch
 
 from kmergma_tpu.ops.kmers import kmer_count
-from kmergma_tpu.ops.reference import gen_ref_ws_cons
+from kmergma_tpu.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
 from kmergma_tpu.utils.fasta import as_records
 from kmergma_tpu_torch.ops import scan as tscan
+from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+from kmergma_tpu_torch.ops.scan_cluster_fused import (
+    _lookup_roundtrip_plain,
+    cluster_tables_in_smem,
+    fused_cluster_record_bitmaps,
+    fused_cluster_record_bitmaps_plain,
+    lookup_roundtrip,
+)
 from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
 from kmergma_tpu_torch.ops.scan_kernels import (
+    _codes_pair_multi_plain,
     _match_counts_plain,
+    codes_pair_multi,
     match_counts,
     scan_window_distances_kernel,
 )
@@ -61,17 +71,39 @@ def _bitmap_inputs(codes, s, k, ws, r, device):
     return eng, prep, nw, l0, kw
 
 
-def test_cpu_wrappers_launch_nothing(record):
+WRAPPERS = (fused_record_bitmaps, match_counts, fused_cluster_record_bitmaps, codes_pair_multi, lookup_roundtrip)
+
+
+@pytest.fixture(scope="module")
+def alp_clusters():
+    return eliminate_null_params(cluster_ref_api(REF, 6, cutoffs=[7, 12, 20, 25])).profiles
+
+
+def _random_clusters(k, wss, seed):
+    """Cluster profiles of random references, one per windowsize."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, ws in enumerate(wss):
+        refs = [rng.integers(0, 4, ws, dtype=np.int8) for _ in range(2 + i)]
+        s = sum(kmer_count(x, k).astype(np.int64) for x in refs)
+        out.append(RefProfile(mean_kfv=s / len(refs), sum_kfv=s, n_records=len(refs), windowsize=ws, consensus="A" * ws, k=k))
+    return out, refs
+
+
+def test_cpu_wrappers_launch_nothing(record, alp_clusters):
     codes, p = record
-    fused_record_bitmaps.launches = 0
-    match_counts.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
     eng, prep, nw, l0, kw = _bitmap_inputs(codes, p.sum_kfv, 6, p.windowsize, p.n_records, "cpu")
     thr = int(eng._thr_int(30.0))
     bm = fused_record_bitmaps(prep, eng.s_dev, thr, l0, nw, **kw)
     assert int(bm.sum()) > 0
     assert eng.record_stream(codes, 30.0)[1]
-    assert fused_record_bitmaps.launches == 0
-    assert match_counts.launches == 0
+    cl = ClusterScanEngine(alp_clusters, k=6, device="cpu")
+    for fused_min in (1 << 16, 1):  # the split pass (K5), then K3 and K8
+        cl.fused_min_windows = fused_min
+        assert any(s for _d0, s in cl.record_streams(codes[:60_000], [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]))
+    assert all(fn.launches == 0 for fn in WRAPPERS)
 
 
 def test_wrappers_refuse_other_devices():
@@ -83,6 +115,14 @@ def test_wrappers_refuse_other_devices():
     l0 = torch.zeros((), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_record_bitmaps(codes, s, 0, l0, 100, k=2, ws=20, r=1, depth=4, t=512, block=512, n_tiles=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        codes_pair_multi(codes, 2, (20, 22), 100, 120, 4)
+    s2 = torch.zeros((2, 16), dtype=torch.int32, device="meta")
+    l0s = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_cluster_record_bitmaps(codes, s2, [0, 0], l0s, [100, 98], k=2, specs=[(20, 1), (22, 1)], depth=4, t=512, block=512, n_tiles=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lookup_roundtrip(s2, t=512, w_min=19, w_max=21)
 
 
 @pytest.mark.cuda
@@ -153,3 +193,83 @@ def test_engine_on_card_matches_cpu(record, cuda_device):
     b = on_cpu.record_stream(codes, 30.0, collect_dists=True)
     assert a[:2] == b[:2]
     np.testing.assert_array_equal(a[2], b[2])
+
+
+def _k3_inputs(profiles, k, codes, thrs, device):
+    eng = ClusterScanEngine(profiles, k=k, device=device)
+    prep = eng.prepare_codes(codes)
+    nws = [codes.shape[0] - ws + 1 for ws, _r in eng.specs]
+    thr_ints = [int(e._thr_int(x)) for e, x in zip(eng.engines, thrs)]
+    l0s = torch.stack([
+        tscan._first_window_l0(prep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=eng.depth) for e in eng.engines
+    ])
+    kw = dict(k=k, specs=eng.specs, depth=eng.depth, t=eng.fused_t, block=eng.block, n_tiles=-(-max(nws) // eng.fused_t))
+    return eng, prep, nws, thr_ints, l0s, kw
+
+
+@pytest.mark.cuda
+def test_k3_and_k8_tables_in_shared_memory_on_card(record, alp_clusters, cuda_device):
+    """k = 6, the six Alp_V clusters: 96 KB of tables in shared memory."""
+    codes, _p = record
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+    eng, prep, nws, thr_ints, l0s, kw = _k3_inputs(alp_clusters, 6, codes, thrs, cuda_device)
+    widths = [ws - 5 for ws, _r in eng.specs]
+    assert cluster_tables_in_smem(6, 6, eng.fused_t, min(widths), max(widths))
+    before = fused_cluster_record_bitmaps.launches
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    torch.cuda.synchronize()
+    assert fused_cluster_record_bitmaps.launches == before + 2
+    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
+    assert all(int(got[c].sum()) > 0 for c in range(6))
+    back = lookup_roundtrip(eng.s_stack, t=eng.fused_t, w_min=min(widths), w_max=max(widths))
+    assert torch.equal(back, eng.s_stack) and torch.equal(_lookup_roundtrip_plain(eng.s_stack), eng.s_stack)
+
+
+@pytest.mark.cuda
+def test_k3_and_k8_tables_through_ldg_on_card(cuda_device):
+    """k = 7, six clusters: 384 KB of tables, read through __ldg."""
+    k, wss = 7, [120, 120, 121, 122, 123, 123]
+    profiles, refs = _random_clusters(k, wss, seed=7)
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 4, 150_000, dtype=np.int8)
+    for pos in range(1_000, 149_000, 5_000):
+        codes[pos : pos + 120] = refs[pos % len(refs)][:120]
+    eng, prep, nws, thr_ints, l0s, kw = _k3_inputs(profiles, k, codes, [0.0] * 6, cuda_device)
+    widths = [ws - k + 1 for ws in wss]
+    assert not cluster_tables_in_smem(6, k, eng.fused_t, min(widths), max(widths))
+    bounds = tscan.scan_window_lower_bounds(prep[: nws[0] + wss[0] - 1], eng.s_stack[0], k, wss[0], eng.specs[0][1], eng.depth)
+    thr_ints = [int(torch.quantile(bounds.double(), 0.01))] * 6
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
+    assert 0 < int(got.sum()) < got.numel()
+    back = lookup_roundtrip(eng.s_stack, t=eng.fused_t, w_min=min(widths), w_max=max(widths))
+    assert torch.equal(back, eng.s_stack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nt", [(60_000, 59_999), (300_000, 262_143)])
+def test_k5_matches_twin_on_card(record, cuda_device, n, nt):
+    codes, _p = record
+    dev_codes = torch.from_numpy(codes[:n]).to(cuda_device)
+    ws_tuple = (288, 289, 290)
+    nkc = nt + 290 - 6
+    before = codes_pair_multi.launches
+    ab, kc = codes_pair_multi(dev_codes, 6, ws_tuple, nt, nkc, 16)
+    torch.cuda.synchronize()
+    assert codes_pair_multi.launches == before + 1
+    ab_p, kc_p = _codes_pair_multi_plain(dev_codes, 6, ws_tuple, nt, nkc, 16)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
+    assert int(ab.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cluster_engine_on_card_matches_cpu(record, alp_clusters, cuda_device):
+    codes, _p = record
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+    for fused_min in (1 << 16, 1 << 30, 1):  # K3 (300 kb), the split pass, K3 again
+        on_card = ClusterScanEngine(alp_clusters, k=6, device=cuda_device)
+        on_cpu = ClusterScanEngine(alp_clusters, k=6, device="cpu")
+        on_card.fused_min_windows = on_cpu.fused_min_windows = fused_min
+        assert on_card.record_streams(codes, thrs) == on_cpu.record_streams(codes, thrs)
+        short = codes[:50_000]
+        assert on_card.record_streams(short, thrs) == on_cpu.record_streams(short, thrs)
