@@ -1,34 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
-``build/kmergma_tpu_torch/``) and drives both paths of the port:
+``build/kmergma_tpu_torch/``) and drives every path of the port:
 
 * single profile: K1 and K2 against their plain PyTorch twins on the card
   at the main path's shapes (bit-identical: the scan is integer
   arithmetic), the golden hits through ``kmergma_tpu_torch.find_genes``,
   then a 64 Mbp synthetic genome (four 16 Mbp contigs of hashed background
   with the 84 Alp_V reference genes planted every 500 kb) mined against the
-  JAX-free int64 host oracle, and where one call's wall goes: each stage
-  timed alone, and the device's busy share of one profiled call;
+  int64 host oracle, and where one call's wall goes: each stage timed
+  alone, and the device's busy share of one profiled call;
 * cluster mode (the Alp_V set in six clusters): K3, K8 and K5 against
   their twins, the cluster goldens through ``find_genes_cluster_mode``
   (the split route, so K5), both routes on one record, then the same
   genome plus one short contig (the split route again) mined against an
-  int64 host cluster oracle, and where one call's wall goes, stage by
-  stage and on the device.
+  int64 host cluster oracle, and where one call's wall goes;
+* strobemers (the Alp_V strobe profile, s 2, w_min 3, w_max 5, q 5): K4r
+  (K4 at depth ws - k = 282 over uint8 strobe codes, codes >= 128 present)
+  against its twin, the strobe goldens through ``strobemer_find_genes``,
+  then the same genome mined against an int64 host oracle of the strobe
+  recurrence, and where one call's wall goes;
+* a mixed-depth cluster set (the six Alp_V clusters plus a profile of the
+  genes' 20 bp prefixes, ws 20, pair depth 14): K4 and K6 against their
+  twins, then ``ClusterScanEngine`` on one 16 Mbp contig and the short
+  contig, its streams equal to an int64 host cluster oracle's.
 
 Each path's kernels are shown to have launched in that path's run: their
-launch counts are set to 0 just before it and read just after.
+launch counts are set to 0 just before it and read just after.  Kernel
+times are CUDA events over back-to-back launches after a warm-up.
 
-It imports only the port (``kmergma_tpu_torch``); the JAX package's
-JAX-free host modules that the port shares (FASTA, reference profile,
-threshold, int64 host engine) come through ``kmergma_tpu_torch.host``.
-
-Exits non-zero, printing no result, without a CUDA device or outside a
-checkout of the repository.  Its last line is
+It imports only the port (``kmergma_tpu_torch``), never jax or the JAX
+package.  Exits non-zero, printing no result, without a CUDA device or
+outside a checkout of the repository.  Its last line is
 ``{"ok": true, "device": {...}}``; before it the kernels' JSON and the
 card's name and power limit.
 """
@@ -60,9 +66,26 @@ GOLDEN_CLUSTER = [
     "AM773548.1 | Dist = 33.96 | KFV = 4 | MatchPos = 23907:24193 | GenomePos = 0 | Len = 287",
     "AM773548.1 | Dist = 26.17 | KFV = 3 | MatchPos = 33845:34132 | GenomePos = 0 | Len = 288",
 ]
+#: the JAX package's ``strobemer_find_genes`` on Alp_V_locus with its
+#: defaults, taken on the CPU (tests/test_torch_strobe.py holds the port to
+#: the JAX package itself)
+GOLDEN_STROBE = [
+    "AM773548.1 | dist = 7.94 | MatchPos = 6852:7140 | GenomePos = 0 | Len = 289",
+    "AM773548.1 | dist = 23.82 | MatchPos = 23907:24201 | GenomePos = 0 | Len = 295",
+    "AM773548.1 | dist = 7.82 | MatchPos = 33845:34133 | GenomePos = 0 | Len = 289",
+]
 #: the cluster path's extra contig: shorter than K3's cutover of 65,536
 #: windows, so it takes the split route (K5)
 SHORT_CONTIG_BP = 60_000
+#: the mixed-depth set's extra profile: the reference genes' prefixes
+PREFIX_BP = 20
+
+#: one H100 SXM's published peaks (NVIDIA's data sheet): device memory
+#: bytes per second,
+#: and the non-tensor 32-bit rate, taken as the ceiling of the kernels'
+#: 32-bit integer compares and adds
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -132,12 +155,92 @@ class HostClusterOracle:
     per cluster, full streams (``mine_genome_clusters(engine=...)``)."""
 
     def __init__(self, profiles, k: int):
-        from kmergma_tpu_torch.host import HostScanEngine
+        from kmergma_tpu_torch.ops.scan_host import HostScanEngine
 
         self.engines = [HostScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records) for p in profiles]
 
     def record_streams(self, codes, thrs):
         return [e.record_stream(codes, thr)[:2] for e, thr in zip(self.engines, thrs)]
+
+
+def minimal_stream(d, scale: float, thr: float, mi: int) -> list:
+    """The cluster engine's run-reduced stream from a cluster's full int64
+    distances ``d``: for each maximal run of windows 1..mi with d / scale <
+    thr, its first argmin and the window after it when that is <= mi."""
+    import numpy as np
+
+    d = d[: mi + 1]
+    below = d / scale < thr
+    below[0] = False
+    idx = np.flatnonzero(below)
+    if idx.size == 0:
+        return []
+    cut = np.flatnonzero(np.diff(idx) > 1)
+    out = []
+    for lo, hi in zip(np.r_[idx[0], idx[cut + 1]], np.r_[idx[cut], idx[-1]]):
+        j = int(lo + np.argmin(d[lo : hi + 1]))
+        out.append((j, float(d[j]) / scale))
+        if hi + 1 <= mi:
+            out.append((int(hi + 1), float(d[hi + 1]) / scale))
+    return sorted(out)
+
+
+def strobe_distances_i64(sc, s_sum, w: int, r: int):
+    """Exact int64 scaled distances of the StrobeGMA recurrence over strobe
+    codes ``sc`` (its n_steps + w leading codes), in the closed form of
+    ``ops/scan_strobe.py``: the unmodified profile, width-w window counts
+    plus the x* = sc[w] correction.  The counts of a code among positions
+    [p, p + w) are read off the sorted (code, position) keys: a position's
+    own rank, and one binary search of sorted queries."""
+    import numpy as np
+
+    K = np.asarray(sc, dtype=np.int64)
+    n = K.shape[0]
+    n_steps = n - w
+    s64 = np.asarray(s_sum, dtype=np.int64)
+    keys = K * n + np.arange(n)
+    order = np.argsort(keys)
+    keys = keys[order]
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+
+    def keys_below(q):
+        o = np.argsort(q)
+        out = np.empty_like(q)
+        out[o] = np.searchsorted(keys, q[o])
+        return out
+
+    p = np.arange(n_steps)
+    kl, kr = K[:n_steps], K[w : w + n_steps]
+    xstar = K[w]
+    a = rank[w : w + n_steps] - keys_below(kr * n + p) + (kr == xstar)
+    b = keys_below(kl * n + p + w) - rank[:n_steps] + (kl == xstar)
+    c0 = np.bincount(K[: w + 1], minlength=s64.shape[0])
+    d0 = int(np.dot(r * c0 - s64, r * c0 - s64))
+    delta = 2 * r * r * ((kl != kr) + a - b) + 2 * r * (s64[kl] - s64[kr])
+    out = np.empty(n_steps + 1, dtype=np.int64)
+    out[0] = d0
+    np.cumsum(delta, out=out[1:])
+    out[1:] += d0
+    return out
+
+
+class HostStrobeOracle:
+    """The exact int64 host span engine of one x* for ``strobe_mine_genome
+    (engine_factory=...)``: distances from ``strobe_distances_i64`` and the
+    full candidate stream (every window below threshold and the one after
+    each), sharing nothing with the port's scan."""
+
+    def __init__(self, profile, xstar: int):
+        self.s_sum, self.r = profile.sum_kfv, profile.n_records
+        self.w = profile.windowsize - profile.k
+        self.scale = 2.0 * profile.k * profile.n_records**2
+
+    def record_stream(self, sc, thr: float, collect_dists: bool = False):
+        from kmergma_tpu_torch.models.state_machine import candidate_stream_from_dists
+
+        dists = strobe_distances_i64(sc, self.s_sum, self.w, self.r) / self.scale
+        return float(dists[0]), list(candidate_stream_from_dists(dists, thr)), dists if collect_dists else None
 
 
 def clock(fn, sync):
@@ -149,23 +252,59 @@ def clock(fn, sync):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def timed_ms(fn, sync, reps: int = 5):
-    """Median wall time of ``fn`` in ms over ``reps`` runs after one
-    warm-up, with ``sync`` (the device synchronise) around each run;
-    returns (ms, last result)."""
+def kernel_ms(fn, on_card: bool, reps: int = 20):
+    """(ms per call, last result) of ``fn``: on the card, CUDA events around
+    ``reps`` back-to-back calls after one warm-up call; on the CPU the
+    median host wall of three calls (the CPU rehearsal only)."""
+    import torch
+
     out = fn()
-    sync()
-    times = []
+    if not on_card:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), out
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
         out = fn()
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), out
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
 
 
-def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_card: bool, label: str, reps: int = 3) -> None:
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(ms, what binds) of the least time the card could take: the larger
+    of the bytes over its memory rate and the operations over its 32-bit
+    rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(*pairs) -> int:
+    return max(int((a.to(b.dtype) - b).abs().max()) if a.numel() else 0 for a, b in pairs)
+
+
+def print_breakdown(what: str, names: list, runs: list, wall_s: float, label: str, skip=()) -> None:
+    reps = len(runs)
+    print(f"stage breakdown of one {what} call, median of {reps} per stage, shares of the "
+          f"{wall_s * 1e3:.3f} ms median wall [{label}]:")
+    staged = 0.0
+    width = max(len(n) for n in names) + 2
+    for i, name in enumerate(names):
+        med = statistics.median(run_ms[name] for run_ms in runs)
+        if i not in skip:
+            staged += med
+        print(f"  {name:<{width}} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
+    note = " (indented stages not added)" if skip else ""
+    print(f"  {'sum of the stages' + note:<{width}} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
+
+
+def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
     """Print where one ``find_genes`` call on ``fasta`` spends its wall.
 
     Each stage of the call runs alone with a device synchronise around it
@@ -175,10 +314,12 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
     time (the union of its kernel, copy and fill intervals) and the wall
     are both read from that one call."""
     import kmergma_tpu_torch as kt
-    from kmergma_tpu_torch.host import (
-        as_records, estimate_optimal_threshold, gen_ref_ws_cons, replay_single, semiglobal_align_batch,
-    )
+    from kmergma_tpu_torch.models.state_machine import replay_single
+    from kmergma_tpu_torch.ops.align import semiglobal_align_batch
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
     from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold
+    from kmergma_tpu_torch.utils.fasta import as_records
 
     k, ws, r = profile.k, profile.windowsize, profile.n_records
 
@@ -194,7 +335,7 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
         ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
         ms[names[1]], _ = clock(lambda: gen_ref_ws_cons(REF, k), sync)
         ms[names[2]], _ = clock(lambda: estimate_optimal_threshold(profile.mean_kfv, ws, buffer=8.0), sync)
-        ms[names[3]], engine = clock(lambda: ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device="cuda" if on_card else "cpu"), sync)
+        ms[names[3]], engine = clock(lambda: ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device), sync)
         thr_int = int(engine._thr_int(thr))
         for rec in records:
             nw = len(rec) - ws + 1
@@ -211,17 +352,8 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, on_ca
                 t, _ = clock(lambda: semiglobal_align_batch(profile.consensus_ws, windows, -69, -1), sync)
                 ms[names[8]] += t
         runs.append(ms)
-    print(f"stage breakdown of one find_genes call, median of {reps} per stage, shares of the "
-          f"{wall_s * 1e3:.3f} ms median wall [{label}]:")
-    staged = 0.0
-    for i, name in enumerate(names):
-        med = statistics.median(run_ms[name] for run_ms in runs)
-        if i != 6:
-            staged += med
-        print(f"  {name:<52} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
-    print(f"  {'sum of the stages (K1 alone not added)':<52} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
-
-    device_share("find_genes", lambda: kt.find_genes(str(fasta), REF, verbose=False), sync, on_card, label)
+    print_breakdown("find_genes", names, runs, wall_s, label, skip=(6,))
+    device_share("find_genes", lambda: kt.find_genes(str(fasta), REF, verbose=False, device=device), sync, device, label)
 
 
 def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
@@ -230,10 +362,12 @@ def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device
     median of ``reps`` over all records; shares are of ``wall_s``.  The
     replay and the alignment are timed through ``mine_genome_clusters`` on
     the streams already computed (without, then with, the alignment)."""
-    from kmergma_tpu_torch.host import as_records, cluster_ref_api, eliminate_null_params, estimate_optimal_thresholds
     from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
     from kmergma_tpu_torch.ops.scan import _planned_streams
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
+    from kmergma_tpu_torch.utils.fasta import as_records
 
     class Recorded:
         def __init__(self, streams):
@@ -277,17 +411,62 @@ def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device
         t, _ = clock(lambda: mine_genome_clusters(kept, clusters.profiles, engine=Recorded(streams), **kw), sync)
         ms[names[8]] = t - ms[names[7]]
         runs.append(ms)
-    print(f"stage breakdown of one find_genes_cluster_mode call, median of {reps} per stage, shares of the "
-          f"{wall_s * 1e3:.3f} ms median wall [{label}]:")
-    staged = 0.0
-    for name in names:
-        med = statistics.median(run_ms[name] for run_ms in runs)
-        staged += med
-        print(f"  {name:<62} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
-    print(f"  {'sum of the stages':<62} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
+    print_breakdown("find_genes_cluster_mode", names, runs, wall_s, label)
 
 
-def device_share(what: str, call, sync, on_card: bool, label: str) -> None:
+def strobe_stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
+    """Print where one ``strobemer_find_genes`` call on ``fasta`` spends its
+    wall, each stage run alone with a device synchronise around it, median
+    of ``reps`` over all records; shares are of ``wall_s``.  Then the
+    device's busy share of one profiled call."""
+    import torch
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.models.state_machine import replay_single
+    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons
+    from kmergma_tpu_torch.ops.align import align_hits_batch
+    from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    k, ws = profile.k, profile.windowsize
+    w = ws - k
+    names = [
+        "FASTA parse (as_records)", "strobe profile (gen_strobe_ref_ws_cons)",
+        "H2D of int8 genome codes + strobe extraction on the device", "StrobeSpanEngine set-up (S - r e_x to the device)",
+        "device zero-padding of the strobe codes (prepare_codes)",
+        "planned pass: K4r exact bitmap + plan + K2 + run reduce + D2H", "  of which the K4r exact bitmap alone",
+        "replay (replay_single)", "alignment (align_hits_batch, -69/-5)",
+    ]
+    runs = []
+    for _ in range(reps):
+        ms = dict.fromkeys(names, 0.0)
+        ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
+        ms[names[1]], _ = clock(lambda: gen_strobe_ref_ws_cons(REF), sync)
+        for rec in records:
+            n_steps = len(rec) - ws - 1
+            t, sc = clock(lambda: strobe_2_mer_codes_torch(torch.from_numpy(rec.codes).to(device), 2, 3, 5, 5), sync)
+            ms[names[2]] += t
+            t, eng = clock(lambda: StrobeSpanEngine(profile, int(sc[w]), device=device), sync)
+            ms[names[3]] += t
+            t, prep = clock(lambda: eng.prepare_codes(sc[: n_steps + w]), sync)
+            ms[names[4]] += t
+            t, (dist0, stream) = clock(lambda: eng._planned_record(prep, n_steps + 1, thr), sync)
+            ms[names[5]] += t
+            t, _ = clock(lambda: eng._record_bitmap(prep, n_steps + 1, int(eng._thr_int(thr))), sync)
+            ms[names[6]] += t
+            t, raw = clock(lambda: replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=len(rec), buff=50, cmi_offset=0), sync)
+            ms[names[7]] += t
+            windows = [rec.seq[h.start - 1 : h.stop].decode("ascii").upper() for h in raw]
+            if windows:
+                t, _ = clock(lambda: align_hits_batch(profile.consensus[:ws], windows, -69, -5), sync)
+                ms[names[8]] += t
+        runs.append(ms)
+    print_breakdown("strobemer_find_genes", names, runs, wall_s, label, skip=(6,))
+    device_share("strobemer_find_genes", lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, device=device),
+                 sync, device, label)
+
+
+def device_share(what: str, call, sync, device, label: str) -> None:
     """Run ``call`` under torch.profiler, after a first profiled call that
     only starts the tracer, and print the device's busy time (the union of
     its kernel, copy and fill intervals) and the wall, both from that one
@@ -295,6 +474,7 @@ def device_share(what: str, call, sync, on_card: bool, label: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    on_card = str(device).startswith("cuda")
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with torch_profile(activities=activities):
         call()
@@ -321,47 +501,525 @@ def device_share(what: str, call, sync, on_card: bool, label: str) -> None:
         print(f"  device: {t / 1e3:9.3f} ms in {n:4d} x {name[:90]}")
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "") -> dict:
-    """All phases on ``device``; raises SmokeFailure on any failed check.
-    ``runs`` timed runs follow one warm-up at size, and each stage of the
-    breakdowns is the median of ``runs``.  Returns the kernels' report."""
+def timed_calls(call, sync, runs: int) -> tuple[list, object]:
+    """Host wall in seconds of ``runs`` calls after one warm-up, each
+    between device synchronises; returns (times, last result)."""
+    times = []
+    for i in range(runs + 1):
+        sync()
+        t0 = time.perf_counter()
+        out = call()
+        sync()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return times, out
+
+
+class Launches:
+    """The kernel wrappers' launch counts: set to 0, read."""
+
+    def __init__(self):
+        from kmergma_tpu_torch.ops.scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
+        from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps
+        from kmergma_tpu_torch.ops.scan_kernels import (
+            codes_pair_ab_kcodes, codes_pair_multi, match_counts, pair_ab_from_kcodes,
+        )
+
+        self.wrappers = {
+            "fused_record_bitmaps": fused_record_bitmaps, "match_counts": match_counts,
+            "fused_cluster_record_bitmaps": fused_cluster_record_bitmaps,
+            "codes_pair_multi": codes_pair_multi, "lookup_roundtrip": lookup_roundtrip,
+            "codes_pair_ab_kcodes": codes_pair_ab_kcodes, "pair_ab_from_kcodes": pair_ab_from_kcodes,
+        }
+
+    def reset(self) -> None:
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.wrappers.items()}
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms=None) -> dict:
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return {"name": name, "route": "cuda", "source": f"kmergma_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def single_profile_phase(ctx) -> list:
+    """K1 and K2 against their twins, the goldens, and ``find_genes`` on
+    the synthetic genome against the int64 host oracle."""
     import numpy as np
     import torch
 
     import kmergma_tpu_torch as kt
-    from kmergma_tpu_torch import _kernels
-    from kmergma_tpu_torch.host import (
-        HostScanEngine, as_records, cluster_ref_api, eliminate_null_params, estimate_optimal_threshold,
-        estimate_optimal_thresholds, gen_ref_ws_cons, scan_rolling_i64_native,
-    )
     from kmergma_tpu_torch.models.miner import mine_genome
-    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
     from kmergma_tpu_torch.ops.scan import (
-        ScanEngine, _first_window_l0, _plan_regions, rolling_kmer_codes, scan_window_distances,
+        ScanEngine, _first_window_l0, _k1_halo, _plan_regions, rolling_kmer_codes, scan_window_distances,
     )
+    from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
+    from kmergma_tpu_torch.ops.scan_host import HostScanEngine
+    from kmergma_tpu_torch.ops.scan_kernels import _match_counts_plain, match_counts, scan_window_distances_kernel
+    from kmergma_tpu_torch.utils.native import scan_rolling_i64_native
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    profile, thr, contigs, runs = ctx["profile"], ctx["thr"], ctx["contigs"], ctx["runs"]
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+    engine = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
+
+    # --- K1 vs its plain twin: one whole contig --------------------------
+    record = contigs[0]
+    nw = record.shape[0] - ws + 1
+    prep = engine.prepare_codes(record)
+    depth = engine.bound_depth
+    thr_int = int(engine._thr_int(thr))
+    n_tiles = -(-nw // engine.fused_t)
+    l0 = _first_window_l0(prep, engine.s_dev, k=k, ws=ws, r=r, depth=depth)
+    kw = dict(k=k, ws=ws, r=r, depth=depth, t=engine.fused_t, block=engine.block, n_tiles=n_tiles)
+    k1_ms, bm = kernel_ms(lambda: fused_record_bitmaps(prep, engine.s_dev, thr_int, l0, nw, **kw), on_card)
+    k1_plain_ms, bm_plain = kernel_ms(lambda: fused_record_bitmaps_plain(prep, engine.s_dev, thr_int, l0, nw, **kw), on_card, reps=3)
+    k1_err = max_err((bm, bm_plain))
+    n_active = int(bm.sum())
+    n_win = n_tiles * engine.fused_t
+    k1_io = (n_win + _k1_halo(ws - k + 1) + 4 * 4**k + 4 * bm.numel(), 4 * depth * n_win)
+    print(
+        f"K1 fused_record_bitmaps, {record.shape[0]} bp record, k={k} ws={ws} depth={depth} "
+        f"thr_int={thr_int}: {k1_ms:.3f} ms, plain twin {k1_plain_ms:.3f} ms, bound {bound(*k1_io)[0]:.4f} ms, "
+        f"bit-identical={k1_err == 0}, active blocks {n_active}/{bm.numel()} [{label}]"
+    )
+    require(k1_err == 0, "K1 bitmap differs from its plain twin")
+    require(n_active > 0, "K1 flagged no block on a record with planted genes")
+
+    # --- K2 vs its plain twin: the main path's region rows --------------
+    rspan = engine.rspan
+    w = ws - k + 1
+    starts, nvr = _plan_regions(bm.reshape(-1).bool(), nw, rspan, engine.block, 256)
+    rows = prep[starts[:, None] + torch.arange(rspan + ws - 1, device=device)[None, :]]
+    tiles = torch.nn.functional.pad(rolling_kmer_codes(rows, k), (0, 1))
+    k2_ms, ab = kernel_ms(lambda: match_counts(tiles, w, rspan), on_card)
+    k2_plain_ms, ab_plain = kernel_ms(lambda: _match_counts_plain(tiles, w, rspan), on_card, reps=3)
+    k2_err = max_err((ab, ab_plain))
+    n_rows = tiles.shape[0]
+    k2_io = (4 * n_rows * (rspan + w) + 4 * n_rows * rspan, 4 * w * n_rows * rspan)
+    print(
+        f"K2 match_counts, {n_rows} region rows x {tiles.shape[1]} K codes "
+        f"({int(nvr)} active regions): {k2_ms:.3f} ms, plain twin {k2_plain_ms:.3f} ms, "
+        f"bound {bound(*k2_io)[0]:.4f} ms, bit-identical={k2_err == 0} [{label}]"
+    )
+    require(k2_err == 0, "K2 region rows differ from the plain twin")
+
+    # --- K2 on a whole-record distance scan ------------------------------
+    whole_bp = ctx["whole_bp"]
+    whole = prep[: whole_bp + ws - 1]
+    kd_ms, d_kernel = kernel_ms(lambda: scan_window_distances_kernel(whole, engine.s_dev, k, ws, r), on_card, reps=5)
+    pd_ms, d_plain = kernel_ms(lambda: scan_window_distances(whole, engine.s_dev, k, ws, r), on_card, reps=1)
+    kd_err = max_err((d_kernel, d_plain))
+    oracle = scan_rolling_i64_native(record[: whole_bp + ws - 1], profile.sum_kfv, k, ws, r)
+    oracle_ok = oracle is None or np.array_equal(d_kernel.cpu().numpy().astype(np.int64), oracle)
+    print(
+        f"K2 whole-record distances, {whole_bp} windows (tiles of 2048): {kd_ms:.3f} ms, "
+        f"plain twin {pd_ms:.3f} ms, bit-identical={kd_err == 0}, "
+        f"int64 host oracle {'agrees' if oracle is not None and oracle_ok else 'unavailable' if oracle is None else 'DIFFERS'} [{label}]"
+    )
+    require(kd_err == 0 and oracle_ok, "K2 whole-record distances differ")
+    del prep, bm, bm_plain, rows, tiles, whole, d_kernel, d_plain
+
+    # --- goldens through find_genes ------------------------------------------
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        hits = kt.find_genes(str(DATA / "Alp_V_locus.fasta"), REF, verbose=False, device=device)[0]
+        require([h.description for h in hits] == GOLDEN_LOCUS, "Alp_V_locus golden hits")
+        hits, loci = kt.find_genes(str(DATA / "Loci.fasta"), REF, verbose=False, do_return_hit_loci=True, device=device)
+        require(len(hits) == 7 and loci == GOLDEN_LOCI, f"Loci golden: {len(hits)} hits, loci {loci}")
+        hits, dists = kt.find_genes(
+            str(DATA / "Loci.fasta"), REF, kmer_dist_thr=10, do_align=False,
+            do_return_dists=True, verbose=False, device=device,
+        )
+        require(dists.shape[0] == 484127 and round(float(dists.mean())) == 46 and len(hits) == 3,
+                f"Loci distances golden: {dists.shape[0]} dists, mean {float(dists.mean())}, {len(hits)} hits")
+    print("goldens: Alp_V_locus 3 hits exact; Loci 7 hits, loci as pinned; "
+          f"Loci do_return_dists {dists.shape[0]} distances, mean {float(dists.mean()):.4f}")
+
+    # --- the main path at size: find_genes on the synthetic genome ----------
+    fasta, total_bp = ctx["fasta"], ctx["total_bp"]
+    ctx["launches"].reset()
+    times, out = timed_calls(lambda: kt.find_genes(str(fasta), REF, verbose=False, device=device), sync, runs)
+    hits = out[0]
+    launches = ctx["launches"].read()
+    t_med = statistics.median(times)
+    print(
+        f"find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
+        f"= {total_bp / t_med / 1e6:.2f} Mbp/s (runs {', '.join(f'{x:.3f}' for x in times)} s), "
+        f"{len(hits)} hits [{label}]"
+    )
+    t0 = time.perf_counter()
+    oracle_res = mine_genome(str(fasta), profile, thr=thr, engine=HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r))
+    print(f"int64 host oracle (HostScanEngine): {time.perf_counter() - t0:.3f} s, {len(oracle_res.hits)} hits [{label}]")
+    stage_breakdown(fasta, profile, thr, t_med, sync, device, label, reps=runs)
+    require(len(hits) > 0, "no hits on the planted genome")
+    require(
+        [(h.description, h.seq) for h in hits] == [(h.description, h.seq) for h in oracle_res.hits],
+        "find_genes hits differ from the int64 host oracle",
+    )
+    print(f"hits equal the host oracle's; launch counts over the {runs + 1} runs: {launches}")
+    if on_card:
+        require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0,
+                f"a kernel of the single-profile path never launched: {launches}")
+    return [
+        entry("fused_record_bitmaps", "fused_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
+              launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms, *k1_io),
+        entry("match_counts", "match_counts.cu", "kmergma_tpu/ops/scan_pallas.py:43",
+              launches["match_counts"], k2_err, k2_ms, k2_plain_ms, *k2_io),
+    ]
+
+
+def cluster_phase(ctx) -> list:
+    """K3, K8 and K5 against their twins, the cluster goldens, both routes,
+    and ``find_genes_cluster_mode`` on the genome plus a short contig
+    against the int64 host cluster oracle."""
+    import torch
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
+    from kmergma_tpu_torch.ops.scan import _first_window_l0, _k1_halo
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
     from kmergma_tpu_torch.ops.scan_cluster_fused import (
         _lookup_roundtrip_plain, cluster_tables_in_smem, fused_cluster_record_bitmaps,
         fused_cluster_record_bitmaps_plain, lookup_roundtrip,
     )
-    from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
-    from kmergma_tpu_torch.ops.scan_kernels import (
-        _codes_pair_multi_plain, _match_counts_plain, codes_pair_multi, match_counts,
-        scan_window_distances_kernel,
+    from kmergma_tpu_torch.ops.scan_kernels import _codes_pair_multi_plain, _pair_multi_need, codes_pair_multi
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    contigs, runs, clusters, cthrs = ctx["contigs"], ctx["runs"], ctx["clusters"], ctx["cthrs"]
+    profiles = clusters.profiles
+    k = 6
+    ceng = ClusterScanEngine(profiles, k=k, device=device)
+    m = len(profiles)
+    depth = ceng.groups[0][1]
+    widths = [ws_c - k + 1 for ws_c, _r in ceng.specs]
+    print(
+        f"cluster mode: {m} clusters, windowsizes {clusters.windowsizes}, R {[p.n_records for p in profiles]}, "
+        f"{len(ceng.groups)} windowsize groups, pair depth {depth}, auto thresholds (buffer 7) {cthrs} [{label}]"
     )
 
-    wrappers = {
-        "fused_record_bitmaps": fused_record_bitmaps, "match_counts": match_counts,
-        "fused_cluster_record_bitmaps": fused_cluster_record_bitmaps,
-        "codes_pair_multi": codes_pair_multi, "lookup_roundtrip": lookup_roundtrip,
-    }
+    # --- K3 vs its plain twin: one whole contig, all clusters --------------
+    record = contigs[0]
+    nws = [record.shape[0] - ws_c + 1 for ws_c, _r in ceng.specs]
+    cprep = ceng.prepare_codes(record)
+    cthr_ints = [int(e._thr_int(x)) for e, x in zip(ceng.engines, cthrs)]
+    l0s = torch.stack([_first_window_l0(cprep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=depth) for e in ceng.engines])
+    n_tiles = -(-max(nws) // ceng.fused_t)
+    kw3 = dict(k=k, specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block, n_tiles=n_tiles)
+    k3_ms, bm3 = kernel_ms(lambda: fused_cluster_record_bitmaps(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), on_card)
+    k3_plain_ms, bm3_plain = kernel_ms(
+        lambda: fused_cluster_record_bitmaps_plain(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), on_card, reps=1
+    )
+    k3_err = max_err((bm3, bm3_plain))
+    n_win = n_tiles * ceng.fused_t
+    k3_io = (n_win + _k1_halo(max(widths)) + 4 * m * 4**k + 4 * bm3.numel(), 4 * depth * n_win)
+    placement = "the plain twin's gather"
+    if on_card:
+        placement = "shared memory" if cluster_tables_in_smem(m, k, ceng.fused_t, min(widths), max(widths)) else "__ldg"
+    print(
+        f"K3 fused_cluster_record_bitmaps, {record.shape[0]} bp record, {m} clusters, tables read through {placement}: "
+        f"{k3_ms:.3f} ms, plain twin {k3_plain_ms:.3f} ms, bound {bound(*k3_io)[0]:.4f} ms, bit-identical={k3_err == 0}, "
+        f"active blocks per cluster {[int(x) for x in bm3.sum(dim=1)]} of {bm3.shape[1]} [{label}]"
+    )
+    require(k3_err == 0, "K3 bitmaps differ from the plain twin")
+    require(int(bm3.sum()) > 0, "K3 flagged no block on a record with planted genes")
 
-    def reset_counts() -> None:
-        for fn in wrappers.values():
-            fn.launches = 0
+    # --- K8: every table entry through K3's lookup ------------------------
+    rt = dict(t=ceng.fused_t, w_min=min(widths), w_max=max(widths))
+    k8_ms, back = kernel_ms(lambda: lookup_roundtrip(ceng.s_stack, **rt), on_card)
+    k8_plain_ms, back_plain = kernel_ms(lambda: _lookup_roundtrip_plain(ceng.s_stack), on_card)
+    entries = torch.arange(ceng.s_stack.shape[1], device=ceng.s_stack.device)
+    k8_lib_ms, _ = kernel_ms(lambda: torch.index_select(ceng.s_stack, 1, entries), on_card)
+    k8_err = max_err((back, ceng.s_stack), (back, back_plain))
+    k8_io = (2 * 4 * ceng.s_stack.numel(), 0)
+    print(
+        f"K8 lookup_roundtrip, {m} x {4**k} entries: {k8_ms:.3f} ms, plain twin {k8_plain_ms:.3f} ms, "
+        f"one index_select {k8_lib_ms:.3f} ms, bound {bound(*k8_io)[0]:.5f} ms, equal to the stack={k8_err == 0} [{label}]"
+    )
+    require(k8_err == 0, "K8 read a table entry back wrong")
+    del cprep, bm3, bm3_plain, back, back_plain
 
-    def read_counts() -> dict:
-        return {name: fn.launches for name, fn in wrappers.items()}
+    # --- K5 vs its plain twin: the split pass's shapes ----------------------
+    ws_groups = tuple(g[0] for g in ceng.groups)
+    k5 = {}
+    for n_bp in (SHORT_CONTIG_BP, ctx["whole_bp"]):
+        pp = ceng.prepare_codes(record[:n_bp])
+        span = ceng._split_span(n_bp - min(clusters.windowsizes) + 1)
+        args = (pp, k, ws_groups, span - 1, span + max(widths) - 1, depth)
+        ms, (ab5, kc5) = kernel_ms(lambda: codes_pair_multi(*args), on_card)
+        pms, (ab5p, kc5p) = kernel_ms(lambda: _codes_pair_multi_plain(*args), on_card, reps=3)
+        err = max_err((ab5, ab5p), (kc5, kc5p))
+        io = (_pair_multi_need(ws_groups, span - 1, span + max(widths) - 1)[1]
+              + 4 * (len(ws_groups) * (span - 1) + span + max(widths) - 1), 4 * depth * (span - 1))
+        k5[n_bp] = (ms, pms, err, io)
+        print(
+            f"K5 codes_pair_multi, {n_bp} bp record, span {span}, groups {ws_groups}, depth {depth}: "
+            f"{ms:.3f} ms, plain twin {pms:.3f} ms, bound {bound(*io)[0]:.5f} ms, bit-identical={err == 0} [{label}]"
+        )
+        require(err == 0, f"K5 differs from its plain twin on a {n_bp} bp record")
+    k5_err = max(v[2] for v in k5.values())
+
+    # --- cluster goldens through find_genes_cluster_mode (the split route) --
+    ctx["launches"].reset()
+    hits = kt.find_genes_cluster_mode(
+        str(DATA / "Alp_V_locus.fasta"), REF, kmer_dist_thrs=GOLDEN_CLUSTER_THRS, buffer=100, verbose=False, device=device,
+    )[0]
+    golden_launches = ctx["launches"].read()
+    require([h.description for h in hits] == GOLDEN_CLUSTER, "Alp_V_locus cluster golden hits")
+    print(f"cluster goldens: Alp_V_locus 3 hits exact; launch counts {golden_launches} [{label}]")
+    if on_card:
+        require(golden_launches["codes_pair_multi"] > 0 and golden_launches["match_counts"] > 0,
+                f"the cluster golden did not run K5 and K2: {golden_launches}")
+
+    # --- both routes agree ------------------------------------------------------
+    # the short contig takes the split route by default; a whole contig K3
+    short_contig = ctx["short_contig"]
+    for codes_r, other in ((short_contig, 1), (record, 1 << 30)):
+        a = ClusterScanEngine(profiles, k=k, device=device)
+        b = ClusterScanEngine(profiles, k=k, device=device)
+        b.fused_min_windows = other
+        sa, sb = a.record_streams(codes_r, cthrs), b.record_streams(codes_r, cthrs)
+        require(sa == sb, f"K3 and split-route streams differ on a {codes_r.shape[0]} bp record")
+        require(any(x[1] for x in sa), f"no cluster stream entries on a {codes_r.shape[0]} bp record with planted genes")
+        print(f"both routes agree on a {codes_r.shape[0]} bp record: {[len(x[1]) for x in sa]} stream entries [{label}]")
+
+    # --- the cluster path at size ------------------------------------------------
+    ccontigs = [*contigs, short_contig]
+    ctotal = sum(c.shape[0] for c in ccontigs)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = Path(tmp) / "genome.fasta"
+        write_fasta(fasta, ccontigs)
+        ctx["launches"].reset()
+        times, out = timed_calls(lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, runs)
+        chits = out[0]
+        claunches = ctx["launches"].read()
+        t_med = statistics.median(times)
+        print(
+            f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
+            f"median of {runs} {t_med:.3f} s = {ctotal / t_med / 1e6:.2f} Mbp/s "
+            f"(runs {', '.join(f'{x:.3f}' for x in times)} s), {len(chits)} hits [{label}]"
+        )
+        t0 = time.perf_counter()
+        coracle = mine_genome_clusters(str(fasta), profiles, thr_vec=cthrs, buff=100, engine=HostClusterOracle(profiles, k))
+        print(f"int64 host cluster oracle ({m} x HostScanEngine): {time.perf_counter() - t0:.3f} s, "
+              f"{len(coracle.hits)} hits [{label}]")
+        cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
+        device_share("find_genes_cluster_mode",
+                     lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, device, label)
+    require(len(chits) > 0, "no cluster hits on the planted genome")
+    require(
+        [(h.description, h.seq) for h in chits] == [(h.description, h.seq) for h in coracle.hits],
+        "find_genes_cluster_mode hits differ from the int64 host cluster oracle",
+    )
+    print(f"cluster hits equal the host oracle's; launch counts over the {runs + 1} runs: {claunches}")
+    if on_card:
+        missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts")
+                   if claunches[n] == 0]
+        require(not missing, f"a kernel of the cluster path never launched: {claunches}")
+    return [
+        entry("fused_cluster_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:187",
+              claunches["fused_cluster_record_bitmaps"], k3_err, k3_ms, k3_plain_ms, *k3_io),
+        entry("lookup_roundtrip", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:169",
+              claunches["lookup_roundtrip"], k8_err, k8_ms, k8_plain_ms, *k8_io, library_ms=k8_lib_ms),
+        entry("codes_pair_multi", "pair_multi.cu", "kmergma_tpu/ops/scan_pallas.py:368",
+              claunches["codes_pair_multi"], k5_err, *k5[SHORT_CONTIG_BP][:2], *k5[SHORT_CONTIG_BP][3]),
+    ]
+
+
+def strobe_phase(ctx) -> list:
+    """K4r against its twin on one contig's strobe codes, the strobe goldens,
+    and ``strobemer_find_genes`` on the genome against the int64 host
+    oracle of the strobe recurrence."""
+    import torch
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma_tpu_torch.ops.scan_kernels import (
+        _codes_pair_ab_kcodes_plain, _pair_depth_need, codes_pair_ab_kcodes,
+    )
+    from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    contigs, runs = ctx["contigs"], ctx["runs"]
+    thr = 30.0  # strobemer_find_genes' default kmer_dist_thr (no estimate)
+    profile = gen_strobe_ref_ws_cons(REF)
+    k, ws = profile.k, profile.windowsize
+    w = ws - k
+    print(
+        f"strobemers: s {profile.s}, w_min {profile.w_min}, w_max {profile.w_max}, q {profile.q}, "
+        f"{4 ** (2 * profile.s)} bins, windowsize {ws}, R {profile.n_records}, k_eff {k}; span engine k 1, "
+        f"ws {w}, exact pair depth {w - 1}, thr {thr} [{label}]"
+    )
+
+    # --- K4r vs its plain twin: one contig's strobe codes ------------------
+    record = contigs[0]
+    n_steps = record.shape[0] - ws - 1
+    sc = strobe_2_mer_codes_torch(torch.from_numpy(record).to(device), profile.s, profile.w_min, profile.w_max, profile.q)
+    eng = StrobeSpanEngine(profile, int(sc[w]), device=device)
+    prep = eng.prepare_codes(sc[: n_steps + w])
+    nw = n_steps + 1
+    nt, nkc, depth = nw - 1, nw + w - 1, w - 1
+    n_high = int((prep[: n_steps + w] >= 128).sum())
+    require(prep.dtype == torch.uint8 and n_high > 0, f"strobe codes: {prep.dtype}, {n_high} codes >= 128")
+    args = (prep, 1, w, nt, nkc, depth)
+    k4r_ms, (ab, kc) = kernel_ms(lambda: codes_pair_ab_kcodes(*args), on_card)
+    k4r_plain_ms, (ab_p, kc_p) = kernel_ms(lambda: _codes_pair_ab_kcodes_plain(*args), on_card, reps=1)
+    k4r_err = max_err((ab, ab_p), (kc, kc_p))
+    k4r_io = (_pair_depth_need(1, w, nt, nkc)[1] + 4 * (nt + nkc), 4 * depth * nt)
+    print(
+        f"K4r codes_pair_ab_kcodes, {record.shape[0]} bp record as {nkc} uint8 strobe codes ({n_high} >= 128), "
+        f"k 1, w {w}, depth {depth}: {k4r_ms:.3f} ms, plain twin {k4r_plain_ms:.3f} ms, "
+        f"bound {bound(*k4r_io)[0]:.4f} ms ({bound(*k4r_io)[1]}), bit-identical={k4r_err == 0} [{label}]"
+    )
+    require(k4r_err == 0, "K4r differs from its plain twin")
+    del sc, prep, ab, kc, ab_p, kc_p
+
+    # --- strobe goldens ------------------------------------------------------
+    hits = kt.strobemer_find_genes(str(DATA / "Alp_V_locus.fasta"), REF, verbose=False, device=device)[0]
+    require([h.description for h in hits] == GOLDEN_STROBE, f"Alp_V_locus strobe hits {[h.description for h in hits]}")
+    print(f"strobe goldens: Alp_V_locus {len(hits)} hits equal the JAX package's [{label}]")
+
+    # --- the strobe path at size ------------------------------------------------
+    fasta, total_bp = ctx["fasta"], ctx["total_bp"]
+    ctx["launches"].reset()
+    times, out = timed_calls(lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, device=device), sync, runs)
+    shits = out[0]
+    slaunches = ctx["launches"].read()
+    t_med = statistics.median(times)
+    print(
+        f"strobemer_find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
+        f"= {total_bp / t_med / 1e6:.2f} Mbp/s (runs {', '.join(f'{x:.3f}' for x in times)} s), "
+        f"{len(shits)} hits [{label}]"
+    )
+    t0 = time.perf_counter()
+    soracle = strobe_mine_genome(str(fasta), profile, thr=thr, device_extract=False, device=device,
+                                 engine_factory=HostStrobeOracle)
+    print(f"int64 host strobe oracle (sorted-key window counts, all {len(contigs)} contigs): "
+          f"{time.perf_counter() - t0:.3f} s, {len(soracle.hits)} hits [{label}]")
+    strobe_stage_breakdown(fasta, profile, thr, t_med, sync, device, label, reps=runs)
+    require(len(shits) > 0, "no strobe hits on the planted genome")
+    require(
+        [(h.description, h.seq) for h in shits] == [(h.description, h.seq) for h in soracle.hits],
+        "strobemer_find_genes hits differ from the int64 host strobe oracle",
+    )
+    print(f"strobe hits equal the host oracle's; launch counts over the {runs + 1} runs: {slaunches}")
+    if on_card:
+        require(slaunches["codes_pair_ab_kcodes"] > 0 and slaunches["match_counts"] > 0,
+                f"a kernel of the strobe path never launched: {slaunches}")
+    return [
+        entry("codes_pair_ab_kcodes[K4r]", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:329",
+              slaunches["codes_pair_ab_kcodes"], k4r_err, k4r_ms, k4r_plain_ms, *k4r_io),
+    ]
+
+
+def mixed_depth_phase(ctx) -> list:
+    """K4 and K6 against their twins at the split pass's shapes and at the
+    single-profile width, then the mixed-depth set through
+    ``ClusterScanEngine`` on a 16 Mbp contig and the short contig, its
+    streams equal to the int64 host cluster oracle's."""
+    import numpy as np
+    import torch
+
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import _pair_ab
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.scan_kernels import (
+        _codes_pair_ab_kcodes_plain, _pair_depth_need, codes_pair_ab_kcodes, pair_ab_from_kcodes,
+    )
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold
+    from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    contigs, clusters, cthrs = ctx["contigs"], ctx["clusters"], ctx["cthrs"]
+    k = 6
+    prefixes = gen_ref_ws_cons([FastaRecord(rec.description, rec.seq[:PREFIX_BP]) for rec in as_records(REF)], k)
+    # the auto estimate's buffer of 7 exceeds the prefix profile's mean
+    # random distance (the threshold would be negative); at buffer 0.8 it
+    # lies above the prefix windows of most planted genes and below nearly
+    # every window of the hashed background
+    prefix_thr = estimate_optimal_threshold(prefixes.mean_kfv, prefixes.windowsize, buffer=0.8)
+    profiles = [*clusters.profiles, prefixes]
+    thrs = [*cthrs, prefix_thr]
+    eng = ClusterScanEngine(profiles, k=k, device=device)
+    groups = [(ws, depth) for ws, depth, _i, _r in eng.groups]
+    print(f"mixed-depth cluster set: {len(profiles)} profiles, (windowsize, pair depth) groups {groups}, "
+          f"prefix profile R {prefixes.n_records}, threshold {prefix_thr} [{label}]")
+    require(not eng.one_depth and groups[0] == (PREFIX_BP, PREFIX_BP - k), f"groups {groups}")
+
+    # --- K4 and K6 vs their twins --------------------------------------------
+    record = contigs[0]
+    prep = eng.prepare_codes(record)
+    span = eng._split_span(record.shape[0] - PREFIX_BP + 1)
+    max_w = eng.max_ws - k + 1
+    nt, nkc = span - 1, span + max_w - 1
+    results = {}
+    for name, w, depth in (("K4", PREFIX_BP - k + 1, PREFIX_BP - k), ("K4", 289 - k + 1, 16)):
+        args = (prep, k, w, nt, nkc, depth)
+        ms, (ab, kc) = kernel_ms(lambda: codes_pair_ab_kcodes(*args), on_card)
+        pms, (ab_p, kc_p) = kernel_ms(lambda: _codes_pair_ab_kcodes_plain(*args), on_card, reps=1)
+        io = (_pair_depth_need(k, w, nt, nkc)[1] + 4 * (nt + nkc), 4 * depth * nt)
+        results[(name, depth)] = (ms, pms, max_err((ab, ab_p), (kc, kc_p)), io)
+    kcodes = kc
+    for w_g, depth in ((groups[1][0] - k + 1, groups[1][1]), (PREFIX_BP - k + 1, PREFIX_BP - k)):
+        kc_g = kcodes[: nt + w_g]
+        ms, ab6 = kernel_ms(lambda: pair_ab_from_kcodes(kc_g, w_g, nt, depth), on_card)
+        pms, ab6_p = kernel_ms(lambda: _pair_ab(kc_g, w_g, nt, depth), on_card, reps=1)
+        io = (4 * (nt + w_g) + 4 * nt, 4 * depth * nt)
+        results[("K6", depth)] = (ms, pms, max_err((ab6, ab6_p)), io)
+    for (name, depth), (ms, pms, err, io) in results.items():
+        print(f"{name} at depth {depth}, k {k}, {nt} transitions of a {record.shape[0]} bp record: {ms:.3f} ms, "
+              f"plain twin {pms:.3f} ms, bound {bound(*io)[0]:.4f} ms ({bound(*io)[1]}), bit-identical={err == 0} [{label}]")
+        require(err == 0, f"{name} at depth {depth} differs from its plain twin")
+    del prep, ab, kc, ab_p, kc_p, kcodes, ab6, ab6_p
+
+    # --- the mixed-depth set against the int64 host cluster oracle ----------
+    oracle = HostClusterOracle(profiles, k)
+    total = dict.fromkeys(ctx["launches"].wrappers, 0)
+    for codes_r in (record, ctx["short_contig"]):
+        n = codes_r.shape[0]
+        imax = n - eng.max_ws - k + 2
+        ctx["launches"].reset()
+        ms, got = clock(lambda: eng.record_streams(codes_r, thrs), sync)
+        launches = ctx["launches"].read()
+        total = {name: total[name] + n_l for name, n_l in launches.items()}
+        want = []
+        for e, x, p in zip(oracle.engines, thrs, profiles):
+            d = e._dists(codes_r)
+            want.append((float(d[0]) / e.scale, minimal_stream(d, e.scale, x, min(n - p.windowsize, imax))))
+        require(got == want, f"mixed-depth cluster streams differ from the int64 host oracle on a {n} bp record")
+        print(f"mixed-depth streams equal the int64 host oracle's on a {n} bp record ({ms:.3f} ms): "
+              f"{[len(s) for _d0, s in got]} stream entries; launch counts {launches} [{label}]")
+        require(len(got[-1][1]) > 0, "no prefix-profile stream entries on a record with planted genes")
+        if on_card:
+            require(launches["codes_pair_ab_kcodes"] == 1 and launches["pair_ab_from_kcodes"] == len(groups) - 1
+                    and launches["match_counts"] > 0, f"the mixed-depth pass did not run K4, K6 and K2: {launches}")
+    k4 = results[("K4", PREFIX_BP - k)]
+    k6 = results[("K6", groups[1][1])]
+    return [
+        entry("codes_pair_ab_kcodes[K4]", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:236",
+              total["codes_pair_ab_kcodes"], max(v[2] for (n_, _d), v in results.items() if n_ == "K4"),
+              k4[0], k4[1], *k4[3]),
+        entry("pair_ab_from_kcodes", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:75",
+              total["pair_ab_from_kcodes"], max(v[2] for (n_, _d), v in results.items() if n_ == "K6"),
+              k6[0], k6[1], *k6[3]),
+    ]
+
+
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "") -> dict:
+    """All phases on ``device``; raises SmokeFailure on any failed check.
+    ``runs`` timed runs follow one warm-up at size, and each stage of the
+    breakdowns is the median of ``runs``.  Returns the kernels' report."""
+    import torch
+
+    from kmergma_tpu_torch import _kernels
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
+    from kmergma_tpu_torch.utils.fasta import as_records
 
     device = torch.device(device)
     on_card = device.type == "cuda"
@@ -380,269 +1038,26 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
                     print(f"  ptxas: {line.strip()}")
 
     profile = gen_ref_ws_cons(REF, 6)
-    k, ws, r = profile.k, profile.windowsize, profile.n_records
-    thr = estimate_optimal_threshold(profile.mean_kfv, ws, buffer=8.0)
     genes = [rec.codes for rec in as_records(REF)]
     contigs = synthetic_genome(n_contigs, contig_bp, plant_every, genes)
-    engine = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
-
-    # --- K1 vs its plain twin: one whole contig --------------------------
-    record = contigs[0]
-    nw = record.shape[0] - ws + 1
-    prep = engine.prepare_codes(record)
-    depth = engine.bound_depth
-    thr_int = int(engine._thr_int(thr))
-    n_tiles = -(-nw // engine.fused_t)
-    l0 = _first_window_l0(prep, engine.s_dev, k=k, ws=ws, r=r, depth=depth)
-    kw = dict(k=k, ws=ws, r=r, depth=depth, t=engine.fused_t, block=engine.block, n_tiles=n_tiles)
-    k1_ms, bm = timed_ms(lambda: fused_record_bitmaps(prep, engine.s_dev, thr_int, l0, nw, **kw), sync)
-    k1_plain_ms, bm_plain = timed_ms(lambda: fused_record_bitmaps_plain(prep, engine.s_dev, thr_int, l0, nw, **kw), sync)
-    k1_err = int((bm - bm_plain).abs().max())
-    n_active = int(bm.sum())
-    print(
-        f"K1 fused_record_bitmaps, {record.shape[0]} bp record, k={k} ws={ws} depth={depth} "
-        f"thr_int={thr_int}: {k1_ms:.3f} ms, plain twin {k1_plain_ms:.3f} ms, "
-        f"bit-identical={k1_err == 0}, active blocks {n_active}/{bm.numel()} [{label}]"
-    )
-    require(k1_err == 0, "K1 bitmap differs from its plain twin")
-    require(n_active > 0, "K1 flagged no block on a record with planted genes")
-
-    # --- K2 vs its plain twin: the main path's region rows --------------
-    rspan = engine.rspan
-    w = ws - k + 1
-    starts, nvr = _plan_regions(bm.reshape(-1).bool(), nw, rspan, engine.block, 256)
-    rows = prep[starts[:, None] + torch.arange(rspan + ws - 1, device=device)[None, :]]
-    tiles = torch.nn.functional.pad(rolling_kmer_codes(rows, k), (0, 1))
-    k2_ms, ab = timed_ms(lambda: match_counts(tiles, w, rspan), sync)
-    k2_plain_ms, ab_plain = timed_ms(lambda: _match_counts_plain(tiles, w, rspan), sync)
-    k2_err = int((ab - ab_plain).abs().max())
-    print(
-        f"K2 match_counts, {tiles.shape[0]} region rows x {tiles.shape[1]} K codes "
-        f"({int(nvr)} active regions): {k2_ms:.3f} ms, plain twin {k2_plain_ms:.3f} ms, "
-        f"bit-identical={k2_err == 0} [{label}]"
-    )
-    require(k2_err == 0, "K2 region rows differ from the plain twin")
-
-    # --- K2 on a whole-record distance scan ------------------------------
-    whole = prep[: whole_bp + ws - 1]
-    kd_ms, d_kernel = timed_ms(lambda: scan_window_distances_kernel(whole, engine.s_dev, k, ws, r), sync)
-    pd_ms, d_plain = timed_ms(lambda: scan_window_distances(whole, engine.s_dev, k, ws, r), sync)
-    kd_err = int((d_kernel - d_plain).abs().max())
-    oracle = scan_rolling_i64_native(record[: whole_bp + ws - 1], profile.sum_kfv, k, ws, r)
-    oracle_ok = oracle is None or np.array_equal(d_kernel.cpu().numpy().astype(np.int64), oracle)
-    print(
-        f"K2 whole-record distances, {whole_bp} windows (tiles of 2048): {kd_ms:.3f} ms, "
-        f"plain twin {pd_ms:.3f} ms, bit-identical={kd_err == 0}, "
-        f"int64 host oracle {'agrees' if oracle is not None and oracle_ok else 'unavailable' if oracle is None else 'DIFFERS'} [{label}]"
-    )
-    require(kd_err == 0 and oracle_ok, "K2 whole-record distances differ")
-    del prep, bm, bm_plain, rows, tiles, whole, d_kernel, d_plain
-
-    # --- goldens through find_genes ------------------------------------------
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        hits = kt.find_genes(str(DATA / "Alp_V_locus.fasta"), REF, verbose=False)[0]
-        require([h.description for h in hits] == GOLDEN_LOCUS, "Alp_V_locus golden hits")
-        hits, loci = kt.find_genes(str(DATA / "Loci.fasta"), REF, verbose=False, do_return_hit_loci=True)
-        require(len(hits) == 7 and loci == GOLDEN_LOCI, f"Loci golden: {len(hits)} hits, loci {loci}")
-        hits, dists = kt.find_genes(
-            str(DATA / "Loci.fasta"), REF, kmer_dist_thr=10, do_align=False,
-            do_return_dists=True, verbose=False,
-        )
-        require(dists.shape[0] == 484127 and round(float(dists.mean())) == 46 and len(hits) == 3,
-                f"Loci distances golden: {dists.shape[0]} dists, mean {float(dists.mean())}, {len(hits)} hits")
-    print("goldens: Alp_V_locus 3 hits exact; Loci 7 hits, loci as pinned; "
-          f"Loci do_return_dists {dists.shape[0]} distances, mean {float(dists.mean()):.4f}")
-
-    # --- the main path at size: find_genes on the synthetic genome ----------
-    total_bp = sum(c.shape[0] for c in contigs)
-    with tempfile.TemporaryDirectory() as tmp:
-        fasta = Path(tmp) / "genome.fasta"
-        write_fasta(fasta, contigs)
-        reset_counts()
-        times = []
-        for i in range(runs + 1):  # one warm-up, then the timed runs
-            sync()
-            t0 = time.perf_counter()
-            hits = kt.find_genes(str(fasta), REF, verbose=False)[0]
-            sync()
-            if i:
-                times.append(time.perf_counter() - t0)
-        launches = read_counts()
-        t_med = statistics.median(times)
-        print(
-            f"find_genes {total_bp} bp ({n_contigs} contigs): median of {runs} {t_med:.3f} s "
-            f"= {total_bp / t_med / 1e6:.2f} Mbp/s (runs {', '.join(f'{x:.3f}' for x in times)} s), "
-            f"{len(hits)} hits [{label}]"
-        )
-        t0 = time.perf_counter()
-        oracle_res = mine_genome(
-            str(fasta), profile, thr=thr,
-            engine=HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r),
-        )
-        print(f"int64 host oracle (HostScanEngine): {time.perf_counter() - t0:.3f} s, {len(oracle_res.hits)} hits [{label}]")
-        stage_breakdown(fasta, profile, thr, t_med, sync, on_card, label, reps=runs)
-    require(len(hits) > 0, "no hits on the planted genome")
-    require(
-        [(h.description, h.seq) for h in hits] == [(h.description, h.seq) for h in oracle_res.hits],
-        "find_genes hits differ from the int64 host oracle",
-    )
-    print(f"hits equal the host oracle's; launch counts over the {runs + 1} runs: {launches}")
-    if on_card:
-        require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0,
-                f"a kernel of the single-profile path never launched: {launches}")
-
-    # --- cluster mode: the Alp_V set in six clusters -------------------------
-    clusters = eliminate_null_params(cluster_ref_api(REF, 6))
-    profiles = clusters.profiles
-    cthrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
-    ceng = ClusterScanEngine(profiles, k=6, device=device)
-    m = len(profiles)
-    widths = [ws_c - k + 1 for ws_c, _r in ceng.specs]
-    print(
-        f"cluster mode: {m} clusters, windowsizes {clusters.windowsizes}, R {[p.n_records for p in profiles]}, "
-        f"{len(ceng.groups)} windowsize groups, pair depth {ceng.depth}, auto thresholds (buffer 7) {cthrs} [{label}]"
-    )
-
-    # --- K3 vs its plain twin: one whole contig, all clusters --------------
-    record = contigs[0]
-    nws = [record.shape[0] - ws_c + 1 for ws_c, _r in ceng.specs]
-    cprep = ceng.prepare_codes(record)
-    cthr_ints = [int(e._thr_int(x)) for e, x in zip(ceng.engines, cthrs)]
-    l0s = torch.stack([
-        _first_window_l0(cprep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=ceng.depth) for e in ceng.engines
-    ])
-    kw3 = dict(k=k, specs=ceng.specs, depth=ceng.depth, t=ceng.fused_t, block=ceng.block,
-               n_tiles=-(-max(nws) // ceng.fused_t))
-    k3_ms, bm3 = timed_ms(lambda: fused_cluster_record_bitmaps(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), sync)
-    k3_plain_ms, bm3_plain = timed_ms(
-        lambda: fused_cluster_record_bitmaps_plain(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), sync
-    )
-    k3_err = int((bm3 - bm3_plain).abs().max())
-    placement = "the plain twin's gather"
-    if on_card:
-        placement = "shared memory" if cluster_tables_in_smem(m, k, ceng.fused_t, min(widths), max(widths)) else "__ldg"
-    print(
-        f"K3 fused_cluster_record_bitmaps, {record.shape[0]} bp record, {m} clusters, tables read through {placement}: "
-        f"{k3_ms:.3f} ms, plain twin {k3_plain_ms:.3f} ms, bit-identical={k3_err == 0}, "
-        f"active blocks per cluster {[int(x) for x in bm3.sum(dim=1)]} of {bm3.shape[1]} [{label}]"
-    )
-    require(k3_err == 0, "K3 bitmaps differ from the plain twin")
-    require(int(bm3.sum()) > 0, "K3 flagged no block on a record with planted genes")
-
-    # --- K8: every table entry through K3's lookup ------------------------
-    rt = dict(t=ceng.fused_t, w_min=min(widths), w_max=max(widths))
-    k8_ms, back = timed_ms(lambda: lookup_roundtrip(ceng.s_stack, **rt), sync)
-    k8_plain_ms, back_plain = timed_ms(lambda: _lookup_roundtrip_plain(ceng.s_stack), sync)
-    k8_err = max(int((back - ceng.s_stack).abs().max()), int((back - back_plain).abs().max()))
-    print(
-        f"K8 lookup_roundtrip, {m} x {4**k} entries: {k8_ms:.3f} ms, plain twin {k8_plain_ms:.3f} ms, "
-        f"equal to the stack={k8_err == 0} [{label}]"
-    )
-    require(k8_err == 0, "K8 read a table entry back wrong")
-    del cprep, bm3, bm3_plain, back, back_plain
-
-    # --- K5 vs its plain twin: the split pass's shapes ----------------------
-    ws_groups = tuple(g[0] for g in ceng.groups)
-    k5 = {}
-    for n_bp in (SHORT_CONTIG_BP, whole_bp):
-        pp = ceng.prepare_codes(record[:n_bp])
-        span = ceng._split_span(n_bp - min(clusters.windowsizes) + 1)
-        args = (pp, k, ws_groups, span - 1, span + max(widths) - 1, ceng.depth)
-        ms, (ab5, kc5) = timed_ms(lambda: codes_pair_multi(*args), sync)
-        pms, (ab5p, kc5p) = timed_ms(lambda: _codes_pair_multi_plain(*args), sync)
-        err = max(int((ab5 - ab5p).abs().max()), int((kc5 - kc5p).abs().max()))
-        k5[n_bp] = (ms, pms, err)
-        print(
-            f"K5 codes_pair_multi, {n_bp} bp record, span {span}, groups {ws_groups}, depth {ceng.depth}: "
-            f"{ms:.3f} ms, plain twin {pms:.3f} ms, bit-identical={err == 0} [{label}]"
-        )
-        require(err == 0, f"K5 differs from its plain twin on a {n_bp} bp record")
-    k5_err = max(v[2] for v in k5.values())
-
-    # --- cluster goldens through find_genes_cluster_mode (the split route) --
-    reset_counts()
-    hits = kt.find_genes_cluster_mode(
-        str(DATA / "Alp_V_locus.fasta"), REF, kmer_dist_thrs=GOLDEN_CLUSTER_THRS, buffer=100, verbose=False,
-    )[0]
-    golden_launches = read_counts()
-    require([h.description for h in hits] == GOLDEN_CLUSTER, "Alp_V_locus cluster golden hits")
-    print(f"cluster goldens: Alp_V_locus 3 hits exact; launch counts {golden_launches} [{label}]")
-    if on_card:
-        require(golden_launches["codes_pair_multi"] > 0 and golden_launches["match_counts"] > 0,
-                f"the cluster golden did not run K5 and K2: {golden_launches}")
-
-    # --- both routes agree ------------------------------------------------------
-    # the cluster path's short contig (hashed background, three genes) takes
-    # the split route by default; a whole contig takes K3 by default
+    # the cluster path's short contig (hashed background, seed 1, three genes)
     short_contig = hash_codes(SHORT_CONTIG_BP, n_contigs * contig_bp, seed=1)
     for j, pos in enumerate(range(10_000, SHORT_CONTIG_BP - 1_000, 20_000)):
         short_contig[pos : pos + genes[j].shape[0]] = genes[j]
-    for codes_r, other in ((short_contig, 1), (record, 1 << 30)):
-        a = ClusterScanEngine(profiles, k=6, device=device)
-        b = ClusterScanEngine(profiles, k=6, device=device)
-        b.fused_min_windows = other
-        sa, sb = a.record_streams(codes_r, cthrs), b.record_streams(codes_r, cthrs)
-        require(sa == sb, f"K3 and split-route streams differ on a {codes_r.shape[0]} bp record")
-        require(any(x[1] for x in sa), f"no cluster stream entries on a {codes_r.shape[0]} bp record with planted genes")
-        print(f"both routes agree on a {codes_r.shape[0]} bp record: {[len(x[1]) for x in sa]} stream entries [{label}]")
-
-    # --- the cluster path at size ------------------------------------------------
-    ccontigs = [*contigs, short_contig]
-    ctotal = sum(c.shape[0] for c in ccontigs)
-    with tempfile.TemporaryDirectory() as tmp:
-        fasta = Path(tmp) / "genome.fasta"
-        write_fasta(fasta, ccontigs)
-        reset_counts()
-        times = []
-        for i in range(runs + 1):  # one warm-up, then the timed runs
-            sync()
-            t0 = time.perf_counter()
-            chits = kt.find_genes_cluster_mode(str(fasta), REF, verbose=False)[0]
-            sync()
-            if i:
-                times.append(time.perf_counter() - t0)
-        claunches = read_counts()
-        t_med = statistics.median(times)
-        print(
-            f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
-            f"median of {runs} {t_med:.3f} s = {ctotal / t_med / 1e6:.2f} Mbp/s "
-            f"(runs {', '.join(f'{x:.3f}' for x in times)} s), {len(chits)} hits [{label}]"
-        )
-        t0 = time.perf_counter()
-        coracle = mine_genome_clusters(str(fasta), profiles, thr_vec=cthrs, buff=100, engine=HostClusterOracle(profiles, k))
-        print(f"int64 host cluster oracle ({m} x HostScanEngine): {time.perf_counter() - t0:.3f} s, "
-              f"{len(coracle.hits)} hits [{label}]")
-        cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
-        device_share("find_genes_cluster_mode", lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False),
-                     sync, on_card, label)
-    require(len(chits) > 0, "no cluster hits on the planted genome")
-    require(
-        [(h.description, h.seq) for h in chits] == [(h.description, h.seq) for h in coracle.hits],
-        "find_genes_cluster_mode hits differ from the int64 host cluster oracle",
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6))
+    ctx = dict(
+        device=device, on_card=on_card, sync=sync, label=label, runs=runs, whole_bp=whole_bp,
+        profile=profile, thr=estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0),
+        contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
+        clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
+        launches=Launches(),
     )
-    print(f"cluster hits equal the host oracle's; launch counts over the {runs + 1} runs: {claunches}")
-    if on_card:
-        missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts")
-                   if claunches[n] == 0]
-        require(not missing, f"a kernel of the cluster path never launched: {claunches}")
-
-    def entry(name, source, replaces, count, err, ms, plain_ms):
-        return {"name": name, "route": "cuda", "source": f"kmergma_tpu_torch/csrc/{source}", "replaces": replaces,
-                "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-
-    return {"kernels": [
-        entry("fused_record_bitmaps", "fused_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
-              launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms),
-        entry("match_counts", "match_counts.cu", "kmergma_tpu/ops/scan_pallas.py:43",
-              launches["match_counts"], k2_err, k2_ms, k2_plain_ms),
-        entry("fused_cluster_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:187",
-              claunches["fused_cluster_record_bitmaps"], k3_err, k3_ms, k3_plain_ms),
-        entry("lookup_roundtrip", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:169",
-              claunches["lookup_roundtrip"], k8_err, k8_ms, k8_plain_ms),
-        entry("codes_pair_multi", "pair_multi.cu", "kmergma_tpu/ops/scan_pallas.py:368",
-              claunches["codes_pair_multi"], k5_err, k5[SHORT_CONTIG_BP][0], k5[SHORT_CONTIG_BP][1]),
-    ]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx["fasta"] = Path(tmp) / "genome.fasta"
+        write_fasta(ctx["fasta"], contigs)
+        kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx)
+    kernels += mixed_depth_phase(ctx)
+    return {"kernels": kernels}
 
 
 def main() -> int:

@@ -96,6 +96,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kmg_match_counts.argtypes = [p, ll, i, i, i, p, p]
     lib.kmg_pair_multi.restype = i
     lib.kmg_pair_multi.argtypes = [p, i, i, ip, i, i, i, i, i, p, p, p]
+    lib.kmg_pair_depth_codes.restype = i
+    lib.kmg_pair_depth_codes.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.kmg_pair_depth_kcodes.restype = i
+    lib.kmg_pair_depth_kcodes.argtypes = [p, ll, i, i, i, i, i, p, p]
     lib.kmg_cluster_tables_in_smem.restype = i
     lib.kmg_cluster_tables_in_smem.argtypes = [i, i, i, i, i]
     lib.kmg_fused_cluster_bitmaps.restype = i

@@ -1,10 +1,13 @@
 """User-facing API on the PyTorch scan (counterpart of ``kmergma_tpu.api``):
-``find_genes``, ``find_genes_cluster_mode`` and ``write_results``.
+``find_genes``, ``find_genes_cluster_mode``, ``strobemer_find_genes`` and
+``write_results``.
 
 Kwarg names, defaults, validation, warning texts and output ordering are
 those of the JAX package: the return value is a list whose first element
 is the hit-record list, with hit loci, alignments and distances appended
-in that order when requested.
+in that order when requested.  Each search runs on ``device``: the card
+(``"cuda"``, the default; raises without CUDA) unless the caller asks for
+the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -16,17 +19,13 @@ import warnings
 from typing import Iterable
 
 import numpy as np
+import torch
 
-from .host import (
-    FastaRecord,
-    cluster_ref_api,
-    eliminate_null_params,
-    estimate_optimal_threshold,
-    estimate_optimal_thresholds,
-    gen_ref_ws_cons,
-    write_fasta,
-)
 from .models.miner import mine_genome
+from .ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
+from .ops.scan import resolve_device
+from .ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
+from .utils.fasta import FastaRecord, write_fasta
 
 logger = logging.getLogger("kmergma_tpu_torch")
 
@@ -67,14 +66,16 @@ def find_genes(
     kmer_dist_threshold_buffer: float = 8.0,
     devices: int | None = None,
     checkpoint_path: str | None = None,
+    device: "str | torch.device" = "cuda",
 ) -> list:
-    """Single-profile homology search on the first CUDA device (the CPU
-    when there is none).
+    """Single-profile homology search on ``device`` (the card unless the
+    caller asks for the CPU).
 
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
     alignments and per-window distances.  ``devices`` and
     ``checkpoint_path`` are not ported yet and raise."""
     _refuse_unported(devices, checkpoint_path)
+    device = resolve_device(device)
     if verbose:
         logger.info("pre-processing references and parameters...")
     _warn_helper(k, do_return_dists)
@@ -110,6 +111,7 @@ def find_genes(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        device=device,
     )
 
     return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
@@ -132,9 +134,10 @@ def find_genes_cluster_mode(
     kmer_dist_threshold_buffer: float = 7.0,
     devices: int | None = None,
     checkpoint_path: str | None = None,
+    device: "str | torch.device" = "cuda",
 ) -> list:
-    """Cluster-mode (multi-profile) homology search on the first CUDA
-    device (the CPU when there is none): the reference set is clustered by
+    """Cluster-mode (multi-profile) homology search on ``device`` (the card
+    unless the caller asks for the CPU): the reference set is clustered by
     distance to its mean profile and every cluster's profile scans the
     genome in one pass per record.
 
@@ -144,6 +147,7 @@ def find_genes_cluster_mode(
     from .models.omn_miner import mine_genome_clusters
 
     _refuse_unported(devices, checkpoint_path)
+    device = resolve_device(device)
     if cluster_cutoffs is None:
         cluster_cutoffs = [7, 12, 20, 25]
     if verbose:
@@ -186,6 +190,54 @@ def find_genes_cluster_mode(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        device=device,
+    )
+    return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
+
+
+def strobemer_find_genes(
+    genome_path: str,
+    ref_path: str,
+    s: int = 2,
+    w_min: int = 3,
+    w_max: int = 5,
+    q: int = 5,
+    kmer_dist_thr: float = 30,
+    buffer: int = 50,
+    do_align: bool = True,
+    align_score_thr: int = 0,
+    do_return_dists: bool = False,
+    do_return_hit_loci: bool = False,
+    do_return_align: bool = False,
+    verbose: bool = True,
+    checkpoint_path: str | None = None,
+    device: "str | torch.device" = "cuda",
+) -> list:
+    """Randstrobe-based homology search on ``device`` (the card unless the
+    caller asks for the CPU); ref StrobemerGMA/StrobeGenomeMiner.jl:119-158.
+    No threshold estimate, as in the reference.
+
+    Returns ``[hits]`` plus, in priority order when requested, hit loci,
+    alignments and per-window distances.  ``checkpoint_path`` is not
+    ported yet and raises."""
+    from .models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+
+    _refuse_unported(None, checkpoint_path)
+    device = resolve_device(device)
+    profile = gen_strobe_ref_ws_cons(ref_path, s=s, w_min=w_min, w_max=w_max, q=q)
+    if verbose:
+        logger.info("initializing iteration...")
+    res = strobe_mine_genome(
+        genome_path,
+        profile,
+        thr=kmer_dist_thr,
+        buff=buffer,
+        do_align=do_align,
+        score_threshold=align_score_thr,
+        do_return_dists=do_return_dists,
+        do_return_align=do_return_align,
+        get_hit_loci=do_return_hit_loci,
+        device=device,
     )
     return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
 

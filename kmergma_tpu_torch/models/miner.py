@@ -16,20 +16,14 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
-from ..host import (
-    AlignResult,
-    FastaRecord,
-    HostScanEngine,
-    PathOrRecords,
-    RefProfile,
-    as_records,
-    cigar_to_unitrange,
-    replay_single,
-    semiglobal_align,
-    semiglobal_align_batch,
-)
+from ..ops.align import AlignResult, cigar_to_unitrange, semiglobal_align, semiglobal_align_batch
+from ..ops.reference import RefProfile
 from ..ops.scan import ScanEngine
+from ..ops.scan_host import HostScanEngine
+from ..utils.fasta import FastaRecord, PathOrRecords, as_records
+from .state_machine import replay_single
 
 
 def fmt_dist(x: float) -> str:
@@ -64,12 +58,12 @@ class MineResult:
     stats: ScanStats | None = None
 
 
-def _default_engine(profile: RefProfile):
-    """The device engine, or the exact int64 host engine where the scaled
-    distances would overflow int32."""
+def _default_engine(profile: RefProfile, device: "str | torch.device" = "cuda"):
+    """The device engine on ``device``, or the exact int64 host engine
+    where the scaled distances would overflow int32."""
     k, ws, r = profile.k, profile.windowsize, profile.n_records
     try:
-        return ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r)
+        return ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
     except OverflowError:
         return HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r)
 
@@ -83,16 +77,18 @@ def record_kmergma(
     gap_open: int = -69,
     gap_extend: int = -1,
     engine: "ScanEngine | HostScanEngine | None" = None,
+    device: "str | torch.device" = "cuda",
 ) -> list[FastaRecord]:
     """Single-record scan with the MultiThread miner's output format: the
     standard miner's hit set, with no ``GenomePos`` field in the
-    description."""
+    description.  Without ``engine``, the device engine runs on ``device``
+    (the card unless the caller asks for the CPU)."""
     k, ws = profile.k, profile.windowsize
     seq_len = len(record)
+    if engine is None:
+        engine = _default_engine(profile, device)
     if seq_len < ws:
         return []
-    if engine is None:
-        engine = _default_engine(profile)
     dist0, stream, _ = engine.record_stream(record.codes, thr)
     hits: list[FastaRecord] = []
     for hit in replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=seq_len, buff=buff):
@@ -123,10 +119,14 @@ def mine_genome(
     do_return_align: bool = False,
     get_hit_loci: bool = False,
     engine: "ScanEngine | HostScanEngine | None" = None,
+    device: "str | torch.device" = "cuda",
 ) -> MineResult:
+    """Mine a genome against one profile.  Without ``engine``, the device
+    engine runs on ``device`` (the card unless the caller asks for the
+    CPU), or the int64 host engine where int32 would overflow."""
     k, ws = profile.k, profile.windowsize
     if engine is None:
-        engine = _default_engine(profile)
+        engine = _default_engine(profile, device)
     consensus_ws = profile.consensus_ws
     res = MineResult()
     res.stats = stats = ScanStats()

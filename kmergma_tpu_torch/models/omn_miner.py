@@ -22,19 +22,14 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
-from ..host import (
-    FastaRecord,
-    OmnHitEvent,
-    PathOrRecords,
-    RefProfile,
-    as_records,
-    cigar_to_unitrange,
-    replay_omn,
-    semiglobal_align_batch,
-)
+from ..ops.align import cigar_to_unitrange, semiglobal_align_batch
+from ..ops.reference import RefProfile
 from ..ops.scan_cluster import ClusterScanEngine
+from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .miner import MineResult, ScanStats, fmt_dist
+from .state_machine import OmnHitEvent, replay_omn
 
 
 def mine_genome_clusters(
@@ -50,11 +45,13 @@ def mine_genome_clusters(
     get_hit_loci: bool = False,
     engine: "ClusterScanEngine | None" = None,
     checkpoint_path: str | None = None,
+    device: "str | torch.device" = "cuda",
 ) -> MineResult:
     """``engine`` may be any object with the cluster engine's
     ``record_streams(codes, thrs)`` and per-cluster ``engines[c].
     record_stream(codes, thr, collect_dists=True)``, such as an exact int64
-    host oracle; by default the device ``ClusterScanEngine``."""
+    host oracle; by default the device ``ClusterScanEngine`` on ``device``
+    (the card unless the caller asks for the CPU)."""
     if checkpoint_path is not None:
         raise NotImplementedError(
             "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
@@ -66,7 +63,7 @@ def mine_genome_clusters(
     k = profiles[0].k
     windowsizes = [p.windowsize for p in profiles]
     maxws = max(windowsizes)
-    cluster_engine = engine if engine is not None else ClusterScanEngine(profiles, k=k)
+    cluster_engine = engine if engine is not None else ClusterScanEngine(profiles, k=k, device=device)
 
     res = MineResult()
     res.stats = stats = ScanStats()

@@ -10,10 +10,11 @@ the JAX package (the headroom guard keeps every true value inside int32, so
 wrapping intermediates agree too).
 
 The plain functions here are the contracts and the plain twins of the
-hand-written kernels (ops/scan_fused.py: K1, ops/scan_kernels.py: K2).
-``ScanEngine.record_stream`` runs one planned pass per record: K1 bitmap ->
-device region plan -> K2 exact region recompute -> device run reduce -> one
-device-to-host copy.
+hand-written kernels (ops/scan_fused.py: K1, ops/scan_kernels.py: K2 and
+K4).  ``ScanEngine.record_stream`` runs one planned pass per record: the
+block bitmap (K1's lower bounds at pair depth 16, or in exact mode K4's
+full-depth distances) -> device region plan -> K2 exact region recompute ->
+device run reduce -> one device-to-host copy.
 """
 
 from __future__ import annotations
@@ -21,14 +22,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import RefProfile
+from .reference import RefProfile
 
 _INT32_MAX = 2**31 - 1
 
 
-def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device.  The entry points run on the card
+    (``"cuda"``) unless the caller asks for the CPU (``"cpu"``); a CUDA
+    device without CUDA raises, and so does any other device type."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(device)!r}: no CUDA device is available "
+                "(pass device='cpu' to run on the CPU)"
+            )
+        if dev.index is None:  # as tensors moved there report it
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev} (need a CUDA device or the CPU)")
+    return dev
 
 
 def profile_to_torch(profile: RefProfile, device) -> tuple[torch.Tensor, int, int, int]:
@@ -114,14 +128,25 @@ def _first_window_d0(kcodes: torch.Tensor, s_profile: torch.Tensor, w: int, r: i
     return (diff0 * diff0).sum().to(torch.int32)
 
 
+def _window_pairs(kcodes: torch.Tensor, w: int, depth: int) -> torch.Tensor:
+    """Equal-k-mer pairs of the first window K[0:w] at partner distance
+    <= depth (0-dim int64).  At depth >= w - 1 that is every pair, counted
+    on the sorted window (exact mode: depth ws - k, 282 for the strobe
+    engine) instead of one pass per distance."""
+    k0 = kcodes[:w]
+    if depth >= w - 1:
+        return (_window_count_sq(k0[None])[0] - w) // 2
+    p0 = torch.zeros((), dtype=torch.int64, device=kcodes.device)
+    for d in range(1, depth + 1):
+        p0 = p0 + (k0[d:] == k0[: w - d]).sum()
+    return p0
+
+
 def _lower_bound_base(kcodes, g, s_profile, w: int, r: int, depth: int) -> torch.Tensor:
     """L[0] = r^2 (w + 2 P̂_0) - 2 r G_0 + ||S||^2 as a 0-dim int32 tensor:
     P̂_0 counts the first window's equal-k-mer pairs at partner distance
     <= depth, G_0 is the window's profile-projection sum."""
-    k0 = kcodes[:w]
-    p0 = torch.zeros((), dtype=torch.int64, device=kcodes.device)
-    for d in range(1, depth + 1):
-        p0 = p0 + (k0[d:] == k0[: w - d]).sum()
+    p0 = _window_pairs(kcodes, w, depth)
     g0 = g[:w].to(torch.int64).sum()
     return (r * r * (w + 2 * p0) - 2 * r * g0 + _sq_norm(s_profile)).to(torch.int32)
 
@@ -183,7 +208,7 @@ def check_int32_headroom(s_profile: np.ndarray, ws: int, k: int, r: int) -> None
     if bound >= 2**31:
         raise OverflowError(
             f"scaled-integer scan would overflow int32 (bound {bound:.3g}); "
-            "use the exact int64 host engine (kmergma_tpu.ops.scan_host."
+            "use the exact int64 host engine (ops.scan_host."
             "HostScanEngine - models.miner.mine_genome falls back to it "
             "automatically)"
         )
@@ -409,20 +434,29 @@ def _planned_streams(engines: list, prep: torch.Tensor, flats: list, nws: list, 
 class ScanEngine:
     """Runs the device scan of whole records for one reference profile.
 
-    Every record goes through one planned pass on ``device``; the output
-    is the sparse candidate stream that the exact host replay
-    (``kmergma_tpu.models.state_machine.replay_single``) consumes.
+    Every record goes through one planned pass on ``device`` (the card
+    unless the caller asks for the CPU); the output is the sparse candidate
+    stream that the exact host replay (``models.state_machine.
+    replay_single``) consumes.  The pass's block bitmap comes from K1's
+    certified lower bounds at ``bound_depth`` (16 by default), or with
+    ``bound_depth=None`` (exact mode, the strobemer span engine) from the
+    exact distances of K4's full-depth pair counts.
     """
 
-    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, device=None):
+    #: host dtype of the record codes that cross to the device: 2-bit
+    #: genome codes (int8); the strobemer span engine ships its strobe
+    #: codes as uint8 (256 codes at s = 2) or int32 (s = 3)
+    codes_dtype = np.int8
+
+    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, device: "str | torch.device" = "cuda", bound_depth: int | None = 16):
+        self.device = resolve_device(device)
         check_int32_headroom(s_profile, ws, k, r)
-        self.device = torch.device(device) if device is not None else default_device()
         self.s_dev = torch.as_tensor(np.asarray(s_profile, dtype=np.int32), device=self.device)
         self.k, self.ws, self.r = k, ws, r
-        # K1 flags blocks from certified lower bounds at pair depth 16, the
-        # JAX engine's default (equality at depth = W - 1, so clamping
-        # keeps short windows exact)
-        self.bound_depth = min(16, ws - k)
+        # K1 flags blocks from certified lower bounds at this pair depth,
+        # 16 by default as in the JAX engine (equality at depth = W - 1, so
+        # clamping keeps short windows exact); None = exact mode
+        self.bound_depth = None if bound_depth is None else min(bound_depth, ws - k)
         self.scale = 2.0 * k * r * r
         self.block = 512  # bitmap granularity (windows per activity block)
         self.rspan = 1 << 10  # region-recompute granularity (windows per region)
@@ -453,22 +487,42 @@ class ScanEngine:
             t += 1
         return np.int32(t)
 
-    def prepare_codes(self, codes: np.ndarray) -> torch.Tensor:
-        """One host-to-device copy of a record as int8 codes, zero-padded
-        for K1's tiles and halo and for region rows near the record end."""
-        codes = np.asarray(codes, dtype=np.int8)
+    def _padded_len(self, n: int) -> int:
+        """Codes the record's passes read: K1's tiles and halo (or K4's
+        tiles in exact mode) and region rows near the record end."""
+        from .scan_kernels import _pair_depth_need
+
+        nw = n - self.ws + 1
+        w = self.ws - self.k + 1
+        if self.bound_depth is None:
+            bitmap_need = _pair_depth_need(self.k, w, max(nw - 1, 1), nw + w - 1)[1]
+        else:
+            bitmap_need = max(1, -(-nw // self.fused_t)) * self.fused_t + _k1_halo(w)
+        return max(n + self.rspan + 1, bitmap_need)
+
+    def prepare_codes(self, codes: "np.ndarray | torch.Tensor") -> torch.Tensor:
+        """The record's codes on the device as ``codes_dtype``, zero-padded
+        for the bitmap pass and for region rows near the record end: one
+        host-to-device copy of a numpy array, or a tensor already on the
+        engine's device padded there."""
         n = codes.shape[0]
         _check_record_len(n)
-        nw = n - self.ws + 1
-        n_tiles = max(1, -(-nw // self.fused_t))
-        total = max(n + self.rspan + 1, n_tiles * self.fused_t + _k1_halo(self.ws - self.k + 1))
-        padded = np.zeros(total, dtype=np.int8)
+        total = self._padded_len(n)
+        if torch.is_tensor(codes):
+            if codes.device != self.device:
+                raise ValueError(f"record codes on {codes.device}, engine on {self.device}")
+            dtype = torch.from_numpy(np.zeros(0, dtype=self.codes_dtype)).dtype
+            padded = torch.zeros(total, dtype=dtype, device=self.device)
+            padded[:n] = codes
+            return padded
+        padded = np.zeros(total, dtype=self.codes_dtype)
         padded[:n] = codes
         return torch.from_numpy(padded).to(self.device)
 
-    def record_stream(self, codes: np.ndarray, thr: float, collect_dists: bool = False):
+    def record_stream(self, codes: "np.ndarray | torch.Tensor", thr: float, collect_dists: bool = False):
         """Scan one record; return (dist0, stream, dists_or_None).
 
+        ``codes`` is a numpy array or a tensor on the engine's device.
         ``dist0`` is the first-window distance, ``stream`` a sorted list of
         (window index >= 1, exact float64 distance) covering every window
         that can influence the minima state machine at threshold ``thr``."""
@@ -514,7 +568,10 @@ class ScanEngine:
         stream.extend(zip(gidx[keep].tolist(), vals.tolist()))
 
     def _record_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int) -> torch.Tensor:
-        """K1 over the whole record: flat bool[n_tiles * t / block]."""
+        """The record's block bitmap: K1 over the whole record (flat
+        bool[n_tiles * t / block]), or in exact mode ``_exact_bitmap``."""
+        if self.bound_depth is None:
+            return self._exact_bitmap(prep, nw, thr_int)
         from .scan_fused import fused_record_bitmaps
 
         depth = self.bound_depth
@@ -525,6 +582,21 @@ class ScanEngine:
             t=self.fused_t, block=self.block, n_tiles=-(-nw // self.fused_t),
         )
         return bm.reshape(-1).bool()
+
+    def _exact_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int) -> torch.Tensor:
+        """Exact mode: K4 at depth ws - k gives the pair deltas and the K
+        codes in one launch, then the profile lookup, the first-window
+        base and the int32 cumsum give every window's exact distance (the
+        bound at full depth is the distance), thresholded at ``thr_int``,
+        masked to p < nw and reduced per block: flat bool[ceil(nw / rspan)
+        * rspan / block]."""
+        from .scan_kernels import scan_window_lower_bounds_codes
+
+        d = scan_window_lower_bounds_codes(prep, self.s_dev, self.k, self.ws, self.r, self.ws - self.k, nw=nw)
+        n_win = -(-nw // self.rspan) * self.rspan
+        below = torch.zeros(n_win, dtype=torch.bool, device=prep.device)
+        below[:nw] = d < thr_int
+        return below.view(-1, self.block).any(dim=1)
 
     def _regions(self, prep: torch.Tensor, flat: torch.Tensor, nw: int, thr_exact: int, n_regions: int):
         """Plan the active regions and recompute them exactly (K2)."""
@@ -537,9 +609,10 @@ class ScanEngine:
         return starts, nvr, d, below
 
     def _planned_record(self, prep: torch.Tensor, nw: int, thr: float):
-        """One planned pass: K1 bitmap, device region plan, K2 exact region
-        recompute, device run reduce, and a single device-to-host copy
-        (``_planned_streams``).  Returns (dist0, stream)."""
+        """One planned pass: the block bitmap (K1, or K4 in exact mode),
+        device region plan, K2 exact region recompute, device run reduce,
+        and a single device-to-host copy (``_planned_streams``).  Returns
+        (dist0, stream)."""
         flat = self._record_bitmap(prep, nw, int(self._thr_int(thr)))
         return _planned_streams([self], prep, [flat], [nw], [thr], [nw - 1])[0]
 

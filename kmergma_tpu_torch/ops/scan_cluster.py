@@ -9,12 +9,17 @@ clusters, three groups).  Per record the engine builds the m activity
 bitmaps by one of two routes:
 
   * records with at least ``fused_min_windows`` windows in the largest
-    cluster: K3, the fused multi-cluster bitmap kernel
-    (``ops/scan_cluster_fused.py``); the first such record of an engine
-    also runs K8, which checks K3's table staging and raises on a mismatch;
-  * shorter records: the split pass (``_cluster_record_bitmaps``), whose
-    pair counts come from K5 (``ops/scan_kernels.codes_pair_multi``) in
-    one launch for every windowsize group.
+    cluster, in a set whose clusters share one pair depth: K3, the fused
+    multi-cluster bitmap kernel (``ops/scan_cluster_fused.py``); the first
+    such record of an engine also runs K8, which checks K3's table staging
+    and raises on a mismatch;
+  * shorter records, and every record of a set that mixes pair depths (a
+    cluster whose windowsize is below k + 16 clamps its depth to ws - k):
+    the split pass (``_cluster_record_bitmaps``), whose pair counts come
+    from K5 (``ops/scan_kernels.codes_pair_multi``) in one launch for every
+    windowsize group at one depth, or for mixed depths from K4
+    (``codes_pair_ab_kcodes``: group 0's pair deltas and all K codes) and
+    K6 (``pair_ab_from_kcodes``: every other group's at its own depth).
 
 Both give each cluster the bitmap of its own single-profile K1 pass.  Then
 the single-profile planned pass runs per cluster (device region plan, K2
@@ -28,29 +33,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import RefProfile
+from .reference import RefProfile
 from .scan import (
     ScanEngine,
     _check_record_len,
     _cumsum32,
     _k1_halo,
     _planned_streams,
+    _window_pairs,
     profile_lookup_multi,
     profiles_to_torch,
     rolling_kmer_codes,
 )
 from .scan_cluster_fused import MAX_CLUSTERS
-
-
-def _shared_p0(kcodes: torch.Tensor, w: int, depth: int) -> torch.Tensor:
-    """First-window equal-k-mer pair count at partner distance <= depth
-    (0-dim int64): the profile-independent part of the first-window
-    lower bound, shared by a windowsize group."""
-    k0 = kcodes[:w]
-    p0 = torch.zeros((), dtype=torch.int64, device=kcodes.device)
-    for d in range(1, depth + 1):
-        p0 = p0 + (k0[d:] == k0[: w - d]).sum()
-    return p0
 
 
 def _first_bounds(kcodes: torch.Tensor, g_all: torch.Tensor, s2: torch.Tensor, groups: tuple, k: int) -> torch.Tensor:
@@ -62,7 +57,7 @@ def _first_bounds(kcodes: torch.Tensor, g_all: torch.Tensor, s2: torch.Tensor, g
         w = ws - k + 1
         sel = list(idxs)
         r = torch.tensor(rs, dtype=torch.int64, device=g_all.device)
-        p0 = _shared_p0(kcodes, w, depth)
+        p0 = _window_pairs(kcodes, w, depth)  # shared by the group
         g0 = g_all[sel, :w].sum(dim=1, dtype=torch.int64)
         l0[sel] = (r * r * (w + 2 * p0) - 2 * r * g0 + s2[sel]).to(torch.int32)
     return l0
@@ -71,24 +66,33 @@ def _first_bounds(kcodes: torch.Tensor, g_all: torch.Tensor, s2: torch.Tensor, g
 def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_stack: torch.Tensor, thr_ints: torch.Tensor, *, k: int, span: int, block: int, groups: tuple) -> torch.Tensor:
     """The split pass over a whole record as one span of ``span`` windows
     (the record's, rounded up to the region grid): bool[m, span // block],
-    cluster-major.  The JAX pass cuts long records into spans; here only
-    records under ``fused_min_windows`` windows take this pass, so one
+    cluster-major.  The JAX pass cuts long records into spans; here one
     span always holds the record.
 
     groups: (ws, depth, cluster indices, r per cluster) per windowsize;
     thr_ints / n_valids: int32[m] conservative thresholds and window
     counts on the device.  The K codes and every group's pair deltas come
-    from one K5 call (which reads zeros past the end of ``codes_dev``), all
-    m lookups from one gather; each group's clusters then run their delta,
+    from one K5 call when the groups share one depth, else from K4 (group
+    0, with all K codes) and K6 (each other group at its own depth); the
+    pair kernels read zeros past the end of ``codes_dev``.  All m lookups
+    come from one gather; each group's clusters then run their delta,
     prefix sum, threshold, validity mask and block any() together."""
-    from .scan_kernels import codes_pair_multi
+    from .scan_kernels import codes_pair_ab_kcodes, codes_pair_multi, pair_ab_from_kcodes
 
     s2 = (s_stack.to(torch.int64) ** 2).sum(dim=1)
     pos = torch.arange(span, dtype=torch.int64, device=codes_dev.device)
     nt = span - 1
     max_w = max(g[0] for g in groups) - k + 1
-    depth = groups[0][1]
-    ab_multi, kcodes = codes_pair_multi(codes_dev, k, tuple(g[0] for g in groups), nt, span + max_w - 1, depth)
+    nkc = span + max_w - 1
+    depths = {g[1] for g in groups}
+    if len(depths) == 1:
+        ab_multi, kcodes = codes_pair_multi(codes_dev, k, tuple(g[0] for g in groups), nt, nkc, groups[0][1])
+        abs_ = list(ab_multi)
+    else:
+        ab0, kcodes = codes_pair_ab_kcodes(codes_dev, k, groups[0][0] - k + 1, nt, nkc, groups[0][1])
+        abs_ = [ab0] + [
+            pair_ab_from_kcodes(kcodes[: span + ws - k], ws - k + 1, nt, depth) for ws, depth, _i, _r in groups[1:]
+        ]
     g_all = profile_lookup_multi(kcodes, s_stack)  # (m, span + max_w - 1)
     l0 = _first_bounds(kcodes, g_all, s2, groups, k)
     bitmaps: list = [None] * s_stack.shape[0]
@@ -97,7 +101,7 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
         sel = list(idxs)
         g_g = g_all[sel]
         r = torch.tensor(rs, dtype=torch.int32, device=g_all.device)[:, None]
-        delta = (2 * r * r) * ab_multi[gi][None, :] + (2 * r) * (g_g[:, :nt] - g_g[:, w : w + nt])
+        delta = (2 * r * r) * abs_[gi][None, :] + (2 * r) * (g_g[:, :nt] - g_g[:, w : w + nt])
         l0_g = l0[sel][:, None]
         bounds = torch.cat([l0_g, l0_g + _cumsum32(delta, dim=1)], dim=1)
         below = (bounds < thr_ints[sel][:, None]) & (pos[None, :] < n_valids[sel][:, None])
@@ -108,16 +112,17 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
 
 
 class ClusterScanEngine:
-    """Scans whole records against m cluster profiles on ``device``.
+    """Scans whole records against m cluster profiles on ``device`` (the
+    card unless the caller asks for the CPU).
 
     Holds one ``ScanEngine`` per cluster, which supply the thresholds, the
     scale, the planned pass after the bitmap and the whole-record
     distances; the cluster engine replaces their m bitmap passes with one
-    (``record_streams``).  Every cluster must share one pair depth: a
-    cluster whose window is shorter than k + 16 clamps its depth, and such
-    mixed sets raise ``NotImplementedError``."""
+    (``record_streams``).  A cluster whose window is shorter than k + 16
+    clamps its pair depth to ws - k; a set that mixes depths takes the
+    split pass on every record."""
 
-    def __init__(self, profiles: list[RefProfile], k: int, device=None):
+    def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda"):
         if not 1 <= len(profiles) <= MAX_CLUSTERS:
             raise ValueError(f"cluster mode takes 1..{MAX_CLUSTERS} profiles, got {len(profiles)}")
         self.k = k
@@ -129,24 +134,20 @@ class ClusterScanEngine:
         self.block, self.fused_t = e0.block, e0.fused_t
         self.max_ws = max(e.ws for e in self.engines)
         self.s_stack, self.specs = profiles_to_torch(profiles, self.device)
-        depths = sorted({e.bound_depth for e in self.engines})
-        if len(depths) != 1:
-            raise NotImplementedError(
-                f"cluster profiles with mixed pair depths {depths} (a windowsize below k + 16) "
-                "need the K4/K6 pair kernels, not ported yet: ROADMAP.md Queue 1 item 5 "
-                "(deferred) and Queue 2 K4/K6"
-            )
-        self.depth = depths[0]
-        by_ws: dict[int, list[int]] = {}
+        by_key: dict[tuple[int, int], list[int]] = {}
         for ci, e in enumerate(self.engines):
-            by_ws.setdefault(e.ws, []).append(ci)
-        #: (ws, depth, cluster indices, r per cluster) per windowsize group
+            by_key.setdefault((e.ws, e.bound_depth), []).append(ci)
+        #: (ws, pair depth, cluster indices, r per cluster) per windowsize
+        #: group, in the JAX engine's order
         self.groups = tuple(
-            (ws, self.depth, tuple(cis), tuple(self.engines[ci].r for ci in cis))
-            for ws, cis in sorted(by_ws.items())
+            (ws, depth, tuple(cis), tuple(self.engines[ci].r for ci in cis))
+            for (ws, depth), cis in sorted(by_key.items())
         )
+        #: whether the clusters share one pair depth (else no K3)
+        self.one_depth = len({g[1] for g in self.groups}) == 1
         #: records whose largest cluster has at least this many windows go
-        #: through K3; shorter ones through the split pass (tests change it)
+        #: through K3 in a one-depth set; shorter ones, and every record of
+        #: a mixed-depth set, through the split pass (tests change it)
         self.fused_min_windows = 1 << 16
         self._lookup_checked = False
 
@@ -159,8 +160,9 @@ class ClusterScanEngine:
     def prepare_codes(self, codes: np.ndarray) -> torch.Tensor:
         """One host-to-device copy of a record as int8 codes, zero-padded for
         the widest cluster: for K3's tiles and halo, the split pass's span
-        and K5's tiles, and region rows near the record end."""
-        from .scan_kernels import _pair_multi_need
+        and its pair kernel's tiles (K5's, or K4's for mixed depths), and
+        region rows near the record end."""
+        from .scan_kernels import _pair_depth_need, _pair_multi_need
 
         codes = np.asarray(codes, dtype=np.int8)
         n = codes.shape[0]
@@ -169,7 +171,11 @@ class ClusterScanEngine:
         max_w = self.max_ws - self.k + 1
         n_tiles = -(-nw_max // self.fused_t)
         span = self._split_span(nw_max)
-        split_need = _pair_multi_need(tuple(g[0] for g in self.groups), span - 1, span + max_w - 1)[1]
+        if self.one_depth:
+            split_need = _pair_multi_need(tuple(g[0] for g in self.groups), span - 1, span + max_w - 1)[1]
+        else:
+            w0 = self.groups[0][0] - self.k + 1
+            split_need = _pair_depth_need(self.k, w0, span - 1, span + max_w - 1)[1]
         total = max(n + self.engines[0].rspan + 1, n_tiles * self.fused_t + _k1_halo(max_w), split_need)
         padded = np.zeros(total, dtype=np.int8)
         padded[:n] = codes
@@ -192,7 +198,7 @@ class ClusterScanEngine:
             raise ValueError("record shorter than a cluster windowsize")
         prep = self.prepare_codes(codes)
         thr_ints = [int(e._thr_int(t)) for e, t in zip(self.engines, thrs)]
-        if max(nws) >= self.fused_min_windows:
+        if self.one_depth and max(nws) >= self.fused_min_windows:
             bitmaps = self._fused_bitmaps(prep, nws, thr_ints)
         else:
             bitmaps = self._split_bitmaps(prep, nws, thr_ints)
@@ -201,7 +207,7 @@ class ClusterScanEngine:
         return _planned_streams(self.engines, prep, list(bitmaps), nws, list(thrs), mis)
 
     def _split_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int]) -> torch.Tensor:
-        """The split pass (K5): bool[m, n_blocks]."""
+        """The split pass (K5, or K4 and K6): bool[m, n_blocks]."""
         span = self._split_span(max(nws))
         nws_t = torch.tensor(nws, dtype=torch.int32, device=self.device)
         thr_t = torch.tensor(thr_ints, dtype=torch.int32, device=self.device)
@@ -227,7 +233,7 @@ class ClusterScanEngine:
         l0s = _first_bounds(head, profile_lookup_multi(head, self.s_stack), s2, self.groups, self.k)
         bm = fused_cluster_record_bitmaps(
             prep, self.s_stack, thr_ints, l0s, nws,
-            k=self.k, specs=self.specs, depth=self.depth, t=t, block=self.block,
+            k=self.k, specs=self.specs, depth=self.groups[0][1], t=t, block=self.block,
             n_tiles=-(-max(nws) // t),
         )
         return bm.bool()

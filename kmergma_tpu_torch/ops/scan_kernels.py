@@ -2,11 +2,15 @@
 ``kmergma_tpu.ops.scan_pallas.match_counts``), its plain twin, and the
 whole-record distance scan built on it; K5, the multi-windowsize pair
 kernel of the cluster split pass (counterpart of ``codes_pair_multi`` and
-``codes_pair_roll_multi``), and its plain twin.
+``codes_pair_roll_multi``), and its plain twin; K4/K4r and K6, the pair
+kernel at one width and any depth (counterpart of ``codes_pair_ab_kcodes``,
+``codes_pair_roll`` and ``pair_ab_from_kcodes``), its plain twins, and the
+lower bounds built on it (``scan_window_lower_bounds_codes``).
 
-``match_counts`` and ``codes_pair_multi`` launch the hand-written CUDA
-kernels ``csrc/match_counts.cu`` and ``csrc/pair_multi.cu`` on CUDA
-tensors and run their plain PyTorch twins on CPU tensors; any other
+``match_counts``, ``codes_pair_multi``, ``codes_pair_ab_kcodes`` and
+``pair_ab_from_kcodes`` launch the hand-written CUDA kernels
+``csrc/match_counts.cu``, ``csrc/pair_multi.cu`` and ``csrc/pair_depth.cu``
+on CUDA tensors and run their plain PyTorch twins on CPU tensors; any other
 device raises.
 
 Source note (K2).  Replaces ``kmergma_tpu/ops/scan_pallas.py::_match_counts_kernel``.
@@ -24,13 +28,23 @@ kernel serves both contracts.  Bound by shared-memory reads: 2 * depth
 compares per position for all G windowsize groups together, because
 ab_g[p] = Lc[p + w_g] - Rc[p] with left and right pair counts shared by
 every group (``csrc/pair_counts.cuh``).
+
+Source note (K4, K4r, K6).  Replace ``_codes_pair_kernel`` (K4),
+``_codes_pair_roll_kernel`` (K4r) and ``_pair_counts_kernel`` (K6) of
+``kmergma_tpu/ops/scan_pallas.py``: one function, the net pair delta at one
+width and a run-time depth, with codes in (K4 and K4r, which also return
+the K codes; K4r only kept Mosaic's VMEM O(1) in depth) or K codes in (K6),
+so one source with two entry points serves all three.  Bound by
+shared-memory reads, 2 * depth compares per position (564 at the strobe
+engine's depth 282), against one code read and one or two int32 written
+per position in device memory.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .scan import _cumsum32, _first_window_d0, _pair_ab, profile_lookup, rolling_kmer_codes
+from .scan import _cumsum32, _first_window_d0, _lower_bound_base, _pair_ab, profile_lookup, rolling_kmer_codes
 
 
 def _match_counts_plain(tiles_k: torch.Tensor, w: int, t: int) -> torch.Tensor:
@@ -187,3 +201,130 @@ def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc:
 
 #: K5 launches since the count was last set to 0
 codes_pair_multi.launches = 0
+
+
+#: K4's and K6's tile: positions per CUDA block
+_PAIR_DEPTH_T = 2048
+
+#: code dtypes K4 reads: 2-bit genome codes, and the strobemer span
+#: engine's k = 1 strobe codes (uint8 at s = 2, int32 at s = 3)
+_PAIR_CODE_DTYPES = (torch.int8, torch.uint8, torch.int32)
+
+
+def _pair_depth_need(k: int, w: int, nt: int, nkc: int) -> tuple[int, int]:
+    """(tiles, codes the kernel reads) of ``codes_pair_ab_kcodes``: each
+    tile builds _PAIR_DEPTH_T + w K codes from _PAIR_DEPTH_T + w + k - 1
+    codes."""
+    n_tiles = max(1, -(-max(nt, nkc) // _PAIR_DEPTH_T))
+    return n_tiles, n_tiles * _PAIR_DEPTH_T + w + k - 1
+
+
+def _check_pair_depth(what: str, w: int, nt: int, depth: int) -> None:
+    if not 0 <= depth < w or nt < 0:
+        raise ValueError(f"{what}: need 0 <= depth < w and nt >= 0 (depth={depth}, w={w}, nt={nt})")
+
+
+def _codes_pair_ab_kcodes_plain(codes: torch.Tensor, k: int, w: int, nt: int, nkc: int, depth: int):
+    """The plain PyTorch twin of K4 and K4r: (``_pair_ab(K, w, nt, depth)``,
+    K[:nkc]) with K the rolling codes; codes past the end read as zeros."""
+    need = max(nt + w, nkc) + k - 1
+    codes = torch.nn.functional.pad(codes[:need], (0, max(0, need - codes.shape[0])))
+    kc = rolling_kmer_codes(codes, k)
+    return _pair_ab(kc, w, nt, depth), kc[:nkc]
+
+
+def codes_pair_ab_kcodes(codes: torch.Tensor, k: int, w: int, nt: int, nkc: int, depth: int):
+    """Net pair deltas at one window width plus the K codes, one pass.
+
+    codes: int8, uint8 or int32 [n] (zero-padded when shorter than the
+    tiles read); w: the window width; 0 <= depth < w.  Returns (ab
+    int32[nt], kcodes int32[nkc]) with ab bit-identical to ``_pair_ab(K, w,
+    nt, depth)``.  Launches K4 on a CUDA tensor, the plain twin on a CPU
+    tensor."""
+    if codes.dim() != 1 or codes.dtype not in _PAIR_CODE_DTYPES:
+        raise ValueError(f"codes_pair_ab_kcodes wants int8, uint8 or int32 [n] codes, got {codes.dtype}{tuple(codes.shape)}")
+    _check_pair_depth("codes_pair_ab_kcodes", w, nt, depth)
+    if codes.device.type == "cpu":
+        return _codes_pair_ab_kcodes_plain(codes, k, w, nt, nkc, depth)
+    if codes.device.type != "cuda":
+        raise ValueError(f"codes_pair_ab_kcodes: unsupported device {codes.device}")
+    from .._kernels import check, load
+
+    lib = load()
+    n_tiles, need = _pair_depth_need(k, w, nt, nkc)
+    if codes.shape[0] < need:
+        codes = torch.nn.functional.pad(codes, (0, need - codes.shape[0]))
+    codes = codes.contiguous()
+    dev = codes.device
+    ab = torch.empty(nt, dtype=torch.int32, device=dev)
+    kc = torch.empty(nkc, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(
+            lib.kmg_pair_depth_codes(
+                codes.data_ptr(), codes.element_size(), k, w, depth, _PAIR_DEPTH_T, n_tiles, nt, nkc,
+                ab.data_ptr(), kc.data_ptr(), stream,
+            ),
+            "codes_pair_ab_kcodes",
+        )
+    codes_pair_ab_kcodes.launches += 1
+    return ab, kc
+
+
+#: K4 launches since the count was last set to 0
+codes_pair_ab_kcodes.launches = 0
+
+
+def pair_ab_from_kcodes(kcodes: torch.Tensor, w: int, nt: int, depth: int) -> torch.Tensor:
+    """Net pair deltas ab[0:nt] at window width w and 0 <= depth < w from
+    K codes (int32, at least nt + w of them), bit-identical to
+    ``_pair_ab(K, w, nt, depth)``.  Launches K6 on a CUDA tensor, its plain
+    twin ``_pair_ab`` on a CPU tensor."""
+    if kcodes.dim() != 1 or kcodes.dtype != torch.int32 or kcodes.shape[0] < nt + w:
+        raise ValueError(f"pair_ab_from_kcodes wants int32[>= nt + w = {nt + w}] K codes, got {kcodes.dtype}{tuple(kcodes.shape)}")
+    _check_pair_depth("pair_ab_from_kcodes", w, nt, depth)
+    if kcodes.device.type == "cpu":
+        return _pair_ab(kcodes, w, nt, depth)
+    if kcodes.device.type != "cuda":
+        raise ValueError(f"pair_ab_from_kcodes: unsupported device {kcodes.device}")
+    from .._kernels import check, load
+
+    lib = load()
+    kcodes = kcodes.contiguous()
+    dev = kcodes.device
+    ab = torch.empty(nt, dtype=torch.int32, device=dev)
+    n_tiles = max(1, -(-nt // _PAIR_DEPTH_T))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(
+            lib.kmg_pair_depth_kcodes(
+                kcodes.data_ptr(), kcodes.shape[0], w, depth, _PAIR_DEPTH_T, n_tiles, nt, ab.data_ptr(), stream,
+            ),
+            "pair_ab_from_kcodes",
+        )
+    pair_ab_from_kcodes.launches += 1
+    return ab
+
+
+#: K6 launches since the count was last set to 0
+pair_ab_from_kcodes.launches = 0
+
+
+def scan_window_lower_bounds_codes(codes: torch.Tensor, s_profile: torch.Tensor, k: int, ws: int, r: int, depth: int, nw: int | None = None) -> torch.Tensor:
+    """Certified lower bounds L[p] <= D[p] of every window at pair
+    ``depth`` (counterpart of ``scan_window_lower_bounds_codes``), the
+    pair deltas and K codes from one K4 call; at depth ws - k (K4r's use)
+    they are the exact distances.  ``codes`` may carry zero padding past
+    the record, whose window count ``nw`` then says where it ends.
+    int32[nw], bit-identical to ``scan.scan_window_lower_bounds``."""
+    w = ws - k + 1
+    if nw is None:
+        nw = codes.shape[0] - ws + 1
+    nt = max(nw - 1, 1)
+    ab, kc = codes_pair_ab_kcodes(codes, k, w, nt, nw + w - 1, depth)
+    g = profile_lookup(kc, s_profile)
+    l0 = _lower_bound_base(kc, g, s_profile, w, r, depth)
+    if nw <= 1:
+        return l0.view(1)
+    delta = (2 * r * r) * ab + (2 * r) * (g[:nt] - g[w : w + nt])
+    return torch.cat([l0.view(1), l0 + _cumsum32(delta)])

@@ -1,6 +1,8 @@
 """The port's public API (kmergma_tpu_torch.find_genes, write_results,
 record_kmergma) on the reference goldens of tests/test_api_golden.py and
-tests/test_miner_golden.py, and the guard that the port never imports jax."""
+tests/test_miner_golden.py, the guards that the port never imports jax or
+the JAX package, and that every entry point runs on the card unless asked
+for the CPU."""
 
 import os
 import subprocess
@@ -10,10 +12,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import kmergma_tpu_torch as kt
 from kmergma_tpu.ops.reference import gen_ref_ws_cons
-from kmergma_tpu.ops.scan_host import HostScanEngine
+from kmergma_tpu_torch.ops.scan_host import HostScanEngine
 from kmergma_tpu.utils.fasta import as_records, read_fasta
 from kmergma_tpu_torch.models.miner import _default_engine, mine_genome
 from kmergma_tpu_torch.ops.scan import ScanEngine
@@ -28,13 +31,13 @@ GOLDEN_LOCUS = [
 
 
 def test_find_genes_golden(mini_genome, ref_fasta):
-    hits = kt.find_genes(genome_path=mini_genome, ref_path=ref_fasta, verbose=False)[0]
+    hits = kt.find_genes(genome_path=mini_genome, ref_path=ref_fasta, verbose=False, device="cpu")[0]
     assert [h.description for h in hits] == GOLDEN_LOCUS
 
 
 def test_find_genes_loci_align_and_hit_loci(test_genome, ref_fasta):
     hits, loci = kt.find_genes(
-        test_genome, ref_fasta, kmer_dist_thr=30, do_return_hit_loci=True, verbose=False
+        test_genome, ref_fasta, kmer_dist_thr=30, do_return_hit_loci=True, verbose=False, device="cpu"
     )
     assert len(hits) == 7
     assert loci == [8543, 20425, 221912, 234018, 450875, 467930, 477868]
@@ -51,7 +54,7 @@ def test_find_genes_return_dists(test_genome, ref_fasta):
         warnings.simplefilter("ignore")  # thr below the estimate, dists memory
         hits, dists = kt.find_genes(
             test_genome, ref_fasta, kmer_dist_thr=10, do_align=False,
-            do_return_dists=True, verbose=False,
+            do_return_dists=True, verbose=False, device="cpu",
         )
     assert dists.shape[0] == 484127
     assert round(float(dists.mean())) == 46
@@ -69,7 +72,7 @@ def test_output_ordering(mini_genome, ref_fasta):
         warnings.simplefilter("ignore")
         out = kt.find_genes(
             mini_genome, ref_fasta, do_return_hit_loci=True, do_return_align=True,
-            do_return_dists=True, verbose=False,
+            do_return_dists=True, verbose=False, device="cpu",
         )
     assert len(out) == 4  # hits, loci, aligns, dists
     hits, loci, aligns, dists = out
@@ -78,7 +81,7 @@ def test_output_ordering(mini_genome, ref_fasta):
 
 
 def test_write_results_roundtrip(tmp_path, mini_genome, ref_fasta):
-    hits = kt.find_genes(mini_genome, ref_fasta, verbose=False)[0]
+    hits = kt.find_genes(mini_genome, ref_fasta, verbose=False, device="cpu")[0]
     out = tmp_path / "hits.fasta"
     kt.write_results(hits, str(out))
     back = list(read_fasta(out))
@@ -89,42 +92,48 @@ def test_write_results_roundtrip(tmp_path, mini_genome, ref_fasta):
 def test_record_kmergma_golden(mini_genome, ref_fasta):
     profile = gen_ref_ws_cons(ref_fasta, 6)
     record = as_records(mini_genome)[0]
-    hits = kt.record_kmergma(record, profile, thr=30)
+    hits = kt.record_kmergma(record, profile, thr=30, device="cpu")
     assert [h.description for h in hits] == [d.replace(" | GenomePos = 0", "") for d in GOLDEN_LOCUS]
 
 
 @pytest.mark.parametrize("kwarg", ["devices", "checkpoint_path"])
 def test_unported_options_raise(mini_genome, ref_fasta, kwarg):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kt.find_genes(mini_genome, ref_fasta, verbose=False, **{kwarg: 2 if kwarg == "devices" else "x.ckpt"})
+        kt.find_genes(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2 if kwarg == "devices" else "x.ckpt"})
 
 
 def test_overflow_falls_back_to_host_engine(ref_fasta, mini_genome):
     """A profile beyond the int32 headroom mines on the exact int64 host
     engine, with the same hits as the device engine where both apply."""
     profile = gen_ref_ws_cons(ref_fasta, 6)
-    assert isinstance(_default_engine(profile), ScanEngine)
+    assert isinstance(_default_engine(profile, "cpu"), ScanEngine)
     big = gen_ref_ws_cons(ref_fasta, 6)
     big.sum_kfv = profile.sum_kfv * 1000
     big.n_records = profile.n_records * 1000
-    assert isinstance(_default_engine(big), HostScanEngine)
+    assert isinstance(_default_engine(big, "cpu"), HostScanEngine)
     host = mine_genome(mini_genome, profile, thr=30, engine=HostScanEngine(
         profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records))
-    dev = mine_genome(mini_genome, profile, thr=30)
+    dev = mine_genome(mini_genome, profile, thr=30, device="cpu")
     assert [h.description for h in dev.hits] == [h.description for h in host.hits] == GOLDEN_LOCUS
     np.testing.assert_array_equal([len(h.seq) for h in dev.hits], [289, 295, 289])
 
 
 def test_port_never_imports_jax(mini_genome, ref_fasta):
-    # a subprocess: this test process has jax loaded (tests/conftest.py)
+    # a subprocess: this test process has jax and the JAX package loaded
+    # (tests/conftest.py); the port must load neither, nor the JAX
+    # package's native library
     code = (
-        "import sys, kmergma_tpu_torch as kt, kmergma_tpu_torch.host\n"
-        f"hits = kt.find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False)[0]\n"
+        "import sys, kmergma_tpu_torch as kt\n"
+        f"hits = kt.find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
         "assert len(hits) == 3, hits\n"
-        f"hits = kt.find_genes_cluster_mode({mini_genome!r}, {ref_fasta!r}, verbose=False)[0]\n"
+        f"hits = kt.find_genes_cluster_mode({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
         "assert len(hits) > 0, hits\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        f"hits = kt.strobemer_find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
+        "assert len(hits) == 3, hits\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'kmergma_tpu') or m.startswith(('jax.', 'jaxlib', 'kmergma_tpu.')))\n"
         "assert not bad, bad\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'kmergma_tpu/native' not in maps\n"
         "print('ok')\n"
     )
     root = Path(__file__).resolve().parent.parent
@@ -136,32 +145,9 @@ def test_port_never_imports_jax(mini_genome, ref_fasta):
     assert proc.stdout.strip().endswith("ok")
 
 
-def test_host_names_are_the_shared_originals():
-    """kmergma_tpu_torch.host re-exports the JAX package's host objects
-    themselves, not copies."""
-    import importlib
-
-    from kmergma_tpu_torch import host
-
-    origins = {
-        "kmergma_tpu.models.state_machine": ["OmnHitEvent", "replay_omn", "replay_single"],
-        "kmergma_tpu.ops.align": ["AlignResult", "cigar_to_unitrange", "semiglobal_align", "semiglobal_align_batch"],
-        "kmergma_tpu.ops.reference": [
-            "ClusterRefs", "RefProfile", "cluster_ref_api", "eliminate_null_params", "gen_ref_ws_cons",
-        ],
-        "kmergma_tpu.ops.scan_host": ["HostScanEngine"],
-        "kmergma_tpu.ops.thresholds": ["estimate_optimal_threshold", "estimate_optimal_thresholds"],
-        "kmergma_tpu.utils.fasta": ["FastaRecord", "PathOrRecords", "as_records", "write_fasta"],
-        "kmergma_tpu.utils.native": ["scan_rolling_i64_native"],
-    }
-    assert sorted(n for names in origins.values() for n in names) == sorted(host.__all__)
-    for mod, names in origins.items():
-        origin = importlib.import_module(mod)
-        for name in names:
-            assert getattr(host, name) is getattr(origin, name), name
-
-
 def _imported_modules(path: Path) -> set[str]:
+    """Every module a file imports, by statement or by name through
+    ``importlib.import_module`` / ``__import__``."""
     import ast
 
     tree = ast.parse(path.read_text())
@@ -171,6 +157,11 @@ def _imported_modules(path: Path) -> set[str]:
             mods.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             mods.add(node.module)
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", None)
+            if name in ("import_module", "__import__") and isinstance(node.args[0].value, str):
+                mods.add(node.args[0].value)
     return mods
 
 
@@ -180,24 +171,84 @@ _PORT_FILES = sorted(
 )
 
 
+def _names_jax_package(mod: str) -> bool:
+    # kmergma_tpu and kmergma_tpu.* exactly: kmergma_tpu_torch is the port
+    return mod == "kmergma_tpu" or mod.startswith("kmergma_tpu.")
+
+
 @pytest.mark.parametrize("rel", _PORT_FILES)
 def test_jax_package_reached_only_through_host(rel):
-    """No file of the port, and not chip_smoke.py, imports jax; only
-    kmergma_tpu_torch/host.py names modules of the JAX package."""
+    """No file of the port, and not chip_smoke.py, imports jax or a module
+    of the JAX package (the port keeps its own copy of every host module
+    it uses; kmergma_tpu_torch/host.py, which re-exported them, is gone)."""
     mods = _imported_modules(_ROOT / rel)
     assert not {m for m in mods if m == "jax" or m.startswith(("jax.", "jaxlib"))}, rel
-    jax_pkg = {m for m in mods if m == "kmergma_tpu" or m.startswith("kmergma_tpu.")}
-    if rel == "kmergma_tpu_torch/host.py":
-        assert jax_pkg
-    else:
-        assert not jax_pkg, (rel, jax_pkg)
+    assert not {m for m in mods if _names_jax_package(m)}, rel
+    assert rel != "kmergma_tpu_torch/host.py"
+
+
+def test_import_guard_tells_the_port_from_the_jax_package():
+    assert _names_jax_package("kmergma_tpu") and _names_jax_package("kmergma_tpu.ops.scan")
+    assert not _names_jax_package("kmergma_tpu_torch") and not _names_jax_package("kmergma_tpu_torch.ops.scan")
+    assert not (_ROOT / "kmergma_tpu_torch" / "host.py").exists()
+
+
+def _entry_points(mini_genome, ref_fasta):
+    """Every entry point of the port that picks a device, called with its
+    default device."""
+    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
+    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons as port_gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+
+    profile = port_gen_ref_ws_cons(ref_fasta, 6)
+    clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6)).profiles
+    strobe = gen_strobe_ref_ws_cons(ref_fasta)
+    return {
+        "find_genes": lambda: kt.find_genes(mini_genome, ref_fasta, verbose=False),
+        "find_genes_cluster_mode": lambda: kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False),
+        "strobemer_find_genes": lambda: kt.strobemer_find_genes(mini_genome, ref_fasta, verbose=False),
+        "record_kmergma": lambda: kt.record_kmergma(as_records(mini_genome)[0], profile),
+        "mine_genome": lambda: mine_genome(mini_genome, profile, thr=30),
+        "mine_genome_clusters": lambda: mine_genome_clusters(mini_genome, clusters, thr_vec=[30.0] * len(clusters)),
+        "strobe_mine_genome": lambda: strobe_mine_genome(mini_genome, strobe, thr=30),
+        "ScanEngine": lambda: ScanEngine(profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records),
+        "ClusterScanEngine": lambda: ClusterScanEngine(clusters, k=6),
+        "StrobeSpanEngine": lambda: StrobeSpanEngine(strobe, 0),
+    }
+
+
+ENTRY_POINTS = [
+    "find_genes", "find_genes_cluster_mode", "strobemer_find_genes", "record_kmergma", "mine_genome",
+    "mine_genome_clusters", "strobe_mine_genome", "ScanEngine", "ClusterScanEngine", "StrobeSpanEngine",
+]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_refuse_without_cuda(mini_genome, ref_fasta, name, monkeypatch):
+    """With no device given, every entry point runs on the card, and raises
+    without CUDA instead of going on on the CPU."""
+    call = _entry_points(mini_genome, ref_fasta)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_other_devices_refused():
+    from kmergma_tpu_torch.ops.scan import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
 
 
 def test_chip_smoke_phases_on_cpu(capsys):
-    """chip_smoke.run drives every phase of both paths, single profile and
-    cluster mode, the stage breakdown and the busy shares included, on CPU
-    tensors at a small size: the wrappers take their plain twins, so the
-    kernels' report shows no launch and no error."""
+    """chip_smoke.run drives every phase of every path (single profile,
+    cluster mode, strobemers, the mixed-depth cluster set), the stage
+    breakdowns and the busy shares included, on CPU tensors at a small
+    size: the wrappers take their plain twins, so the kernels' report
+    shows no launch and no error."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
@@ -207,13 +258,21 @@ def test_chip_smoke_phases_on_cpu(capsys):
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
+        "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
     ]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(set(k) == keys for k in report["kernels"])
     assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
     assert all(k["replaces"].startswith("kmergma_tpu/") and (_ROOT / k["source"]).exists() for k in report["kernels"])
+    assert all(k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations") for k in report["kernels"])
+    assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False]
     assert "hits equal the host oracle's" in out
     assert "cluster hits equal the host oracle's" in out
     assert "cluster goldens: Alp_V_locus 3 hits exact" in out
-    assert out.count("idle share") == 2
+    assert "strobe goldens: Alp_V_locus 3 hits" in out
+    assert "strobe hits equal the host oracle's" in out
+    assert out.count("mixed-depth streams equal the int64 host oracle's") == 2
+    assert out.count("idle share") == 3
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -23,9 +23,9 @@ from kmergma_tpu.models.state_machine import replay_omn
 from kmergma_tpu.ops import scan as jscan
 from kmergma_tpu.ops import scan_cluster as jcluster
 from kmergma_tpu.ops.kmers import kmer_count
-from kmergma_tpu.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params
+from kmergma_tpu.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
 from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
-from kmergma_tpu.utils.fasta import as_records
+from kmergma_tpu.utils.fasta import FastaRecord, as_records
 from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
 from kmergma_tpu_torch.ops import scan as tscan
 from kmergma_tpu_torch.ops import scan_cluster as tcluster
@@ -46,7 +46,7 @@ def clusters(ref_fasta):
 
 
 def _jax_engine(profiles, k=6):
-    eng = jcluster.ClusterScanEngine(profiles, k=k, chunk_windows=1 << 18)
+    eng = jcluster.ClusterScanEngine(profiles, k=k, chunk_windows=1 << 18, use_fused=False)
     eng.engines[0].full_fetch_windows = 0
     return eng
 
@@ -125,11 +125,11 @@ def test_k3_twin_and_split_pass_match_jax_split_pass(clusters, seed, t):
     prep = port.prepare_codes(codes)
     nws = n_valids.tolist()
     l0s = torch.stack([
-        tscan._first_window_l0(prep, e.s_dev, k=6, ws=e.ws, r=e.r, depth=port.depth) for e in port.engines
+        tscan._first_window_l0(prep, e.s_dev, k=6, ws=e.ws, r=e.r, depth=port.groups[0][1]) for e in port.engines
     ])
     got = fused_cluster_record_bitmaps(
         prep, port.s_stack, thr_ints.tolist(), l0s, nws,
-        k=6, specs=port.specs, depth=port.depth, t=t, block=512, n_tiles=-(-max(nws) // t),
+        k=6, specs=port.specs, depth=port.groups[0][1], t=t, block=512, n_tiles=-(-max(nws) // t),
     )
     assert got.dtype == torch.int32 and got.shape[0] == m
     np.testing.assert_array_equal(got[:, :n_blocks].numpy().astype(bool), want[:, :n_blocks])
@@ -260,13 +260,128 @@ def test_cluster_fuzz_vs_int64_host_oracle():
         assert len(events(want)) > 0
 
 
+# --- mixed pair depths: K4 for group 0, K6 for the others -------------------
+
+
+MIXED_THRS = [*THRS, 1.14]
+
+
+@pytest.fixture(scope="module")
+def mixed(clusters):
+    """The six Alp_V clusters plus a profile of the genes' 20 bp prefixes:
+    ws 20 clamps its pair depth to ws - k = 14, the others keep 16."""
+    prefixes = gen_ref_ws_cons([FastaRecord(r.description, r.seq[:20]) for r in as_records(str(DATA / "Alp_V_ref.fasta"))], 6)
+    return [*clusters.profiles, prefixes]
+
+
+def test_mixed_depth_groups_and_route(mixed, monkeypatch):
+    """Groups carry their own depth, in the JAX engine's order, and a
+    mixed set takes the split pass at every record length, never K3."""
+    port = _port_engine(mixed, fused=True)
+    assert port.groups == _jax_engine(mixed).groups
+    assert [(g[0], g[1]) for g in port.groups] == [(20, 14), (288, 16), (289, 16), (290, 16)]
+    assert not port.one_depth and _port_engine(mixed[:6]).one_depth
+
+    def no_k3(*a, **kw):
+        raise AssertionError("K3 on a mixed-depth set")
+
+    monkeypatch.setattr(port, "_fused_bitmaps", no_k3)
+    assert any(s for _d0, s in port.record_streams(_planted_codes(31, 70_000, range(2_000, 68_000, 6_000)), MIXED_THRS))
+
+
+@pytest.mark.parametrize("fixture", ["Alp_V_locus.fasta", "Loci.fasta", "8_ident_Alp_V_loci.fasta", "Alp_V_ref.fasta"])
+def test_mixed_depth_streams_match_jax_on_fixtures(mixed, fixture):
+    """Every cluster's (dist0, stream) equals the JAX split pass's (K4 and
+    K6's XLA formulation) on every record the cluster miner scans."""
+    jeng, port = _jax_engine(mixed), _port_engine(mixed)
+    n_streamed = 0
+    for rec in as_records(str(DATA / fixture)):
+        if len(rec) - jeng.max_ws - 6 + 2 < 1:
+            continue
+        want = jeng.record_streams(rec.codes, MIXED_THRS)
+        assert port.record_streams(rec.codes, MIXED_THRS) == want, rec.identifier
+        n_streamed += sum(len(s) for _d0, s in want)
+    assert n_streamed > 0
+
+
+def test_mixed_depth_split_pass_matches_jax(mixed):
+    """The split pass's bitmaps (K4 + K6 twins) equal the JAX split pass's."""
+    codes = _planted_codes(13, 20_000, (2_500, 9_000, 15_000))
+    n = codes.shape[0]
+    jeng = _jax_engine(mixed)
+    n_valids = np.array([n - e.ws + 1 for e in jeng.engines], dtype=np.int32)
+    thr_ints = np.array([e._thr_int(x) for e, x in zip(jeng.engines, MIXED_THRS)], dtype=np.int32)
+    jprep = jeng.engines[0].prepare_codes(codes, max_ws=jeng.max_ws)
+    split = np.asarray(jcluster._cluster_record_bitmaps(
+        jprep.dev, jnp.asarray(n_valids), jeng.s_stack, jnp.asarray(thr_ints),
+        k=6, span=jeng.chunk, block=jeng.block, n_spans=jprep.n_spans, use_pallas=False,
+        groups=jeng.groups,
+    ))
+    m = len(mixed)
+    want = split.transpose(1, 0, 2).reshape(m, -1)
+    n_blocks = -(-int(n_valids.max()) // 512)
+    port = _port_engine(mixed)
+    got = port._split_bitmaps(port.prepare_codes(codes), n_valids.tolist(), thr_ints.tolist())
+    np.testing.assert_array_equal(got[:, :n_blocks].numpy(), want[:, :n_blocks])
+    assert 0 < int(got[-1].sum()) and int(got.sum()) < m * n_blocks
+
+
+def test_mixed_depth_fuzz_vs_int64_host_oracle():
+    """Random sets with one cluster of windowsize below k + 16 (k 4..6),
+    against each cluster's full int64 stream, both replayed through
+    replay_omn to identical hit events."""
+    for seed in range(2):
+        rng = np.random.default_rng(700 + seed)
+        k = int(rng.integers(4, 7))
+        wss = [k + int(rng.integers(5, 12)), *(int(rng.integers(80, 120)) for _ in range(2))]
+        refs = [[rng.integers(0, 4, ws, dtype=np.int8) for _ in range(int(rng.integers(1, 5)))] for ws in wss]
+        profiles = []
+        for ws, rr in zip(wss, refs):
+            s = sum(kmer_count(x, k).astype(np.int64) for x in rr)
+            profiles.append(RefProfile(mean_kfv=s / len(rr), sum_kfv=s, n_records=len(rr), windowsize=ws, consensus="A" * ws, k=k))
+        n = 15_000
+        codes = rng.integers(0, 4, n, dtype=np.int8)
+        for pos in range(1_000, n - 200, 2_500):
+            src = refs[pos % len(wss)]
+            codes[pos : pos + src[0].shape[0]] = src[0]
+        imax = n - max(wss) - k + 2
+        thrs, want = [], []
+        for p in profiles:
+            d = scan_window_distances_np_i64(codes, p.sum_kfv, k, p.windowsize, p.n_records)
+            scale = 2.0 * k * p.n_records**2
+            thr = float(np.percentile(d / scale, 2.0))
+            below = (d / scale) < thr
+            below[imax + 1 :] = False
+            mask = below.copy()
+            mask[1:] |= below[:-1]
+            mask[0] = False
+            mask[imax + 2 :] = False
+            idx = np.nonzero(mask)[0]
+            thrs.append(thr)
+            want.append((float(d[0]) / scale, list(zip(idx.tolist(), (d[idx] / scale).tolist()))))
+
+        def events(pairs):
+            out = []
+            replay_omn(
+                [p[1] for p in pairs], [p[0] for p in pairs], thrs, k, wss, n,
+                lambda ev: out.append((ev.cluster, ev.cmi, ev.dist, ev.edge_dist)) or True,
+            )
+            return out
+
+        port = _port_engine(profiles, k=k)
+        assert not port.one_depth
+        got = port.record_streams(codes, thrs)
+        assert [g[0] for g in got] == [w[0] for w in want]
+        assert events(got) == events(want) and len(events(want)) > 0, (seed, k, wss)
+
+
 # --- miner and API through the port ----------------------------------------
 
 
 def test_find_genes_cluster_mode_golden(mini_genome, ref_fasta):
     # tests/test_api_golden.py::test_find_genes_cluster_mode_golden
     a = kt.find_genes_cluster_mode(
-        genome_path=mini_genome, ref_path=ref_fasta, kmer_dist_thrs=THRS, buffer=100, verbose=False,
+        genome_path=mini_genome, ref_path=ref_fasta, kmer_dist_thrs=THRS, buffer=100, verbose=False, device="cpu",
     )[0]
     assert [h.description for h in a] == [
         "AM773548.1 | Dist = 20.17 | KFV = 3 | MatchPos = 6852:7139 | GenomePos = 0 | Len = 288",
@@ -278,7 +393,7 @@ def test_find_genes_cluster_mode_golden(mini_genome, ref_fasta):
 def test_omn_miner_custom_thresholds(ref_fasta, mini_genome):
     # tests/test_miner_golden.py::TestOmnMiner::test_custom_thresholds
     clusters = cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25], include_avg=False)
-    res = mine_genome_clusters(mini_genome, clusters.profiles, thr_vec=[37, 33, 38, 34, 28], buff=200)
+    res = mine_genome_clusters(mini_genome, clusters.profiles, thr_vec=[37, 33, 38, 34, 28], buff=200, device="cpu")
     assert [h.description for h in res.hits] == [
         "AM773548.1 | Dist = 20.17 | KFV = 3 | MatchPos = 6852:7139 | GenomePos = 0 | Len = 288",
         "AM773548.1 | Dist = 33.96 | KFV = 4 | MatchPos = 23907:24198 | GenomePos = 0 | Len = 292",
@@ -288,13 +403,13 @@ def test_omn_miner_custom_thresholds(ref_fasta, mini_genome):
 
 def test_low_k_warns_cluster(mini_genome, ref_fasta):
     with pytest.warns(UserWarning, match="Such a low k value of 3"):
-        kt.find_genes_cluster_mode(genome_path=mini_genome, ref_path=ref_fasta, k=3, verbose=False)
+        kt.find_genes_cluster_mode(genome_path=mini_genome, ref_path=ref_fasta, k=3, verbose=False, device="cpu")
 
 
 def test_too_high_thresholds_warn(mini_genome, ref_fasta):
     with pytest.warns(UserWarning, match=r"at index/indicies 1, 2, 4, 5, 6 for k = 6"):
         kt.find_genes_cluster_mode(
-            genome_path=mini_genome, ref_path=ref_fasta, verbose=False,
+            genome_path=mini_genome, ref_path=ref_fasta, verbose=False, device="cpu",
             kmer_dist_thrs=[100.0, 200.0, 20.0, 300.0, 200.0, 100.0],
         )
 
@@ -305,7 +420,7 @@ def test_return_dists_and_outputs_match_jax_miner(clusters, mini_genome):
     kw = dict(thr_vec=THRS, buff=100, do_return_dists=True, do_return_align=True, get_hit_loci=True)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        got = mine_genome_clusters(mini_genome, clusters.profiles, **kw)
+        got = mine_genome_clusters(mini_genome, clusters.profiles, device="cpu", **kw)
         want = jax_mine_genome_clusters(mini_genome, clusters.profiles, **kw)
     assert [(h.description, h.seq) for h in got.hits] == [(h.description, h.seq) for h in want.hits]
     assert got.hit_loci == want.hit_loci and len(got.hit_loci) == 3
@@ -322,16 +437,7 @@ def test_return_dists_and_outputs_match_jax_miner(clusters, mini_genome):
 @pytest.mark.parametrize("kwarg", ["devices", "checkpoint_path"])
 def test_unported_options_raise(mini_genome, ref_fasta, kwarg):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False, **{kwarg: 2 if kwarg == "devices" else "x.ckpt"})
-
-
-def test_mixed_depth_profiles_raise():
-    """A cluster with ws - k < 16 clamps its pair depth; such sets need the
-    K4/K6 kernels, which are not ported."""
-    rng = np.random.default_rng(0)
-    profiles = [_random_profile(rng, 5, 20, 2), _random_profile(rng, 5, 96, 3)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcluster.ClusterScanEngine(profiles, k=5, device="cpu")
+        kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2 if kwarg == "devices" else "x.ckpt"})
 
 
 def test_threshold_count_mismatch_raises(clusters, mini_genome):
@@ -339,4 +445,4 @@ def test_threshold_count_mismatch_raises(clusters, mini_genome):
     with pytest.raises(ValueError, match="6 clusters but 2 thresholds"):
         eng.record_streams(np.zeros(1_000, dtype=np.int8), [1.0, 2.0])
     with pytest.raises(ValueError, match="thresholds"):
-        mine_genome_clusters(mini_genome, clusters.profiles, thr_vec=[30.0] * 5)
+        mine_genome_clusters(mini_genome, clusters.profiles, thr_vec=[30.0] * 5, device="cpu")

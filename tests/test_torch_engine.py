@@ -10,6 +10,7 @@ cutover is another route to the same hits, not the same stream)."""
 
 import numpy as np
 import pytest
+import torch
 
 from kmergma_tpu.ops import scan as jscan
 from kmergma_tpu.ops.kmers import kmer_count
@@ -140,3 +141,30 @@ def test_tiny_record_and_full_activity():
     got = port.record_stream(codes, 1e9)
     want = ref.record_stream(codes, 1e9)
     assert got[:2] == want[:2]
+
+
+@pytest.mark.parametrize("k,ws,alphabet", [(6, 240, 4), (4, 40, 4), (1, 60, 256)])
+def test_exact_mode_streams_match_jax(k, ws, alphabet):
+    """bound_depth=None: the bitmap comes from K4's full-depth distances
+    (K4r's use) instead of K1's bounds; streams equal the JAX exact
+    engine's, for 2-bit codes and for a k = 1 engine over 256 codes
+    (uint8, as the strobemer span engine ships them)."""
+    r = 7
+    if alphabet == 4:
+        s, codes = _planted(k, n=20_000, k=k, ws=ws, r=r)
+    else:
+        rng = np.random.default_rng(17)
+        s = rng.integers(0, 90, alphabet).astype(np.int64)
+        codes = rng.integers(0, alphabet, 20_000).astype(np.uint8)
+    port = tscan.ScanEngine(s, k=k, ws=ws, r=r, device="cpu", bound_depth=None)
+    ref = _jax_engine(s, k, ws, r, bound_depth=None, chunk_windows=1 << 13)
+    if alphabet > 4:
+        port.codes_dtype = np.uint8
+        ref.pack_codes = False
+    d = jscan.scan_window_distances_np(codes.astype(np.int64), s, k, ws, r)
+    thr = float(np.percentile(d / port.scale, 3.0))
+    got = port.record_stream(codes, thr)
+    want = ref.record_stream(codes.astype(np.int32) if alphabet > 4 else codes, thr)
+    assert port.bound_depth is None and got[0] == want[0]
+    assert got[1] == want[1] and len(got[1]) > 4
+    assert port.prepare_codes(codes).dtype == (torch.uint8 if alphabet > 4 else torch.int8)

@@ -4,8 +4,8 @@ The kernel tests need a CUDA device and skip without one (marker
 ``cuda``); on the CPU the wrappers run their plain twins, launch nothing,
 and refuse other devices.  Zero tolerance: integer arithmetic.
 
-The file needs no jax and no conftest fixture, so on a GPU host without
-jax it runs as
+The file imports only the port (no jax, no JAX package) and no conftest
+fixture, so on a GPU host without jax it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from kmergma_tpu.ops.kmers import kmer_count
-from kmergma_tpu.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
-from kmergma_tpu.utils.fasta import as_records
+from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons
 from kmergma_tpu_torch.ops import scan as tscan
+from kmergma_tpu_torch.ops.kmers import kmer_count
+from kmergma_tpu_torch.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
 from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
 from kmergma_tpu_torch.ops.scan_cluster_fused import (
     _lookup_roundtrip_plain,
@@ -29,12 +29,17 @@ from kmergma_tpu_torch.ops.scan_cluster_fused import (
 )
 from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
 from kmergma_tpu_torch.ops.scan_kernels import (
+    _codes_pair_ab_kcodes_plain,
     _codes_pair_multi_plain,
     _match_counts_plain,
+    codes_pair_ab_kcodes,
     codes_pair_multi,
     match_counts,
+    pair_ab_from_kcodes,
     scan_window_distances_kernel,
 )
+from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes
+from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
 
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
@@ -71,7 +76,10 @@ def _bitmap_inputs(codes, s, k, ws, r, device):
     return eng, prep, nw, l0, kw
 
 
-WRAPPERS = (fused_record_bitmaps, match_counts, fused_cluster_record_bitmaps, codes_pair_multi, lookup_roundtrip)
+WRAPPERS = (
+    fused_record_bitmaps, match_counts, fused_cluster_record_bitmaps, codes_pair_multi, lookup_roundtrip,
+    codes_pair_ab_kcodes, pair_ab_from_kcodes,
+)
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +111,10 @@ def test_cpu_wrappers_launch_nothing(record, alp_clusters):
     for fused_min in (1 << 16, 1):  # the split pass (K5), then K3 and K8
         cl.fused_min_windows = fused_min
         assert any(s for _d0, s in cl.record_streams(codes[:60_000], [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]))
+    mixed = ClusterScanEngine([*alp_clusters, _prefix_profile()], k=6, device="cpu")  # K4 and K6
+    assert any(s for _d0, s in mixed.record_streams(codes[:60_000], [35.0, 31.0, 38.0, 34.0, 27.0, 27.0, 1.14]))
+    strobe = _strobe_engine(codes, "cpu")  # K4r
+    assert strobe[0].record_stream(strobe[1], 30.0)[1]
     assert all(fn.launches == 0 for fn in WRAPPERS)
 
 
@@ -123,6 +135,20 @@ def test_wrappers_refuse_other_devices():
         fused_cluster_record_bitmaps(codes, s2, [0, 0], l0s, [100, 98], k=2, specs=[(20, 1), (22, 1)], depth=4, t=512, block=512, n_tiles=1)
     with pytest.raises(ValueError, match="unsupported device"):
         lookup_roundtrip(s2, t=512, w_min=19, w_max=21)
+    with pytest.raises(ValueError, match="unsupported device"):
+        codes_pair_ab_kcodes(codes, 2, 19, 100, 120, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pair_ab_from_kcodes(torch.zeros(200, dtype=torch.int32, device="meta"), 19, 100, 4)
+
+
+def test_pair_depth_wrappers_check_their_inputs():
+    codes = torch.zeros(500, dtype=torch.int8)
+    with pytest.raises(ValueError, match="depth < w"):
+        codes_pair_ab_kcodes(codes, 2, 19, 100, 120, 19)
+    with pytest.raises(ValueError, match="int8, uint8 or int32"):
+        codes_pair_ab_kcodes(codes.to(torch.int64), 2, 19, 100, 120, 4)
+    with pytest.raises(ValueError, match="K codes"):
+        pair_ab_from_kcodes(torch.zeros(110, dtype=torch.int32), 19, 100, 4)
 
 
 @pytest.mark.cuda
@@ -201,9 +227,9 @@ def _k3_inputs(profiles, k, codes, thrs, device):
     nws = [codes.shape[0] - ws + 1 for ws, _r in eng.specs]
     thr_ints = [int(e._thr_int(x)) for e, x in zip(eng.engines, thrs)]
     l0s = torch.stack([
-        tscan._first_window_l0(prep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=eng.depth) for e in eng.engines
+        tscan._first_window_l0(prep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=eng.groups[0][1]) for e in eng.engines
     ])
-    kw = dict(k=k, specs=eng.specs, depth=eng.depth, t=eng.fused_t, block=eng.block, n_tiles=-(-max(nws) // eng.fused_t))
+    kw = dict(k=k, specs=eng.specs, depth=eng.groups[0][1], t=eng.fused_t, block=eng.block, n_tiles=-(-max(nws) // eng.fused_t))
     return eng, prep, nws, thr_ints, l0s, kw
 
 
@@ -237,7 +263,7 @@ def test_k3_and_k8_tables_through_ldg_on_card(cuda_device):
     eng, prep, nws, thr_ints, l0s, kw = _k3_inputs(profiles, k, codes, [0.0] * 6, cuda_device)
     widths = [ws - k + 1 for ws in wss]
     assert not cluster_tables_in_smem(6, k, eng.fused_t, min(widths), max(widths))
-    bounds = tscan.scan_window_lower_bounds(prep[: nws[0] + wss[0] - 1], eng.s_stack[0], k, wss[0], eng.specs[0][1], eng.depth)
+    bounds = tscan.scan_window_lower_bounds(prep[: nws[0] + wss[0] - 1], eng.s_stack[0], k, wss[0], eng.specs[0][1], eng.groups[0][1])
     thr_ints = [int(torch.quantile(bounds.double(), 0.01))] * 6
     got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
     assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
@@ -273,3 +299,79 @@ def test_cluster_engine_on_card_matches_cpu(record, alp_clusters, cuda_device):
         assert on_card.record_streams(codes, thrs) == on_cpu.record_streams(codes, thrs)
         short = codes[:50_000]
         assert on_card.record_streams(short, thrs) == on_cpu.record_streams(short, thrs)
+
+
+def _prefix_profile():
+    """The Alp_V genes' 20 bp prefixes at k = 6: ws 20, pair depth 14."""
+    return gen_ref_ws_cons([FastaRecord(rec.description, rec.seq[:20]) for rec in as_records(REF)], 6)
+
+
+def _strobe_engine(codes, device, s=2):
+    """(span engine, strobe codes) of a record for the Alp_V strobe profile."""
+    p = gen_strobe_ref_ws_cons(REF, s=s, w_min=3, w_max=5 if s == 2 else 6)
+    sc = strobe_2_mer_codes(codes, p.s, p.w_min, p.w_max, p.q)
+    w = p.windowsize - p.k
+    n_steps = codes.shape[0] - p.windowsize - 1
+    return StrobeSpanEngine(p, int(sc[w]), device=device), sc[: n_steps + w]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,depth", [(6, 284, 16), (6, 15, 14), (6, 284, 283), (1, 40, 1)])
+def test_k4_matches_twin_on_card(record, cuda_device, k, w, depth):
+    codes, _p = record
+    dev_codes = torch.from_numpy(codes).to(cuda_device)
+    nt, nkc = codes.shape[0] - w - k, codes.shape[0] - k + 1
+    before = codes_pair_ab_kcodes.launches
+    ab, kc = codes_pair_ab_kcodes(dev_codes, k, w, nt, nkc, depth)
+    torch.cuda.synchronize()
+    assert codes_pair_ab_kcodes.launches == before + 1
+    ab_p, kc_p = _codes_pair_ab_kcodes_plain(dev_codes, k, w, nt, nkc, depth)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
+    assert int(ab.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 3])
+def test_k4r_matches_twin_on_card(record, cuda_device, s):
+    """The strobe engine's exact pass: k = 1, depth ws - k, uint8 strobe
+    codes (many >= 128) at s = 2, int32 codes up to 4095 at s = 3."""
+    codes, _p = record
+    eng, sc = _strobe_engine(codes, cuda_device, s=s)
+    prep = eng.prepare_codes(sc)
+    assert prep.dtype == (torch.uint8 if s == 2 else torch.int32)
+    assert int(prep.max()) >= (128 if s == 2 else 256)
+    w = eng.ws
+    nw = sc.shape[0] - w + 1
+    args = (prep, 1, w, nw - 1, nw + w - 1, w - 1)
+    ab, kc = codes_pair_ab_kcodes(*args)
+    ab_p, kc_p = _codes_pair_ab_kcodes_plain(*args)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
+    np.testing.assert_array_equal(kc.cpu().numpy(), sc[: nw + w - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,depth", [(284, 16), (15, 14), (284, 283), (2, 1)])
+def test_k6_matches_twin_on_card(record, cuda_device, w, depth):
+    codes, _p = record
+    kc = tscan.rolling_kmer_codes(torch.from_numpy(codes).to(cuda_device), 6)
+    nt = kc.shape[0] - w - 77  # ragged last tile; K codes past nt + w unread
+    before = pair_ab_from_kcodes.launches
+    ab = pair_ab_from_kcodes(kc, w, nt, depth)
+    torch.cuda.synchronize()
+    assert pair_ab_from_kcodes.launches == before + 1
+    assert torch.equal(ab, tscan._pair_ab(kc, w, nt, depth))
+    assert torch.equal(ab, pair_ab_from_kcodes(kc[: nt + w].clone(), w, nt, depth))
+
+
+@pytest.mark.cuda
+def test_strobe_and_mixed_depth_engines_on_card_match_cpu(record, alp_clusters, cuda_device):
+    codes, _p = record
+    on_card, sc = _strobe_engine(codes, cuda_device)
+    on_cpu, _sc = _strobe_engine(codes, "cpu")
+    for thr in (30.0, 33.5):
+        assert on_card.record_stream(sc, thr) == on_cpu.record_stream(sc, thr)
+    profiles = [*alp_clusters, _prefix_profile()]
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0, 1.14]
+    card = ClusterScanEngine(profiles, k=6, device=cuda_device)
+    cpu = ClusterScanEngine(profiles, k=6, device="cpu")
+    assert card.record_streams(codes, thrs) == cpu.record_streams(codes, thrs)
