@@ -26,7 +26,19 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
 * a mixed-depth cluster set (the six Alp_V clusters plus a profile of the
   genes' 20 bp prefixes, ws 20, pair depth 14): K4 and K6 against their
   twins, then ``ClusterScanEngine`` on one 16 Mbp contig and the short
-  contig, its streams equal to an int64 host cluster oracle's.
+  contig, its streams equal to an int64 host cluster oracle's;
+* the port's throughput harness (``kmergma_tpu_torch.bench.run``) at its
+  default sizes, every genome made on the card by K7 (a 512 Mbp headline,
+  64 Mbp hit-dense, k = 10 and strobe genomes, 6 x 512 Mbp records), each
+  row then held against an independent reference at its own size: K7
+  against its twin over the whole headline genome, K1 against its twin on
+  the headline (in 64 Mbp pieces), dense and k = 10 genomes and K3 on the
+  dense genome; the headline, k = 10 and 3.2 Gbp rows against the int64
+  host engine over each whole record, the dense row's hits against
+  ``mine_genome`` on it, the cluster streams against the int64 host
+  cluster oracle and the strobe hits against the int64 host strobe
+  oracle; with the 3.2 Gbp row's peak device memory and the device's busy
+  share of one headline and one hit-dense row.
 
 Each path's kernels are shown to have launched in that path's run: their
 launch counts are set to 0 just before it and read just after.  Kernel
@@ -43,7 +55,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -79,6 +90,9 @@ GOLDEN_STROBE = [
 SHORT_CONTIG_BP = 60_000
 #: the mixed-depth set's extra profile: the reference genes' prefixes
 PREFIX_BP = 20
+#: the bench phase's row sizes, the harness's defaults: a 512 Mbp headline,
+#: 64 Mbp hit-dense, k = 10 and strobe genomes, and 6 x 512 Mbp records
+BENCH_SIZES = {"n_mbp": 512.0, "dense_mbp": 64.0, "k10_mbp": 64.0, "strobe_mbp": 64.0, "g3_mbp": 3200.0}
 
 #: one H100 SXM's published peaks (NVIDIA's data sheet): device memory
 #: bytes per second,
@@ -86,6 +100,10 @@ PREFIX_BP = 20
 #: 32-bit integer compares and adds
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+#: integer operations a profile adds to each window of a bitmap pass (K1,
+#: K3) beside the shared pair tests: two products, two subtractions, the
+#: delta's add, the prefix sum's add and the threshold compare
+PROFILE_OPS_PER_WINDOW = 7
 
 
 class SmokeFailure(Exception):
@@ -95,14 +113,6 @@ class SmokeFailure(Exception):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def hash_codes(n: int, offset: int, seed: int = 0):
@@ -157,10 +167,22 @@ class HostClusterOracle:
     def __init__(self, profiles, k: int):
         from kmergma_tpu_torch.ops.scan_host import HostScanEngine
 
+        self.k = k
         self.engines = [HostScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records) for p in profiles]
 
     def record_streams(self, codes, thrs):
         return [e.record_stream(codes, thr)[:2] for e, thr in zip(self.engines, thrs)]
+
+    def minimal_streams(self, codes, thrs, max_ws: int) -> list:
+        """Each cluster's (dist0, minimal stream) cut at the cluster loop's
+        bound, the contract of ``ClusterScanEngine.record_streams``."""
+        n = codes.shape[0]
+        imax = n - max_ws - self.k + 2
+        out = []
+        for e, x in zip(self.engines, thrs):
+            d = e._dists(codes)
+            out.append((float(d[0]) / e.scale, minimal_stream(d, e.scale, x, min(n - e.ws, imax))))
+        return out
 
 
 def minimal_stream(d, scale: float, thr: float, mi: int) -> list:
@@ -521,6 +543,7 @@ class Launches:
     def __init__(self):
         from kmergma_tpu_torch.ops.scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
         from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps
+        from kmergma_tpu_torch.bench import hash_genome
         from kmergma_tpu_torch.ops.scan_kernels import (
             codes_pair_ab_kcodes, codes_pair_multi, match_counts, pair_ab_from_kcodes,
         )
@@ -530,6 +553,7 @@ class Launches:
             "fused_cluster_record_bitmaps": fused_cluster_record_bitmaps,
             "codes_pair_multi": codes_pair_multi, "lookup_roundtrip": lookup_roundtrip,
             "codes_pair_ab_kcodes": codes_pair_ab_kcodes, "pair_ab_from_kcodes": pair_ab_from_kcodes,
+            "hash_genome": hash_genome,
         }
 
     def reset(self) -> None:
@@ -582,7 +606,7 @@ def single_profile_phase(ctx) -> list:
     k1_err = max_err((bm, bm_plain))
     n_active = int(bm.sum())
     n_win = n_tiles * engine.fused_t
-    k1_io = (n_win + _k1_halo(ws - k + 1) + 4 * 4**k + 4 * bm.numel(), 4 * depth * n_win)
+    k1_io = (n_win + _k1_halo(ws - k + 1) + 4 * 4**k + 4 * bm.numel(), (4 * depth + PROFILE_OPS_PER_WINDOW) * n_win)
     print(
         f"K1 fused_record_bitmaps, {record.shape[0]} bp record, k={k} ws={ws} depth={depth} "
         f"thr_int={thr_int}: {k1_ms:.3f} ms, plain twin {k1_plain_ms:.3f} ms, bound {bound(*k1_io)[0]:.4f} ms, "
@@ -717,7 +741,7 @@ def cluster_phase(ctx) -> list:
     )
     k3_err = max_err((bm3, bm3_plain))
     n_win = n_tiles * ceng.fused_t
-    k3_io = (n_win + _k1_halo(max(widths)) + 4 * m * 4**k + 4 * bm3.numel(), 4 * depth * n_win)
+    k3_io = (n_win + _k1_halo(max(widths)) + 4 * m * 4**k + 4 * bm3.numel(), (4 * depth + PROFILE_OPS_PER_WINDOW * m) * n_win)
     placement = "the plain twin's gather"
     if on_card:
         placement = "shared memory" if cluster_tables_in_smem(m, k, ceng.fused_t, min(widths), max(widths)) else "__ldg"
@@ -982,16 +1006,12 @@ def mixed_depth_phase(ctx) -> list:
     total = dict.fromkeys(ctx["launches"].wrappers, 0)
     for codes_r in (record, ctx["short_contig"]):
         n = codes_r.shape[0]
-        imax = n - eng.max_ws - k + 2
         ctx["launches"].reset()
         ms, got = clock(lambda: eng.record_streams(codes_r, thrs), sync)
         launches = ctx["launches"].read()
         total = {name: total[name] + n_l for name, n_l in launches.items()}
-        want = []
-        for e, x, p in zip(oracle.engines, thrs, profiles):
-            d = e._dists(codes_r)
-            want.append((float(d[0]) / e.scale, minimal_stream(d, e.scale, x, min(n - p.windowsize, imax))))
-        require(got == want, f"mixed-depth cluster streams differ from the int64 host oracle on a {n} bp record")
+        require(got == oracle.minimal_streams(codes_r, thrs, eng.max_ws),
+                f"mixed-depth cluster streams differ from the int64 host oracle on a {n} bp record")
         print(f"mixed-depth streams equal the int64 host oracle's on a {n} bp record ({ms:.3f} ms): "
               f"{[len(s) for _d0, s in got]} stream entries; launch counts {launches} [{label}]")
         require(len(got[-1][1]) > 0, "no prefix-profile stream entries on a record with planted genes")
@@ -1010,10 +1030,239 @@ def mixed_depth_phase(ctx) -> list:
     ]
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "") -> dict:
+def k1_twin_err(engine, codes, thr: float) -> tuple[int, int]:
+    """(max abs error, active blocks) of K1 against its plain twin on one
+    record's codes (a device tensor) at the engine's shapes."""
+    from kmergma_tpu_torch.ops.scan import _first_window_l0
+    from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
+
+    nw = codes.shape[0] - engine.ws + 1
+    prep = engine.prepare_codes(codes)
+    depth = engine.bound_depth
+    l0 = _first_window_l0(prep, engine.s_dev, k=engine.k, ws=engine.ws, r=engine.r, depth=depth)
+    args = (prep, engine.s_dev, int(engine._thr_int(thr)), l0, nw)
+    kw = dict(k=engine.k, ws=engine.ws, r=engine.r, depth=depth, t=engine.fused_t, block=engine.block,
+              n_tiles=-(-nw // engine.fused_t))
+    bm = fused_record_bitmaps(*args, **kw)
+    return max_err((bm, fused_record_bitmaps_plain(*args, **kw))), int(bm.sum())
+
+
+def k3_twin_err(ceng, codes, thrs) -> tuple[int, int]:
+    """(max abs error, active blocks) of K3 against its plain twin on one
+    record's codes (a device tensor) at the cluster engine's shapes."""
+    import torch
+
+    from kmergma_tpu_torch.ops.scan import _first_window_l0
+    from kmergma_tpu_torch.ops.scan_cluster_fused import fused_cluster_record_bitmaps, fused_cluster_record_bitmaps_plain
+
+    nws = [codes.shape[0] - ws_c + 1 for ws_c, _r in ceng.specs]
+    prep = ceng.prepare_codes(codes)
+    depth = ceng.groups[0][1]
+    l0s = torch.stack([_first_window_l0(prep, e.s_dev, k=ceng.k, ws=e.ws, r=e.r, depth=depth) for e in ceng.engines])
+    args = (prep, ceng.s_stack, [int(e._thr_int(x)) for e, x in zip(ceng.engines, thrs)], l0s, nws)
+    kw = dict(k=ceng.k, specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block,
+              n_tiles=-(-max(nws) // ceng.fused_t))
+    bm = fused_cluster_record_bitmaps(*args, **kw)
+    return max_err((bm, fused_cluster_record_bitmaps_plain(*args, **kw))), int(bm.sum())
+
+
+def host_record_check(host, codes, thr: float, d0: float, stream: list, hits: list, what: str) -> int:
+    """Hold one record's (dist0, stream, hits) from the card against the
+    int64 host engine over the whole record: dist0 equal, every stream
+    entry equal to the exact distance of its window, and the hits equal to
+    the replay of the host's full stream.  Returns the host's stream
+    length."""
+    import numpy as np
+
+    from kmergma_tpu_torch.models.state_machine import replay_single
+
+    n = codes.shape[0]
+    hd0, hstream, hdists = host.record_stream(codes.cpu().numpy(), thr, collect_dists=True)
+    idx = np.array([i for i, _d in stream], dtype=np.int64)
+    exact = np.array_equal(hdists[idx], np.array([d for _i, d in stream], dtype=np.float64))
+    want = replay_single(hstream, hd0, thr, host.k, host.ws, n, 50)
+    require(d0 == hd0 and exact and hits == want,
+            f"{what}: dist0 {d0} (host {hd0}), stream exact={exact}, {len(hits)} hits (host {len(want)})")
+    return len(hstream)
+
+
+def bench_phase(ctx) -> list:
+    """The port's throughput harness (``kmergma_tpu_torch.bench.run``) at
+    the sizes of ``ctx["bench_sizes"]``, then every row held against an
+    independent reference at the row's own sizes: K7 against its twin over
+    the whole headline genome; K1 against its twin on the headline (in
+    64 Mbp pieces), hit-dense and k = 10 genomes, and K3 on the dense
+    genome; the headline, k = 10 and 3.2 Gbp rows' dist0, streams and hits
+    against the int64 host engine over each whole record; the dense row's
+    hits against ``mine_genome`` on that engine, and k = 10 on a planted
+    record too; the cluster streams against the int64 host cluster oracle
+    and against the same engine fed from the host; the strobe hits against
+    the int64 host strobe oracle and against the call without
+    ``genome_dev=`` / ``engine_cache=``."""
+    import numpy as np
+    import torch
+
+    from kmergma_tpu_torch import bench
+    from kmergma_tpu_torch.models.miner import fmt_dist, mine_genome
+    from kmergma_tpu_torch.models.state_machine import replay_single
+    from kmergma_tpu_torch.models.strobe_miner import strobe_mine_genome
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_host import HostScanEngine
+    from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    sizes = ctx["bench_sizes"]
+    piece = 64_000_000  # bp per K7 / K1 twin comparison on the headline genome
+
+    # --- the harness, every row ---------------------------------------------
+    arts: dict = {}
+    ctx["launches"].reset()
+    t0 = time.perf_counter()
+    result = bench.run(device, artefacts=arts, note=lambda msg: print(f"bench {msg} [{label}]", flush=True), **sizes)
+    wall = time.perf_counter() - t0
+    launches = ctx["launches"].read()
+    peak = f"{torch.cuda.max_memory_allocated()} bytes" if on_card else "not measured (CPU)"
+    print(f"bench json: {json.dumps(result)}")
+    print(f"bench: one bench.run of every row {wall:.3f} s; peak device memory allocated in the 3.2 Gbp row {peak}; "
+          f"launch counts {launches} [{label}]")
+    require(tuple(result) == bench.KEYS, f"bench keys {list(result)}")
+    if on_card:
+        missing = [n for n in ("hash_genome", "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps",
+                               "lookup_roundtrip", "codes_pair_ab_kcodes") if launches[n] == 0]
+        require(not missing, f"a kernel of the bench path never launched: {launches}")
+
+    # --- K7 vs its plain twin over the headline genome -------------------------
+    n_head = int(sizes["n_mbp"] * 1e6)
+    k7_ms, genome = kernel_ms(lambda: bench.hash_genome(n_head, 42, device), on_card)
+    k7_plain_ms, genome_plain = kernel_ms(lambda: bench.hash_genome_plain(n_head, 42, device, piece=piece), on_card, reps=3)
+    k7_err = max_err((genome, genome_plain))
+    head = min(n_head, 4_000_000)
+    np_ok = np.array_equal(genome[:head].cpu().numpy(), hash_codes(head, 0, seed=42))
+    k7_io = (n_head, 10 * n_head)  # one byte written per code; ~10 integer operations per code
+    print(f"K7 hash_genome, {n_head} codes (seed 42): {k7_ms:.3f} ms, plain twin in 64 Mbp pieces {k7_plain_ms:.3f} ms, "
+          f"bound {bound(*k7_io)[0]:.4f} ms ({bound(*k7_io)[1]}), bit-identical={k7_err == 0}, "
+          f"first {head} codes equal to numpy hash_codes={np_ok} [{label}]")
+    require(k7_err == 0 and np_ok, "K7 differs from its plain twin or from numpy hash_codes")
+    del genome_plain
+
+    # --- the headline row: K1 vs its twin, the row against the host engine ----
+    dense = arts["dense"]
+    p = dense["profile"]
+    eng = ScanEngine(p.sum_kfv, k=p.k, ws=p.windowsize, r=p.n_records, device=device)
+    host = HostScanEngine(p.sum_kfv, k=p.k, ws=p.windowsize, r=p.n_records)
+    rnd = arts["random"]
+    k1 = [k1_twin_err(eng, genome[s : s + piece + p.windowsize - 1], rnd["thr"])
+          for s in range(0, n_head - p.windowsize + 1, piece)]
+    require(all(err == 0 for err, _a in k1), "K1 differs from its plain twin on the headline genome")
+    t0 = time.perf_counter()
+    n_host = host_record_check(host, genome, rnd["thr"], rnd["dist0"], rnd["stream"], rnd["hits"], "bench headline")
+    print(f"bench headline: K1 bit-identical to its twin in {len(k1)} pieces of at most {piece} bp (active blocks "
+          f"{[a for _e, a in k1]}); dist0, {len(rnd['stream'])} stream entries and {len(rnd['hits'])} hits equal the "
+          f"int64 host engine's over the whole record ({n_host} host stream entries, "
+          f"{time.perf_counter() - t0:.3f} s) [{label}]")
+
+    # --- the device's busy share of the headline and hit-dense rows ----------
+    device_share(f"bench headline row ({n_head} bp, record_stream)", lambda: eng.record_stream(genome, rnd["thr"]),
+                 sync, device, label)
+    dgenome = torch.from_numpy(dense["codes"]).to(device)
+
+    def dense_row():
+        d0, st, _ = eng.record_stream(dgenome, dense["thr"])
+        return replay_single(st, d0, dense["thr"], p.k, p.windowsize, dgenome.shape[0], 50)
+
+    device_share(f"bench hit-dense row ({dgenome.shape[0]} bp, record_stream + replay)", dense_row, sync, device, label)
+    del genome
+
+    # --- the dense row: K1 vs its twin, hits against the int64 host engine ----
+    codes = dense["codes"]
+    k1_err, k1_active = k1_twin_err(eng, dgenome, dense["thr"])
+    rec = FastaRecord("bench_dense", np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes(), _codes=codes)
+    t0 = time.perf_counter()
+    oracle = mine_genome([rec], p, thr=dense["thr"], do_align=False, engine=host)
+    got = [f"bench_dense | dist = {fmt_dist(h.dist)} | MatchPos = {h.start}:{h.stop} | GenomePos = 0 | Len = {h.stop - h.start + 1}"
+           for h in dense["hits"]]
+    require(k1_err == 0, "K1 differs from its plain twin on the hit-dense genome")
+    require(got == [h.description for h in oracle.hits], "the hit-dense row's hits differ from the int64 host engine's")
+    print(f"bench hit-dense: K1 bit-identical to its twin ({k1_active} active blocks); {len(got)} hits equal "
+          f"mine_genome's on the int64 host engine ({time.perf_counter() - t0:.3f} s) [{label}]")
+
+    # --- the k = 10 row, then k = 10 on a planted record ----------------------
+    r10 = arts["k10"]
+    p10 = r10["profile"]
+    e10 = ScanEngine(p10.sum_kfv, k=10, ws=p10.windowsize, r=p10.n_records, device=device)
+    h10 = HostScanEngine(p10.sum_kfv, k=10, ws=p10.windowsize, r=p10.n_records)
+    n10 = int(sizes["k10_mbp"] * 1e6)
+    g10 = bench._device_random_genome(n10, 17, device)
+    k1_err, k1_active = k1_twin_err(e10, g10, r10["thr"])
+    require(k1_err == 0, "K1 differs from its plain twin on the k = 10 genome")
+    hits10 = replay_single(r10["stream"], r10["dist0"], r10["thr"], 10, p10.windowsize, n10, 50)
+    n_host = host_record_check(h10, g10, r10["thr"], r10["dist0"], r10["stream"], hits10, "bench k=10 row")
+    print(f"bench k=10 row: K1 (4^10 bins) bit-identical to its twin on {n10} bp ({k1_active} active blocks); dist0, "
+          f"{len(r10['stream'])} stream entries and {len(hits10)} hits equal the int64 host engine's ({n_host} host "
+          f"stream entries) [{label}]")
+    del g10
+    n10 = ctx["whole_bp"]
+    g10, n_planted = bench._plant_genes_device(bench._device_random_genome(n10, 17, device), as_records(REF), n10, n10 // 20)
+    d0, st, _ = e10.record_stream(g10, 8.0)
+    hits10 = replay_single(st, d0, 8.0, 10, p10.windowsize, n10, 50)
+    host_record_check(h10, g10, 8.0, d0, st, hits10, "k = 10 on a planted record")
+    require(len(hits10) > 0, "k = 10 found no hit on a planted record")
+    print(f"bench k=10: {n10} bp record with {n_planted} planted genes, dist0 {d0}, {len(hits10)} hits, equal to the "
+          f"int64 host engine's [{label}]")
+    del g10
+
+    # --- the cluster row: K3 vs its twin, streams against the oracles ---------
+    cl = arts["cluster"]
+    ceng = cl["engine"]
+    k3_err, k3_active = k3_twin_err(ceng, dgenome, cl["thrs"])
+    require(k3_err == 0, "K3 differs from its plain twin on the hit-dense genome")
+    t0 = time.perf_counter()
+    want = HostClusterOracle(cl["profiles"], ceng.k).minimal_streams(codes, cl["thrs"], ceng.max_ws)
+    require(cl["pairs"] == want, "the cluster row's streams differ from the int64 host cluster oracle's")
+    require(cl["pairs"] == ceng.record_streams(codes, cl["thrs"]),
+            "the cluster row's streams differ from the same engine's on the genome shipped from the host")
+    print(f"bench cluster: K3 bit-identical to its twin ({k3_active} active blocks); streams on the resident genome "
+          f"equal the int64 host cluster oracle's ({time.perf_counter() - t0:.3f} s) and those on its host copy "
+          f"({[len(s) for _d0, s in cl['pairs']]} entries) [{label}]")
+    del dgenome
+
+    # --- the strobe row: hits against the int64 host strobe oracle -------------
+    sr = arts["strobe"]
+    t0 = time.perf_counter()
+    soracle = strobe_mine_genome([sr["record"]], sr["profile"], thr=sr["thr"], do_align=False, device_extract=False,
+                                 device=device, engine_factory=HostStrobeOracle)
+    require(sr["hits"] == [(h.description, h.seq) for h in soracle.hits],
+            "the strobe row's hits differ from the int64 host strobe oracle's")
+    plain = strobe_mine_genome([sr["record"]], sr["profile"], thr=sr["thr"], do_align=False, device=device)
+    require(sr["hits"] == [(h.description, h.seq) for h in plain.hits],
+            "the strobe row's hits differ from the call without genome_dev= and engine_cache=")
+    print(f"bench strobe: {len(sr['hits'])} hits equal the int64 host strobe oracle's ({time.perf_counter() - t0:.3f} s) "
+          f"and the call without genome_dev= and engine_cache= [{label}]")
+
+    # --- the 3.2 Gbp row against the int64 host engine, record by record -------
+    g3 = arts["g3"]
+    thr, n_found = dense["thr"], 0
+    t0 = time.perf_counter()
+    for ri, (gen, (d0, stream, hits)) in enumerate(zip(g3["genomes"], g3["records"])):
+        host_record_check(host, gen, thr, d0, stream, hits, f"3.2 Gbp record {ri}")
+        n_found += sum(any(h.start - 1 <= q < h.stop for h in hits) for q in g3["planted"])
+    require(len(set(g3["counts"])) == 1, f"3.2 Gbp repeats disagree: (candidates, hits) {g3['counts']}")
+    print(f"bench 3.2 Gbp: {len(g3['records'])} records, dist0, streams and hits equal the int64 host engine's over "
+          f"each whole record ({time.perf_counter() - t0:.3f} s); {n_found} of "
+          f"{len(g3['records']) * len(g3['planted'])} genes start inside a hit; (candidates, hits) per repeat "
+          f"{g3['counts']}; peak device memory allocated in the row {peak} [{label}]")
+    return [
+        entry("hash_genome", "hash_genome.cu", "bench.py:139", launches["hash_genome"], k7_err, k7_ms, k7_plain_ms, *k7_io),
+    ]
+
+
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     ``runs`` timed runs follow one warm-up at size, and each stage of the
-    breakdowns is the median of ``runs``.  Returns the kernels' report."""
+    breakdowns is the median of ``runs``; ``bench_sizes`` are the bench
+    phase's row sizes (``BENCH_SIZES`` by default).  Returns the kernels'
+    report."""
     import torch
 
     from kmergma_tpu_torch import _kernels
@@ -1050,13 +1299,14 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         profile=profile, thr=estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0),
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
-        launches=Launches(),
+        launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx["fasta"] = Path(tmp) / "genome.fasta"
         write_fasta(ctx["fasta"], contigs)
         kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx)
     kernels += mixed_depth_phase(ctx)
+    kernels += bench_phase(ctx)
     return {"kernels": kernels}
 
 
@@ -1069,6 +1319,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
+    from kmergma_tpu_torch.bench import card_label
+
     label = card_label()
     print(f"card: {label}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")

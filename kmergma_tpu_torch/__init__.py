@@ -9,7 +9,9 @@ engine) and ports what runs on the device.  It imports nothing of the JAX
 package.  Every search runs on the card (``device="cuda"``, the default)
 unless the caller asks for the CPU (``device="cpu"``).  Public API:
 ``find_genes``, ``find_genes_cluster_mode``, ``strobemer_find_genes``,
-``write_results``, ``record_kmergma``.
+``write_results``, ``record_kmergma``, ``exact_match``, ``first_match``;
+``python -m kmergma_tpu_torch`` is the command line, and
+``python -m kmergma_tpu_torch.bench`` the throughput harness.
 """
 
 __version__ = "0.1.0"
@@ -25,4 +27,8 @@ def __getattr__(name):
         from .models.miner import record_kmergma
 
         return record_kmergma
+    if name in ("exact_match", "first_match"):
+        from .ops import exact_match
+
+        return getattr(exact_match, name)
     raise AttributeError(name)

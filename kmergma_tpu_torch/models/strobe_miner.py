@@ -4,11 +4,12 @@ src/StrobemerGMA/StrobeGenomeMiner.jl and StrobeRefGen.jl).
 
 Per contig (records shorter than the windowsize are skipped without
 advancing ``GenomePos``, as the reference's ``continue`` does):
-  1. device: the record's int8 genome codes cross once, the randstrobe codes
-     are extracted on the card (``strobe_2_mer_codes_torch``), and the span
-     engine of the record's x* (``StrobeSpanEngine``, exact mode: K4 at
-     depth ws - k, then the single-profile planned pass with K2) emits the
-     sparse candidate stream without the codes leaving the card,
+  1. device: the record's int8 genome codes cross once (or are already
+     there, ``genome_dev``), the randstrobe codes are extracted on the card
+     (``strobe_2_mer_codes_torch``), and the span engine of the record's x*
+     (``StrobeSpanEngine``, exact mode: K4 at depth ws - k, then the
+     single-profile planned pass with K2) emits the sparse candidate stream
+     without the codes leaving the card,
   2. host: exact replay of the minima state machine (``replay_single``,
      CMI = the raw step index),
   3. host: the batched alignment trim with StrobeGMA's score model and its
@@ -136,13 +137,17 @@ def strobe_mine_genome(
     With ``device_extract`` (the default) each record crosses to the device
     as int8 genome codes and the strobemer extraction feeds the span engine
     there; ``device_extract=False`` extracts on the host and ships the
-    strobe codes.  ``engine_factory(profile, xstar)`` builds the span
-    engine of one x* (by default ``StrobeSpanEngine``); any object with its
-    ``record_stream(codes, thr, collect_dists)`` may take its place, such as
-    an exact int64 host oracle (with ``device_extract=False``).
-    ``checkpoint_path`` (ROADMAP.md Queue 1 item 4) and ``genome_dev`` /
-    ``engine_cache`` (the bench's inputs, Queue 1 item 11) are not ported
-    yet and raise."""
+    strobe codes.  ``genome_dev[i]``, where given, is record i's int8
+    genome codes already on the device (at least the record's length; the
+    bench's synthetic genomes): the extraction reads it and nothing
+    crosses to the device.  ``engine_cache`` is the caller's dict of span
+    engines by x*, kept across calls (at most 16 engines; a full cache is
+    emptied before the next is added).  ``engine_factory(profile, xstar)``
+    builds the span engine of one x* (by default ``StrobeSpanEngine``); any
+    object with its ``record_stream(codes, thr, collect_dists)`` may take
+    its place, such as an exact int64 host oracle (with
+    ``device_extract=False``).  ``checkpoint_path`` (ROADMAP.md Queue 1
+    item 4) is not ported yet and raises."""
     from ..ops.scan_strobe import strobe_scan_from_codes
     from .state_machine import candidate_stream_from_dists, replay_single
 
@@ -150,11 +155,6 @@ def strobe_mine_genome(
         raise NotImplementedError(
             "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
             "ROADMAP.md Queue 1 item 4"
-        )
-    if genome_dev is not None or engine_cache is not None:
-        raise NotImplementedError(
-            "genome_dev= and engine_cache= (the bench's device-resident genome and "
-            "engine reuse) are not ported yet: ROADMAP.md Queue 1 item 11"
         )
     dev = resolve_device(device)
     if engine_factory is None:
@@ -173,10 +173,11 @@ def strobe_mine_genome(
     res.stats = stats = ScanStats()
     t_start = time.perf_counter()
     dist_parts: list[np.ndarray] = []
-    engines: dict[int, object] = {}  # one span engine per x* (usually one)
+    # one span engine per x* (usually one)
+    engines: dict[int, object] = engine_cache if engine_cache is not None else {}
 
     genome_pos = 0
-    for record in as_records(genome):
+    for record_idx, record in enumerate(as_records(genome)):
         seq_len = len(record)
         if seq_len < ws:
             # ref StrobeGenomeMiner.jl:36: `continue` skips genome_pos too
@@ -194,9 +195,14 @@ def strobe_mine_genome(
             dist0, stream = float(dists[0]), list(candidate_stream_from_dists(dists, thr))
         else:
             if device_extract:
-                # the record crosses as int8 genome codes; the strobe codes
-                # feed the span engine without leaving the device
-                sc = strobe_2_mer_codes_torch(torch.from_numpy(record.codes).to(dev), s, w_min, w_max, q)
+                # the record crosses as int8 genome codes (or is already on
+                # the device); the strobe codes feed the span engine without
+                # leaving the device
+                if genome_dev is not None:
+                    gcodes = genome_dev[record_idx][:seq_len]
+                else:
+                    gcodes = torch.from_numpy(record.codes).to(dev)
+                sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
             else:
                 sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
             xstar = int(sc[w])

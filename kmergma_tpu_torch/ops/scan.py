@@ -230,6 +230,22 @@ def _check_record_len(n: int) -> None:
         )
 
 
+def pad_to_device(codes: "np.ndarray | torch.Tensor", total: int, dtype, device: torch.device) -> torch.Tensor:
+    """Record codes zero-padded to ``total`` on ``device`` as numpy
+    ``dtype``: one host-to-device copy of a numpy array, or a tensor
+    already on ``device`` padded there (a tensor elsewhere is refused)."""
+    n = codes.shape[0]
+    if torch.is_tensor(codes):
+        if codes.device != device:
+            raise ValueError(f"record codes on {codes.device}, engine on {device}")
+        padded = torch.zeros(total, dtype=torch.from_numpy(np.zeros(0, dtype=dtype)).dtype, device=device)
+        padded[:n] = codes
+        return padded
+    padded = np.zeros(total, dtype=dtype)
+    padded[:n] = codes
+    return torch.from_numpy(padded).to(device)
+
+
 def _window_count_sq(k0: torch.Tensor) -> torch.Tensor:
     """||c0||^2 = sum over k-mers of squared window counts, per row of
     ``k0`` (n, w): w + 2 x (equal pairs), counted on the sorted rows."""
@@ -502,22 +518,11 @@ class ScanEngine:
 
     def prepare_codes(self, codes: "np.ndarray | torch.Tensor") -> torch.Tensor:
         """The record's codes on the device as ``codes_dtype``, zero-padded
-        for the bitmap pass and for region rows near the record end: one
-        host-to-device copy of a numpy array, or a tensor already on the
-        engine's device padded there."""
+        for the bitmap pass and for region rows near the record end
+        (``pad_to_device``)."""
         n = codes.shape[0]
         _check_record_len(n)
-        total = self._padded_len(n)
-        if torch.is_tensor(codes):
-            if codes.device != self.device:
-                raise ValueError(f"record codes on {codes.device}, engine on {self.device}")
-            dtype = torch.from_numpy(np.zeros(0, dtype=self.codes_dtype)).dtype
-            padded = torch.zeros(total, dtype=dtype, device=self.device)
-            padded[:n] = codes
-            return padded
-        padded = np.zeros(total, dtype=self.codes_dtype)
-        padded[:n] = codes
-        return torch.from_numpy(padded).to(self.device)
+        return pad_to_device(codes, self._padded_len(n), self.codes_dtype, self.device)
 
     def record_stream(self, codes: "np.ndarray | torch.Tensor", thr: float, collect_dists: bool = False):
         """Scan one record; return (dist0, stream, dists_or_None).

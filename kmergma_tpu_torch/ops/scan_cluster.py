@@ -41,6 +41,7 @@ from .scan import (
     _k1_halo,
     _planned_streams,
     _window_pairs,
+    pad_to_device,
     profile_lookup_multi,
     profiles_to_torch,
     rolling_kmer_codes,
@@ -157,14 +158,13 @@ class ClusterScanEngine:
         rspan = self.engines[0].rspan
         return -(-nw_max // rspan) * rspan
 
-    def prepare_codes(self, codes: np.ndarray) -> torch.Tensor:
-        """One host-to-device copy of a record as int8 codes, zero-padded for
-        the widest cluster: for K3's tiles and halo, the split pass's span
-        and its pair kernel's tiles (K5's, or K4's for mixed depths), and
-        region rows near the record end."""
+    def prepare_codes(self, codes: "np.ndarray | torch.Tensor") -> torch.Tensor:
+        """The record's int8 codes on the device, zero-padded for the widest
+        cluster: for K3's tiles and halo, the split pass's span and its pair
+        kernel's tiles (K5's, or K4's for mixed depths), and region rows
+        near the record end (``scan.pad_to_device``)."""
         from .scan_kernels import _pair_depth_need, _pair_multi_need
 
-        codes = np.asarray(codes, dtype=np.int8)
         n = codes.shape[0]
         _check_record_len(n)
         nw_max = max(1, n - min(e.ws for e in self.engines) + 1)
@@ -177,13 +177,12 @@ class ClusterScanEngine:
             w0 = self.groups[0][0] - self.k + 1
             split_need = _pair_depth_need(self.k, w0, span - 1, span + max_w - 1)[1]
         total = max(n + self.engines[0].rspan + 1, n_tiles * self.fused_t + _k1_halo(max_w), split_need)
-        padded = np.zeros(total, dtype=np.int8)
-        padded[:n] = codes
-        return torch.from_numpy(padded).to(self.device)
+        return pad_to_device(codes, total, np.int8, self.device)
 
-    def record_streams(self, codes: np.ndarray, thrs: list[float]) -> list[tuple[float, list[tuple[int, float]]]]:
+    def record_streams(self, codes: "np.ndarray | torch.Tensor", thrs: list[float]) -> list[tuple[float, list[tuple[int, float]]]]:
         """Scan one record against every cluster; return one (dist0, stream)
-        per cluster, the contract ``replay_omn`` consumes.
+        per cluster, the contract ``replay_omn`` consumes.  ``codes`` is a
+        numpy array or an int8 tensor on the engine's device.
 
         Each stream is the single-profile engine's minimal stream cut at the
         cluster loop's bound: the loop scans windows i <= imax = n - max(ws)

@@ -130,6 +130,8 @@ def test_port_never_imports_jax(mini_genome, ref_fasta):
         "assert len(hits) > 0, hits\n"
         f"hits = kt.strobemer_find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
         "assert len(hits) == 3, hits\n"
+        "assert kt.exact_match('ACG', b'TTACGTTACG' * 120_000, device='cpu')[:2] == [(3, 5), (8, 10)]\n"
+        "import kmergma_tpu_torch.bench, kmergma_tpu_torch.utils.cli\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'kmergma_tpu') or m.startswith(('jax.', 'jaxlib', 'kmergma_tpu.')))\n"
         "assert not bad, bad\n"
         "maps = open('/proc/self/maps').read()\n"
@@ -200,7 +202,9 @@ def _entry_points(mini_genome, ref_fasta):
     from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons, strobe_mine_genome
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
     from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons as port_gen_ref_ws_cons
+    from kmergma_tpu_torch import bench as tbench
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.utils.cli import main as cli_main
 
     profile = port_gen_ref_ws_cons(ref_fasta, 6)
     clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6)).profiles
@@ -216,12 +220,16 @@ def _entry_points(mini_genome, ref_fasta):
         "ScanEngine": lambda: ScanEngine(profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records),
         "ClusterScanEngine": lambda: ClusterScanEngine(clusters, k=6),
         "StrobeSpanEngine": lambda: StrobeSpanEngine(strobe, 0),
+        "bench.run": lambda: tbench.run(n_mbp=0.01, skip_extras=True),
+        "exact_match": lambda: kt.exact_match("ACGTACGTAC", b"ACGT" * (1 << 18)),
+        "cli": lambda: cli_main(["find-genes", "--genome", mini_genome, "--refs", ref_fasta, "-q"]),
     }
 
 
 ENTRY_POINTS = [
     "find_genes", "find_genes_cluster_mode", "strobemer_find_genes", "record_kmergma", "mine_genome",
     "mine_genome_clusters", "strobe_mine_genome", "ScanEngine", "ClusterScanEngine", "StrobeSpanEngine",
+    "bench.run", "exact_match", "cli",
 ]
 
 
@@ -245,34 +253,42 @@ def test_other_devices_refused():
 
 def test_chip_smoke_phases_on_cpu(capsys):
     """chip_smoke.run drives every phase of every path (single profile,
-    cluster mode, strobemers, the mixed-depth cluster set), the stage
-    breakdowns and the busy shares included, on CPU tensors at a small
-    size: the wrappers take their plain twins, so the kernels' report
+    cluster mode, strobemers, the mixed-depth cluster set, the bench), the
+    stage breakdowns and the busy shares included, on CPU tensors at a
+    small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu")
+    bench_sizes = dict(n_mbp=0.5, dense_mbp=0.5, k10_mbp=0.2, strobe_mbp=0.1, g3_mbp=1.0, g3_rec_mbp=0.5)
+    report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
+                    bench_sizes=bench_sizes)
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
-        "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
+        "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome",
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert all(set(k) == keys for k in report["kernels"])
     assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
-    assert all(k["replaces"].startswith("kmergma_tpu/") and (_ROOT / k["source"]).exists() for k in report["kernels"])
+    assert all(k["replaces"].startswith(("kmergma_tpu/", "bench.py:")) and (_ROOT / k["source"]).exists() for k in report["kernels"])
     assert all(k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations") for k in report["kernels"])
-    assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False]
+    assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False, False]
+    assert out.count("bench # ") == 7
+    assert "bench json: " in out and "bench hit-dense: " in out and "bench k=10: " in out
+    assert "bench headline: K1 bit-identical to its twin" in out and "bench k=10 row: K1 (4^10 bins) bit-identical" in out
+    assert "streams on the resident genome equal the int64 host cluster oracle's" in out
+    assert "hits equal the int64 host strobe oracle's" in out
+    assert "bench 3.2 Gbp: 2 records, dist0, streams and hits equal the int64 host engine's over each whole record" in out
     assert "hits equal the host oracle's" in out
     assert "cluster hits equal the host oracle's" in out
     assert "cluster goldens: Alp_V_locus 3 hits exact" in out
     assert "strobe goldens: Alp_V_locus 3 hits" in out
     assert "strobe hits equal the host oracle's" in out
     assert out.count("mixed-depth streams equal the int64 host oracle's") == 2
-    assert out.count("idle share") == 3
+    assert out.count("idle share") == 5
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -205,6 +205,20 @@ def test_streams_match_jax_on_planted_records(clusters, seed, small_buckets, mon
             monkeypatch.undo()
 
 
+def test_device_tensor_input_gives_the_numpy_streams(clusters):
+    """A record already on the engine's device (an int8 tensor, the bench's
+    resident genome) gives the streams of the same record from numpy, on
+    both routes; a tensor on another device is refused."""
+    codes = _planted_codes(23, 40_000, range(2_000, 38_000, 4_500))
+    for fused in (False, True):
+        port = _port_engine(clusters.profiles, fused=fused)
+        want = port.record_streams(codes, THRS)
+        assert sum(len(s) for _d0, s in want) > 0
+        assert port.record_streams(torch.from_numpy(codes), THRS) == want
+    with pytest.raises(ValueError, match="engine on"):
+        port.record_streams(torch.from_numpy(codes).to("meta"), THRS)
+
+
 def test_cluster_fuzz_vs_int64_host_oracle():
     """Random cluster sets (k 4..6, m 2..4, windowsizes within 3 of each
     other) vs an independent oracle: each cluster's full stream from the

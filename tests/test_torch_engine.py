@@ -168,3 +168,51 @@ def test_exact_mode_streams_match_jax(k, ws, alphabet):
     assert port.bound_depth is None and got[0] == want[0]
     assert got[1] == want[1] and len(got[1]) > 4
     assert port.prepare_codes(codes).dtype == (torch.uint8 if alphabet > 4 else torch.int8)
+
+
+def test_k10_on_one_device_matches_jax_host_engine():
+    """Big k on one device (4^10 bins, a 4 MB int32 table: K1's __ldg
+    route, K2 and the plain profile gather) at the inputs of the JAX
+    package's k = 10 TP test: dist0 and the replayed hits equal the JAX
+    int64 host engine's, and the miner keeps the single-device engine."""
+    from kmergma_tpu.models.state_machine import replay_single as jax_replay_single
+    from kmergma_tpu.ops.scan_host import HostScanEngine as JaxHostScanEngine
+    from kmergma_tpu_torch.models.miner import _default_engine
+    from kmergma_tpu_torch.models.state_machine import replay_single
+    from kmergma_tpu_torch.ops.reference import RefProfile
+
+    rng = np.random.default_rng(10)
+    k, ws, r = 10, 1200, 3
+    n = 9000
+    s = np.zeros(4**k, dtype=np.int64)
+    refs = [rng.integers(0, 4, ws, dtype=np.int8) for _ in range(r)]
+    for ref in refs:
+        s += kmer_count(ref, k).astype(np.int64)
+    codes = rng.integers(0, 4, n, dtype=np.int8)
+    codes[4000 : 4000 + ws] = rng.integers(0, 4, ws, dtype=np.int8)
+    # the same background with two of the references planted: real hits
+    planted = codes.copy()
+    planted[1000 : 1000 + ws] = refs[0]
+    planted[6500 : 6500 + ws] = refs[2]
+    host = JaxHostScanEngine(s, k=k, ws=ws, r=r)
+    port = tscan.ScanEngine(s, k=k, ws=ws, r=r, device="cpu")
+    n_hits = 0
+    for record, thr in ((codes, 120.0), (planted, 70.0)):
+        d0_h, stream_h, _ = host.record_stream(record, thr)
+        want = jax_replay_single(stream_h, d0_h, thr, k, ws, n, 50)
+        d0, stream, _ = port.record_stream(record, thr)
+        got = replay_single(stream, d0, thr, k, ws, n, 50)
+        assert d0 == d0_h and len(stream) > 0
+        assert [(h.cmi, h.dist, h.start, h.stop) for h in got] == [(h.cmi, h.dist, h.start, h.stop) for h in want]
+        n_hits += len(got)
+    assert n_hits >= 2
+    profile = RefProfile(mean_kfv=s / r, sum_kfv=s, n_records=r, windowsize=ws, consensus="A" * ws, k=k)
+    assert isinstance(_default_engine(profile, "cpu"), tscan.ScanEngine)
+
+
+def test_alp_v_k10_profile_fits_int32(ref_fasta):
+    """The harness's k = 10 row: the Alp_V profile at k = 10 passes the
+    int32 headroom guard, as in the JAX package's k10 row."""
+    p = gen_ref_ws_cons(ref_fasta, 10)
+    tscan.check_int32_headroom(p.sum_kfv, p.windowsize, 10, p.n_records)
+    assert tscan.ScanEngine(p.sum_kfv, k=10, ws=p.windowsize, r=p.n_records, device="cpu").s_dev.shape == (4**10,)

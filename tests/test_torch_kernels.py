@@ -166,10 +166,11 @@ def test_k1_matches_twin_on_card(record, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [7, 8])
+@pytest.mark.parametrize("k", [7, 8, 10])
 def test_k1_table_placements_on_card(k, cuda_device):
     """k=7: the 64 KB table in opt-in shared memory; k=8: a 256 KB table,
-    read through the read-only cache."""
+    read through the read-only cache; k=10: the 4 MB table of the big-k
+    row, through the read-only cache too."""
     rng = np.random.default_rng(k)
     ws, r = 120, 6
     refs = [rng.integers(0, 4, ws, dtype=np.int8) for _ in range(r)]
@@ -375,3 +376,51 @@ def test_strobe_and_mixed_depth_engines_on_card_match_cpu(record, alp_clusters, 
     card = ClusterScanEngine(profiles, k=6, device=cuda_device)
     cpu = ClusterScanEngine(profiles, k=6, device="cpu")
     assert card.record_streams(codes, thrs) == cpu.record_streams(codes, thrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 16, 17, (1 << 20) + 12345, 64_000_003])
+@pytest.mark.parametrize("seed", [42, 2**31 + 5])
+def test_k7_matches_twin_on_card(cuda_device, n, seed):
+    """K7: the tail alone, one 16-code store, a store and a tail, and sizes
+    over many grid-stride rounds, bit-identical to the plain twin."""
+    from kmergma_tpu_torch.bench import hash_genome, hash_genome_plain
+
+    before = hash_genome.launches
+    got = hash_genome(n, seed, cuda_device)
+    torch.cuda.synchronize()
+    assert hash_genome.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (n,)
+    assert torch.equal(got, hash_genome_plain(n, seed, cuda_device))
+
+
+@pytest.mark.cuda
+def test_device_tensor_inputs_on_card_match_host_inputs(record, alp_clusters, cuda_device):
+    """Records already on the card: the cluster engine's streams, and the
+    strobe miner's hits through genome_dev= / engine_cache=, equal those of
+    the same calls on host codes."""
+    from kmergma_tpu_torch.models.strobe_miner import strobe_mine_genome
+
+    codes, _p = record
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+    eng = ClusterScanEngine(alp_clusters, k=6, device=cuda_device)
+    dev_codes = torch.from_numpy(codes).to(cuda_device)
+    assert eng.record_streams(dev_codes, thrs) == eng.record_streams(codes, thrs)
+    p = gen_strobe_ref_ws_cons(REF)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rec = FastaRecord("r", letters[codes].tobytes())
+    cache = {}
+    for _ in range(2):
+        got = strobe_mine_genome([rec], p, thr=30.0, genome_dev=[dev_codes], engine_cache=cache, device=cuda_device)
+    want = strobe_mine_genome([rec], p, thr=30.0, device=cuda_device)
+    assert [h.description for h in got.hits] == [h.description for h in want.hits] and len(cache) == 1
+
+
+@pytest.mark.cuda
+def test_exact_match_engine_on_card_matches_host(record, cuda_device):
+    from kmergma_tpu_torch.ops.exact_match import match_starts_engine, match_starts_np
+
+    codes, _p = record
+    sub = np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes()
+    for q in (sub[1000:1030], sub[5000:5003], sub[7000:7016], sub[9000:9040], b"ACGTN"):
+        assert match_starts_engine(sub, q, cuda_device).tolist() == match_starts_np(sub, q).tolist()

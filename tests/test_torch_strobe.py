@@ -230,9 +230,34 @@ def test_strobe_miner_edge_records_match_jax(profile):
 def test_strobe_unported_options_raise(profile, mini_genome):
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         kt.strobemer_find_genes(mini_genome, REF, verbose=False, device="cpu", checkpoint_path="x.ckpt")
-    for kw in (dict(genome_dev=[]), dict(engine_cache={})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            tstrobe.strobe_mine_genome(mini_genome, profile, device="cpu", **kw)
+
+
+def test_strobe_genome_dev_and_engine_cache_match_jax(profile):
+    """Records already on the device (``genome_dev=``, as the bench hands
+    them over, here longer than the records) and the caller's engine cache
+    (``engine_cache=``, reused by a second call): the JAX package's hits
+    for the same inputs, and no new engine on the second call."""
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    codes = [_planted(11, 30_000), _planted(12, 20_000)]
+    records = [FastaRecord(f"r{i}", letters[c].tobytes()) for i, c in enumerate(codes)]
+    jax_records = [JaxFastaRecord(rec.description, rec.seq) for rec in records]
+    pad = np.zeros(1 << 12, dtype=np.int8)
+    want = jstrobe.strobe_mine_genome(
+        jax_records, profile, thr=30.0, get_hit_loci=True,
+        genome_dev=[jnp.asarray(np.concatenate([c, np.zeros(1 << 16, dtype=np.int8)])) for c in codes],
+        engine_cache={},
+    )
+    cache: dict = {}
+    genome_dev = [torch.from_numpy(np.concatenate([c, pad])) for c in codes]
+    engines = None
+    for _call in range(2):
+        got = tstrobe.strobe_mine_genome(
+            records, profile, thr=30.0, get_hit_loci=True, genome_dev=genome_dev, engine_cache=cache, device="cpu",
+        )
+        assert [(h.description, h.seq) for h in got.hits] == [(h.description, h.seq) for h in want.hits]
+        assert got.hit_loci == want.hit_loci and len(got.hits) > 2
+        engines = engines or dict(cache)
+    assert cache == engines and len(cache) >= 1
 
 
 def test_strobe_profile_matches_jax(profile):
