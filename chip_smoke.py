@@ -14,7 +14,10 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   int64 host oracle, and where one call's wall goes: each stage timed
   alone, and the device's busy share of one profiled call;
 * cluster mode (the Alp_V set in six clusters): K3, K8 and K5 against
-  their twins, the cluster goldens through ``find_genes_cluster_mode``
+  their twins (K3 also per stage with its grid, and on the ``__ldg`` route
+  over the same contig at k = 7; K8's device time from torch.profiler and
+  from calls queued behind a spin, beside ``index_select``'s), the cluster
+  goldens through ``find_genes_cluster_mode``
   (the split route, so K5), both routes on one record, then the same
   genome plus one short contig (the split route again) mined against an
   int64 host cluster oracle, and where one call's wall goes;
@@ -708,11 +711,13 @@ def cluster_phase(ctx) -> list:
     from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
     from kmergma_tpu_torch.ops.scan import _first_window_l0, _k1_halo
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
     from kmergma_tpu_torch.ops.scan_cluster_fused import (
-        _lookup_roundtrip_plain, cluster_tables_in_smem, fused_cluster_record_bitmaps,
+        _lookup_roundtrip_plain, cluster_launch_shape, cluster_tables_in_smem, fused_cluster_record_bitmaps,
         fused_cluster_record_bitmaps_plain, lookup_roundtrip,
     )
     from kmergma_tpu_torch.ops.scan_kernels import _codes_pair_multi_plain, _pair_multi_need, codes_pair_multi
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
 
     device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
     contigs, runs, clusters, cthrs = ctx["contigs"], ctx["runs"], ctx["clusters"], ctx["cthrs"]
@@ -752,6 +757,31 @@ def cluster_phase(ctx) -> list:
     )
     require(k3_err == 0, "K3 bitmaps differ from the plain twin")
     require(int(bm3.sum()) > 0, "K3 flagged no block on a record with planted genes")
+    if on_card:
+        p1, scan, p2 = k3_stage_ms(cprep, ceng.s_stack, cthr_ints, l0s, nws, kw3)
+        shapes = [cluster_launch_shape(m, k, ceng.fused_t, min(widths), max(widths), n_tiles, emit=e) for e in (False, True)]
+        print(
+            f"K3 per stage, median of 20 calls, CUDA events around each: pass 1 {p1:.4f} ms, tile-base scan "
+            f"{scan:.4f} ms, pass 2 {p2:.4f} ms; {n_tiles} tiles, pass 1 grid {shapes[0]['grid']} and pass 2 grid "
+            f"{shapes[1]['grid']} of {shapes[1]['threads']} threads, resident blocks per SM {shapes[0]['blocks_per_sm']} "
+            f"and {shapes[1]['blocks_per_sm']} on {shapes[1]['sms']} SMs [{label}]"
+        )
+
+    # --- K3 on the __ldg route at size: k = 7, six tables of 64 KB --------------
+    clusters7 = eliminate_null_params(cluster_ref_api(REF, 7))
+    ceng7 = ClusterScanEngine(clusters7.profiles, k=7, device=device)
+    widths7 = [ws_c - 6 for ws_c, _r in ceng7.specs]
+    placement7 = "the plain twin's gather"
+    if on_card:
+        placement7 = "shared memory" if cluster_tables_in_smem(len(ceng7.specs), 7, ceng7.fused_t, min(widths7), max(widths7)) else "__ldg"
+        require(placement7 == "__ldg", f"the k = 7 cluster tables took {placement7}, not __ldg")
+    thrs7 = estimate_optimal_thresholds(clusters7.kfvs, clusters7.windowsizes, buffer=7.0)
+    k3_ldg_err, k3_ldg_active = k3_twin_err(ceng7, cprep[: record.shape[0]], thrs7)
+    print(f"K3 on the __ldg route: k = 7, {len(ceng7.specs)} clusters, {record.shape[0]} bp record, tables read through "
+          f"{placement7}: bit-identical={k3_ldg_err == 0}, {k3_ldg_active} active blocks [{label}]")
+    require(k3_ldg_err == 0, "K3 differs from its plain twin on the k = 7 (__ldg) record")
+    require(k3_ldg_active > 0, "K3 flagged no block on the k = 7 record with planted genes")
+    del ceng7
 
     # --- K8: every table entry through K3's lookup ------------------------
     rt = dict(t=ceng.fused_t, w_min=min(widths), w_max=max(widths))
@@ -762,9 +792,19 @@ def cluster_phase(ctx) -> list:
     k8_err = max_err((back, ceng.s_stack), (back, back_plain))
     k8_io = (2 * 4 * ceng.s_stack.numel(), 0)
     print(
-        f"K8 lookup_roundtrip, {m} x {4**k} entries: {k8_ms:.3f} ms, plain twin {k8_plain_ms:.3f} ms, "
-        f"one index_select {k8_lib_ms:.3f} ms, bound {bound(*k8_io)[0]:.5f} ms, equal to the stack={k8_err == 0} [{label}]"
+        f"K8 lookup_roundtrip, {m} x {4**k} entries: {k8_ms:.4f} ms, plain twin {k8_plain_ms:.4f} ms, "
+        f"one index_select {k8_lib_ms:.4f} ms, bound {bound(*k8_io)[0]:.5f} ms, equal to the stack={k8_err == 0} [{label}]"
     )
+    if on_card:
+        k8_dev, k8_names = device_ms_per_call(lambda: lookup_roundtrip(ceng.s_stack, **rt))
+        lib_dev, lib_names = device_ms_per_call(lambda: torch.index_select(ceng.s_stack, 1, entries))
+        k8_q = queued_device_ms(lambda: lookup_roundtrip(ceng.s_stack, **rt))
+        lib_q = queued_device_ms(lambda: torch.index_select(ceng.s_stack, 1, entries))
+        print(
+            f"K8 device time per call: torch.profiler {k8_dev:.5f} ms ({k8_names}), CUDA events over 20 calls "
+            f"queued behind a spin {k8_q:.5f} ms, against CUDA events back to back {k8_ms:.4f} ms; index_select "
+            f"{lib_dev:.5f} ms ({lib_names}), queued {lib_q:.5f} ms, back to back {k8_lib_ms:.4f} ms [{label}]"
+        )
     require(k8_err == 0, "K8 read a table entry back wrong")
     del cprep, bm3, bm3_plain, back, back_plain
 
@@ -1047,6 +1087,71 @@ def k1_twin_err(engine, codes, thr: float) -> tuple[int, int]:
     return max_err((bm, fused_record_bitmaps_plain(*args, **kw))), int(bm.sum())
 
 
+def k3_stage_ms(codes, s_stack, thr_ints, l0s, nws, kw, reps: int = 20) -> list:
+    """Median device ms of K3's pass 1, the tile-base scan and pass 2 over
+    ``reps`` calls, CUDA events around each stage (on the card)."""
+    import torch
+
+    from kmergma_tpu_torch.ops.scan_cluster_fused import _k3_args, _k3_bitmap, _k3_tile_bases, _k3_totals
+
+    args = _k3_args(codes, s_stack, thr_ints, nws, **kw)
+    totals, counts = _k3_totals(args)
+    _k3_bitmap(args, _k3_tile_bases(totals, l0s)[0], counts)
+    torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
+    for ev in events:
+        ev[0].record()
+        totals, counts = _k3_totals(args)
+        ev[1].record()
+        bases, _fits = _k3_tile_bases(totals, l0s)
+        ev[2].record()
+        _k3_bitmap(args, bases, counts)
+        ev[3].record()
+    torch.cuda.synchronize()
+    return [statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in events) for i in range(3)]
+
+
+def device_ms_per_call(call, reps: int = 20) -> tuple[float, str]:
+    """(device ms per call, kernel names) of ``reps`` calls of ``call`` under
+    torch.profiler, after a first profiled call that only starts the
+    tracer: the sum of the device intervals over ``reps`` (as
+    ``device_share`` reads them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=activities):
+        call()
+    with torch_profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    names = sorted({e.name[:60] for e in dev}) or ["no device interval recorded"]
+    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3, "; ".join(names)
+
+
+def queued_device_ms(call, reps: int = 20) -> float:
+    """Device ms per call of ``call``, with CUDA events around ``reps`` calls
+    queued behind a spin of the card (``torch.cuda._sleep``, about 5 ms),
+    so the card runs them back to back and no host time enters the
+    interval.  For calls that do not synchronise."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def k3_twin_err(ceng, codes, thrs) -> tuple[int, int]:
     """(max abs error, active blocks) of K3 against its plain twin on one
     record's codes (a device tensor) at the cluster engine's shapes."""
@@ -1319,7 +1424,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
-    from kmergma_tpu_torch.bench import card_label
+    try:
+        from kmergma_tpu_torch.bench import card_label
+    except ImportError:
+        print("chip_smoke: the package kmergma_tpu_torch is not beside this script; run it from a checkout of the "
+              "repository", file=sys.stderr)
+        return 1
 
     label = card_label()
     print(f"card: {label}")

@@ -102,9 +102,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kmg_pair_depth_kcodes.argtypes = [p, ll, i, i, i, i, i, p, p]
     lib.kmg_cluster_tables_in_smem.restype = i
     lib.kmg_cluster_tables_in_smem.argtypes = [i, i, i, i, i]
+    lib.kmg_cluster_launch_shape.restype = i
+    lib.kmg_cluster_launch_shape.argtypes = [i, i, i, i, i, i, i, ip]
     lib.kmg_fused_cluster_bitmaps.restype = i
+    lib.kmg_cluster_count_bytes.restype = i
+    lib.kmg_cluster_count_bytes.argtypes = [i, i, i]
     lib.kmg_fused_cluster_bitmaps.argtypes = [
-        p, p, i, i, i, ip, ip, ip, ip, i, i, i, i, p, p, p, i, p,
+        p, p, i, i, i, ip, ip, ip, ip, i, i, i, i, p, p, p, p, i, p,
     ]
     lib.kmg_lookup_roundtrip.restype = i
     lib.kmg_lookup_roundtrip.argtypes = [p, i, i, i, i, i, p, p]

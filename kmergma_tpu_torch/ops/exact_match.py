@@ -23,6 +23,7 @@ each match END (greedy non-overlapping).
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Union
 
@@ -113,7 +114,7 @@ def _looks_like_path(x) -> bool:
 
 
 class SubjectCache:
-    """Subjects' padded device codes, by (id, length, hash, device), held
+    """Subjects' padded device codes, by content (``_subject_key``), held
     under a byte budget: the oldest entries go first when a new one would
     exceed it, and a single subject over the budget is still kept alone so
     repeated queries reuse its transfer.  There is no cap on the number of
@@ -159,12 +160,19 @@ def _query_register(q: bytes) -> tuple[int, int]:
     return i32(np.uint32(int(reg) & int(mask))), i32(mask)
 
 
+def _subject_key(sub: bytes, device: "str | torch.device") -> tuple:
+    """A subject's cache key: its length, a digest of its bytes and the
+    device, so equal subjects share one entry whatever object holds them
+    (``_as_bytes`` builds a new one on every call)."""
+    return len(sub), hashlib.blake2b(sub, digest_size=16).digest(), str(device)
+
+
 def _subject_codes(sub: bytes, device: torch.device, cache: SubjectCache) -> torch.Tensor:
     """The subject's int8 codes on ``device``, zero-padded by a whole block
     and the register's reach; one host-to-device copy per subject while it
     stays in ``cache``."""
     n = len(sub)
-    key = (id(sub), n, hash(sub), str(device))
+    key = _subject_key(sub, device)
     codes = cache.get(key)
     if codes is None:
         total = -(-n // _BLOCK) * _BLOCK + _BLOCK + _PREFIX

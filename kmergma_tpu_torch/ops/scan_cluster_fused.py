@@ -11,19 +11,27 @@ with its own table, threshold, first-window bound and window count),
 cluster-major: int32[m, n_tiles * t // block].
 
 Source note.  K3 replaces ``kmergma_tpu/ops/scan_cluster_fused.py::
-_fused_cluster_kernel``: K1 for m profiles in one pass, bound like K1 by
-shared-memory reads.  The pair counts are computed once per window for
-every cluster (``csrc/pair_counts.cuh``), each cluster then adds two
-table reads and a block scan; the m tables sit in shared memory when they
-fit beside the tile (m = 6 at k = 6) and are read through ``__ldg``
-otherwise, and the carry chain is K1's two passes with the tile bases
-scanned here in torch.  K8 replaces the kernel of ``pack_lookup_roundtrip``,
-which certified the TPU's MXU one-hot lookup per chip; here it stages the
-tables as K3 does and reads every entry back through K3's lookup, the
-check of K3's table staging on the card.
+_fused_cluster_kernel``: K1 for m profiles in one pass, bound by
+shared-memory instruction issue.  Persistent blocks stage the m tables
+once (in shared memory when they fit beside the tile, m = 6 at k = 6,
+else read through ``__ldg``) and walk the tiles.  Pass 1 computes each
+window's pair counts once for every cluster, leaves them in a scratch
+buffer for pass 2 (2 bytes a window) and sums each tile's deltas in
+telescoped form; pass 2 holds 8 consecutive windows per thread in
+registers, one block barrier per two clusters and tile.  The carry chain
+stays two launches with the tile bases scanned here in torch
+(``_k3_totals``, ``_k3_tile_bases``, ``_k3_bitmap``).  K8 replaces the
+kernel of ``pack_lookup_roundtrip``, which certified the TPU's MXU one-hot
+lookup per chip; here one block per cluster stages that cluster's slice as
+K3 does and reads every entry back through K3's lookup, the check of K3's
+table staging on the card.
 """
 
 from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
 
 import torch
 
@@ -81,32 +89,106 @@ def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thr
         raise ValueError(f"fused_cluster_record_bitmaps: unsupported device {codes.device}")
     if not (codes.is_contiguous() and s_stack.is_contiguous() and s_stack.device == codes.device):
         raise ValueError("fused_cluster_record_bitmaps: codes and S must be contiguous on one device")
-    from .._kernels import check, int_array, load
-
-    lib = load()
-    dev = codes.device
-    totals = torch.empty((m, n_tiles), dtype=torch.int64, device=dev)
-    bitmap = torch.empty((m, n_tiles * (t // block)), dtype=torch.int32, device=dev)
-    scalars = [int_array(v) for v in (widths, [r for _ws, r in specs], thrs, nws)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (codes.data_ptr(), s_stack.data_ptr(), m, 4**k, k, *scalars, depth, t, block, n_tiles)
-        check(lib.kmg_fused_cluster_bitmaps(*args, None, totals.data_ptr(), None, 0, stream), "fused_cluster_record_bitmaps pass 1")
-        fused_cluster_record_bitmaps.launches += 1
-        # per cluster, K1's tile bases: l0_c plus an exclusive prefix sum of
-        # the tile totals, in int64, checked to fit int32
-        bases64 = l0s.to(torch.int64)[:, None] + torch.cumsum(totals, 1) - totals
-        if not bool(((bases64 >= -(2**31)) & (bases64 < 2**31)).all()):
-            raise OverflowError("fused_cluster_record_bitmaps: a tile base overflows int32")
-        bases = bases64.to(torch.int32)
-        check(lib.kmg_fused_cluster_bitmaps(*args, bases.data_ptr(), None, bitmap.data_ptr(), 1, stream), "fused_cluster_record_bitmaps pass 2")
-        fused_cluster_record_bitmaps.launches += 1
+    args = _k3_args(codes, s_stack, thrs, nws, **kw)
+    totals, counts = _k3_totals(args)
+    bases, fits = _k3_tile_bases(totals, l0s)
+    bitmap = _k3_bitmap(args, bases, counts)
+    # checked after pass 2 is queued, so the host waits once, not between
+    # the passes; a bitmap from wrapped bases is never returned
+    if not bool(fits):
+        raise OverflowError("fused_cluster_record_bitmaps: a tile base overflows int32")
     return bitmap
 
 
 #: K3 launches (two per call: totals, then bitmap) since the count was
 #: last set to 0
 fused_cluster_record_bitmaps.launches = 0
+
+
+def _on_device(dev: torch.device):
+    """``torch.cuda.device(dev)``, or nothing when ``dev`` is current (asked
+    of the runtime directly: the wrappers run once CUDA is initialised)."""
+    return contextlib.nullcontext() if dev.index == torch._C._cuda_getDevice() else torch.cuda.device(dev)
+
+
+def _raw_stream(dev: torch.device) -> int:
+    """The current stream of ``dev`` as the pointer the C entry points take
+    (without building the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream(dev).cuda_stream`` would)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _k3_args(codes: torch.Tensor, s_stack: torch.Tensor, thrs, nws, *, k: int, specs, depth: int, t: int, block: int, n_tiles: int) -> dict:
+    """What K3's two launches share: the device, shapes and the C arguments
+    up to n_tiles."""
+    from .._kernels import int_array
+
+    m = len(specs)
+    widths = [ws - k + 1 for ws, _r in specs]
+    scalars = [int_array(v) for v in (widths, [r for _ws, r in specs], thrs, nws)]
+    return dict(
+        dev=codes.device, m=m, n_tiles=n_tiles, per_tile=t // block,
+        count_bytes=_count_bytes(t, min(widths), max(widths)),
+        c_args=(codes.data_ptr(), s_stack.data_ptr(), m, 4**k, k, *scalars, depth, t, block, n_tiles),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _count_bytes(t: int, w_min: int, w_max: int) -> int:
+    """Bytes of pair counts K3's pass 1 leaves per tile for pass 2."""
+    from .._kernels import load
+
+    return load().kmg_cluster_count_bytes(t, w_min, w_max)
+
+
+def _k3_launch(args: dict, bases, totals, bitmap, counts: torch.Tensor, emit: bool) -> None:
+    """One K3 launch; the tensors a pass does not use are None."""
+    from .._kernels import check, load
+
+    ptrs = [None if x is None else x.data_ptr() for x in (bases, totals, bitmap, counts)]
+    dev = args["dev"]
+    with _on_device(dev):
+        err = load().kmg_fused_cluster_bitmaps(*args["c_args"], *ptrs, int(emit), _raw_stream(dev))
+    check(err, f"fused_cluster_record_bitmaps pass {2 if emit else 1}")
+    fused_cluster_record_bitmaps.launches += 1
+
+
+def _k3_totals(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's pass 1: the int64[m, n_tiles] tile totals, and the uint8 pair
+    counts it leaves for pass 2 (``count_bytes`` per tile)."""
+    totals = torch.empty((args["m"], args["n_tiles"]), dtype=torch.int64, device=args["dev"])
+    counts = torch.empty(args["n_tiles"] * args["count_bytes"], dtype=torch.uint8, device=args["dev"])
+    _k3_launch(args, None, totals, None, counts, emit=False)
+    return totals, counts
+
+
+def _k3_bitmap(args: dict, bases: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """K3's pass 2: the int32[m, n_tiles * t // block] bitmap from the
+    int32[m, n_tiles] tile bases and pass 1's pair counts."""
+    bitmap = torch.empty((args["m"], args["n_tiles"] * args["per_tile"]), dtype=torch.int32, device=args["dev"])
+    _k3_launch(args, bases, None, bitmap, counts, emit=True)
+    return bitmap
+
+
+def _k3_tile_bases(totals: torch.Tensor, l0s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per cluster, K1's tile bases: l0_c plus an exclusive prefix sum of
+    the tile totals, in int64, as int32 (wrapped), and a 0-dim bool on the
+    device that says whether every base fits int32."""
+    bases64 = torch.cumsum(totals, 1).sub_(totals).add_(l0s[:, None])
+    bases = bases64.to(torch.int32)
+    return bases, (bases == bases64).all()
+
+
+def cluster_launch_shape(m: int, k: int, t: int, w_min: int, w_max: int, n_tiles: int, *, emit: bool = True) -> dict:
+    """K3's launch on the current CUDA device for these shapes: its grid
+    (persistent blocks, at most one per tile), threads per block, resident
+    blocks per SM and the device's SM count, for pass 2 (``emit``) or
+    pass 1."""
+    from .._kernels import check, load
+
+    shape = (ctypes.c_int * 4)()
+    check(load().kmg_cluster_launch_shape(m, 4**k, t, w_min, w_max, n_tiles, int(emit), shape), "cluster_launch_shape")
+    return dict(zip(("grid", "threads", "blocks_per_sm", "sms"), shape))
 
 
 def cluster_tables_in_smem(m: int, k: int, t: int, w_min: int, w_max: int) -> bool:
@@ -134,21 +216,18 @@ def lookup_roundtrip(s_stack: torch.Tensor, *, t: int, w_min: int, w_max: int) -
     m = s_stack.shape[0]
     if s_stack.dim() != 2 or s_stack.dtype != torch.int32 or not 1 <= m <= MAX_CLUSTERS:
         raise ValueError(f"lookup_roundtrip wants int32[m, 4^k] with 1 <= m <= {MAX_CLUSTERS}, got {s_stack.dtype}{tuple(s_stack.shape)}")
-    if s_stack.device.type == "cpu":
+    dev = s_stack.device
+    if dev.type == "cpu":
         return _lookup_roundtrip_plain(s_stack)
-    if s_stack.device.type != "cuda":
-        raise ValueError(f"lookup_roundtrip: unsupported device {s_stack.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"lookup_roundtrip: unsupported device {dev}")
     from .._kernels import check, load
 
-    lib = load()
     s_stack = s_stack.contiguous()
     out = torch.empty_like(s_stack)
-    with torch.cuda.device(s_stack.device):
-        stream = torch.cuda.current_stream(s_stack.device).cuda_stream
-        check(
-            lib.kmg_lookup_roundtrip(s_stack.data_ptr(), m, s_stack.shape[1], t, w_min, w_max, out.data_ptr(), stream),
-            "lookup_roundtrip",
-        )
+    with _on_device(dev):
+        err = load().kmg_lookup_roundtrip(s_stack.data_ptr(), m, s_stack.shape[1], t, w_min, w_max, out.data_ptr(), _raw_stream(dev))
+    check(err, "lookup_roundtrip")
     lookup_roundtrip.launches += 1
     return out
 

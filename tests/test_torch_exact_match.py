@@ -98,8 +98,29 @@ def test_subject_cache_evicts_by_bytes_only():
     for sub in subjects:
         tem.match_starts_engine(sub, sub[:10], "cpu", cache=small)
     assert len(small) == 3 and small.held_bytes() <= 3 * per_entry
-    assert small.get((id(subjects[-1]), len(subjects[-1]), hash(subjects[-1]), "cpu")) is not None
-    assert small.get((id(subjects[0]), len(subjects[0]), hash(subjects[0]), "cpu")) is None
+    assert small.get(tem._subject_key(subjects[-1], "cpu")) is not None
+    assert small.get(tem._subject_key(subjects[0], "cpu")) is None
+
+
+def test_subject_cache_keys_by_content():
+    """Equal subjects held by distinct objects (``_as_bytes`` makes a new
+    one on every call) share one cache entry and one host-to-device copy."""
+
+    class CountingCache(tem.SubjectCache):
+        puts = 0
+
+        def put(self, key, codes):
+            self.puts += 1
+            super().put(key, codes)
+
+    rng = np.random.default_rng(9)
+    sub = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, 30_000)].tobytes()
+    twin = bytes(bytearray(sub))
+    assert twin == sub and twin is not sub
+    cache = CountingCache(1 << 30)
+    for s in (sub, twin):
+        assert tem.match_starts_engine(s, sub[700:730], "cpu", cache=cache).tolist() == [700]
+    assert len(cache) == 1 and cache.puts == 1
 
 
 def test_first_match_and_guards(ref_fasta, test_genome):

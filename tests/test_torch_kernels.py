@@ -273,6 +273,90 @@ def test_k3_and_k8_tables_through_ldg_on_card(cuda_device):
     assert torch.equal(back, eng.s_stack)
 
 
+#: (cluster windowsizes or "alp", record length or "ragged", thresholds, tile
+#: t) of the shapes where persistent blocks and register tiles could break
+K3_SHAPES = {
+    "fewer_tiles_than_grid": ("alp", 70_000, "quantile", 4096),
+    "ragged_last_tile": ((120, 300), "ragged", "quantile", 4096),
+    "one_cluster": ((289,), 300_000, "quantile", 4096),
+    "max_clusters_ldg": (tuple(range(100, 420, 10)), 300_000, "quantile", 4096),
+    "wide_widths_odd_m": ((120, 150, 200, 250, 300), 300_000, "quantile", 4096),
+    "short_windows_depth_14": ((20, 21), 300_000, "quantile", 4096),
+    "every_block": ("alp", 300_000, "all", 4096),
+    "no_block": ("alp", 300_000, "none", 4096),
+    "two_rounds_t8192": ("alp", 300_000, "quantile", 8192),
+    "short_tile_t512": ((120, 300), 100_000, "quantile", 512),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_SHAPES))
+def test_k3_and_k8_persistent_shapes_on_card(case, alp_clusters, cuda_device):
+    """K3 and K8 against their twins at the shapes of K3's persistent,
+    register-tiled design: fewer tiles than the grid; a tile count no
+    multiple of the grid with a partial last tile that masks only one
+    cluster's tail (the other ends a tile earlier); one cluster; 32 (the
+    __ldg route at k = 6); five clusters (an odd count: pass 2 takes two
+    per barrier) of widths 120-300 at depth 16; windows of 15 and 16 K
+    codes at depth 14 (the plain pair counts, not the 16-bit ones);
+    thresholds that flag every block up to nw, and none; tiles of 8192
+    windows (two rounds of a block, tables through __ldg) and of 512 (one
+    round, most warps idle).  K3 launches twice, on a grid of at most one
+    block per tile and per resident slot."""
+    from kmergma_tpu_torch.ops.scan_cluster_fused import cluster_launch_shape
+
+    wss, n, thr_mode, t = K3_SHAPES[case]
+    k = 6
+    profiles, refs = (alp_clusters, None) if wss == "alp" else _random_clusters(k, wss, seed=len(wss))
+    widths = [p.windowsize - k + 1 for p in profiles]
+    m = len(profiles)
+    if n == "ragged":
+        # the last tile holds 100 windows of the shortest cluster; the
+        # longest one (180 windows fewer) ends inside the tile before
+        full = cluster_launch_shape(m, k, t, min(widths), max(widths), 1 << 20)
+        n_tiles = full["grid"] + full["grid"] // 3 + 1
+        n = (n_tiles - 1) * t + 100 + min(p.windowsize for p in profiles) - 1
+    rng = np.random.default_rng(11)
+    codes = rng.integers(0, 4, n, dtype=np.int8)
+    genes = refs if refs is not None else [rec.codes for rec in as_records(REF)]
+    for j, pos in enumerate(range(2_000, n - 2_000, 9_000)):
+        codes[pos : pos + genes[j % len(genes)].shape[0]] = genes[j % len(genes)]
+    eng, prep, nws, _thr, l0s, kw = _k3_inputs(profiles, k, codes, [0.0] * m, cuda_device)
+    kw = dict(kw, t=t, n_tiles=-(-max(nws) // t))
+    need = kw["n_tiles"] * t + tscan._k1_halo(max(widths))
+    prep = torch.cat([prep, prep.new_zeros(max(0, need - prep.shape[0]))])
+    if thr_mode == "quantile":
+        thr_ints = [
+            int(torch.quantile(tscan.scan_window_lower_bounds(
+                prep[: nws[c] + ws - 1], eng.s_stack[c], k, ws, r, kw["depth"]).double(), 0.02))
+            for c, (ws, r) in enumerate(eng.specs)
+        ]
+    else:
+        thr_ints = [2**31 - 1 if thr_mode == "all" else -(2**31)] * m
+    in_smem = cluster_tables_in_smem(m, k, t, min(widths), max(widths))
+    assert in_smem if m <= 6 and t <= 4096 else not in_smem  # 32 tables, or a t = 8192 tile: __ldg
+    before = fused_cluster_record_bitmaps.launches
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    torch.cuda.synchronize()
+    assert fused_cluster_record_bitmaps.launches == before + 2
+    want = fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    assert torch.equal(got, want)
+    live = [-(-nw // eng.block) for nw in nws]  # blocks holding a window below nw
+    if thr_mode == "all":
+        assert [int(got[c].sum()) for c in range(m)] == live
+    elif thr_mode == "none":
+        assert int(got.sum()) == 0
+    else:
+        assert 0 < int(got.sum()) < sum(live)
+    if case == "ragged_last_tile":
+        assert kw["n_tiles"] % full["grid"] and live[0] != live[1]
+    for emit in (False, True):
+        shape = cluster_launch_shape(m, k, t, min(widths), max(widths), kw["n_tiles"], emit=emit)
+        assert shape["grid"] == min(kw["n_tiles"], shape["sms"] * shape["blocks_per_sm"])
+    back = lookup_roundtrip(eng.s_stack, t=t, w_min=min(widths), w_max=max(widths))
+    assert torch.equal(back, eng.s_stack)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,nt", [(60_000, 59_999), (300_000, 262_143)])
 def test_k5_matches_twin_on_card(record, cuda_device, n, nt):
