@@ -6,8 +6,10 @@
 Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
 ``build/kmergma_tpu_torch/``) and drives every path of the port:
 
-* single profile: K1 and K2 against their plain PyTorch twins on the card
-  at the main path's shapes (bit-identical: the scan is integer
+* single profile: K1 (K3's kernel at one profile, per stage for both of
+  pass 2's routes, reading pass 1's pair-count scratch or computing the
+  counts again) and K2 against their plain PyTorch twins on the card at
+  the main path's shapes (bit-identical: the scan is integer
   arithmetic), the golden hits through ``kmergma_tpu_torch.find_genes``,
   then a 64 Mbp synthetic genome (four 16 Mbp contigs of hashed background
   with the 84 Alp_V reference genes planted every 500 kb) mined against the
@@ -22,8 +24,9 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   genome plus one short contig (the split route again) mined against an
   int64 host cluster oracle, and where one call's wall goes;
 * strobemers (the Alp_V strobe profile, s 2, w_min 3, w_max 5, q 5): K4r
-  (K4 at depth ws - k = 282 over uint8 strobe codes, codes >= 128 present)
-  against its twin, the strobe goldens through ``strobemer_find_genes``,
+  (K4 at depth ws - k = 282 over uint8 strobe codes, codes >= 128 present:
+  the sliding-histogram route) against its twin, and its depth-loop route
+  on int32 strobe codes at s = 3, the strobe goldens through ``strobemer_find_genes``,
   then the same genome mined against an int64 host oracle of the strobe
   recurrence, and where one call's wall goes;
 * a mixed-depth cluster set (the six Alp_V clusters plus a profile of the
@@ -45,7 +48,8 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
 
 Each path's kernels are shown to have launched in that path's run: their
 launch counts are set to 0 just before it and read just after.  Kernel
-times are CUDA events over back-to-back launches after a warm-up.
+times are CUDA events over back-to-back launches after a warm-up, the
+median of five windows with the fastest beside it.
 
 It imports only the port (``kmergma_tpu_torch``), never jax or the JAX
 package.  Exits non-zero, printing no result, without a CUDA device or
@@ -103,6 +107,9 @@ BENCH_SIZES = {"n_mbp": 512.0, "dense_mbp": 64.0, "k10_mbp": 64.0, "strobe_mbp":
 #: 32-bit integer compares and adds
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+#: integer operations a position of K4r's sliding histogram does: two bin
+#: reads, two bin updates, the subtraction and the K code
+HIST_OPS_PER_POSITION = 6
 #: integer operations a profile adds to each window of a bitmap pass (K1,
 #: K3) beside the shared pair tests: two products, two subtractions, the
 #: delta's add, the prefix sum's add and the threshold compare
@@ -277,10 +284,22 @@ def clock(fn, sync):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def kernel_ms(fn, on_card: bool, reps: int = 20):
+class Ms(float):
+    """A time in ms: the median of several timed windows, with their
+    minimum as ``.min``."""
+
+    def __new__(cls, times):
+        ms = super().__new__(cls, statistics.median(times))
+        ms.min = min(times)
+        return ms
+
+
+def kernel_ms(fn, on_card: bool, reps: int = 20, windows: int = 5):
     """(ms per call, last result) of ``fn``: on the card, CUDA events around
-    ``reps`` back-to-back calls after one warm-up call; on the CPU the
-    median host wall of three calls (the CPU rehearsal only)."""
+    each of ``windows`` windows of ``reps`` back-to-back calls after one
+    warm-up call, so one host stall inflates one window, not the row; the
+    median window with the fastest as ``.min`` (``Ms``).  On the CPU the
+    host wall of three calls (the CPU rehearsal only)."""
     import torch
 
     out = fn()
@@ -290,15 +309,18 @@ def kernel_ms(fn, on_card: bool, reps: int = 20):
             t0 = time.perf_counter()
             out = fn()
             times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), out
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, out
+        return Ms(times), out
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return Ms(times), out
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -567,11 +589,19 @@ class Launches:
         return {name: fn.launches for name, fn in self.wrappers.items()}
 
 
-def entry(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms=None) -> dict:
+def entry(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms=None, **extra) -> dict:
+    """One kernel's row: ``ms``, ``plain_ms`` and ``library_ms`` are medians
+    of timed windows (``kernel_ms``), each with its fastest window beside it
+    (``*_min``)."""
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    return {"name": name, "route": "cuda", "source": f"kmergma_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    row = {"name": name, "route": "cuda", "source": f"kmergma_tpu_torch/csrc/{source}", "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": float(ms), "plain_ms": float(plain_ms),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None if library_ms is None else float(library_ms)}
+    for key, value in (("ms_min", ms), ("plain_ms_min", plain_ms), ("library_ms_min", library_ms)):
+        if value is not None:
+            row[key] = getattr(value, "min", float(value))
+    row.update(extra)
+    return row
 
 
 def single_profile_phase(ctx) -> list:
@@ -585,7 +615,8 @@ def single_profile_phase(ctx) -> list:
     from kmergma_tpu_torch.ops.scan import (
         ScanEngine, _first_window_l0, _k1_halo, _plan_regions, rolling_kmer_codes, scan_window_distances,
     )
-    from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps, fused_record_bitmaps_plain
+    from kmergma_tpu_torch.ops.scan_cluster_fused import cluster_launch_shape
+    from kmergma_tpu_torch.ops.scan_fused import _k1_args, fused_record_bitmaps, fused_record_bitmaps_plain
     from kmergma_tpu_torch.ops.scan_host import HostScanEngine
     from kmergma_tpu_torch.ops.scan_kernels import _match_counts_plain, match_counts, scan_window_distances_kernel
     from kmergma_tpu_torch.utils.native import scan_rolling_i64_native
@@ -617,6 +648,17 @@ def single_profile_phase(ctx) -> list:
     )
     require(k1_err == 0, "K1 bitmap differs from its plain twin")
     require(n_active > 0, "K1 flagged no block on a record with planted genes")
+    k1_stages = None
+    if on_card:
+        shapes = [cluster_launch_shape(1, k, engine.fused_t, ws - k + 1, ws - k + 1, n_tiles, emit=e) for e in (False, True)]
+        p1, scan, p2 = k3_stage_ms(_k1_args(prep, engine.s_dev, thr_int, nw, **kw), l0.view(1))
+        k1_stages = {"pass1_ms": p1, "scan_ms": scan, "pass2_ms": p2}
+        print(
+            f"K1 (K3's kernel at m = 1) per stage, median of 20 calls, CUDA events around each: pass 1 {p1:.4f} ms, "
+            f"tile-base scan {scan:.4f} ms, pass 2 {p2:.4f} ms, sum {p1 + scan + p2:.4f} ms; {n_tiles} tiles, "
+            f"grids {shapes[0]['grid']} and {shapes[1]['grid']} of {shapes[1]['threads']} threads, resident blocks "
+            f"per SM {shapes[0]['blocks_per_sm']} and {shapes[1]['blocks_per_sm']} [{label}]"
+        )
 
     # --- K2 vs its plain twin: the main path's region rows --------------
     rspan = engine.rspan
@@ -694,8 +736,8 @@ def single_profile_phase(ctx) -> list:
         require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0,
                 f"a kernel of the single-profile path never launched: {launches}")
     return [
-        entry("fused_record_bitmaps", "fused_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
-              launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms, *k1_io),
+        entry("fused_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
+              launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms, *k1_io, stages_ms=k1_stages),
         entry("match_counts", "match_counts.cu", "kmergma_tpu/ops/scan_pallas.py:43",
               launches["match_counts"], k2_err, k2_ms, k2_plain_ms, *k2_io),
     ]
@@ -713,7 +755,7 @@ def cluster_phase(ctx) -> list:
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
     from kmergma_tpu_torch.ops.scan_cluster_fused import (
-        _lookup_roundtrip_plain, cluster_launch_shape, cluster_tables_in_smem, fused_cluster_record_bitmaps,
+        _k3_args, _lookup_roundtrip_plain, cluster_launch_shape, cluster_tables_in_smem, fused_cluster_record_bitmaps,
         fused_cluster_record_bitmaps_plain, lookup_roundtrip,
     )
     from kmergma_tpu_torch.ops.scan_kernels import _codes_pair_multi_plain, _pair_multi_need, codes_pair_multi
@@ -757,8 +799,10 @@ def cluster_phase(ctx) -> list:
     )
     require(k3_err == 0, "K3 bitmaps differ from the plain twin")
     require(int(bm3.sum()) > 0, "K3 flagged no block on a record with planted genes")
+    k3_stages = None
     if on_card:
-        p1, scan, p2 = k3_stage_ms(cprep, ceng.s_stack, cthr_ints, l0s, nws, kw3)
+        p1, scan, p2 = k3_stage_ms(_k3_args(cprep, ceng.s_stack, cthr_ints, nws, **kw3), l0s)
+        k3_stages = {"pass1_ms": p1, "scan_ms": scan, "pass2_ms": p2}
         shapes = [cluster_launch_shape(m, k, ceng.fused_t, min(widths), max(widths), n_tiles, emit=e) for e in (False, True)]
         print(
             f"K3 per stage, median of 20 calls, CUDA events around each: pass 1 {p1:.4f} ms, tile-base scan "
@@ -887,7 +931,7 @@ def cluster_phase(ctx) -> list:
         require(not missing, f"a kernel of the cluster path never launched: {claunches}")
     return [
         entry("fused_cluster_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:187",
-              claunches["fused_cluster_record_bitmaps"], k3_err, k3_ms, k3_plain_ms, *k3_io),
+              claunches["fused_cluster_record_bitmaps"], k3_err, k3_ms, k3_plain_ms, *k3_io, stages_ms=k3_stages),
         entry("lookup_roundtrip", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:169",
               claunches["lookup_roundtrip"], k8_err, k8_ms, k8_plain_ms, *k8_io, library_ms=k8_lib_ms),
         entry("codes_pair_multi", "pair_multi.cu", "kmergma_tpu/ops/scan_pallas.py:368",
@@ -903,9 +947,7 @@ def strobe_phase(ctx) -> list:
 
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons, strobe_mine_genome
-    from kmergma_tpu_torch.ops.scan_kernels import (
-        _codes_pair_ab_kcodes_plain, _pair_depth_need, codes_pair_ab_kcodes,
-    )
+    from kmergma_tpu_torch.ops.scan_kernels import _codes_pair_ab_kcodes_plain, codes_pair_ab_kcodes
     from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
 
     device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
@@ -934,14 +976,41 @@ def strobe_phase(ctx) -> list:
     k4r_ms, (ab, kc) = kernel_ms(lambda: codes_pair_ab_kcodes(*args), on_card)
     k4r_plain_ms, (ab_p, kc_p) = kernel_ms(lambda: _codes_pair_ab_kcodes_plain(*args), on_card, reps=1)
     k4r_err = max_err((ab, ab_p), (kc, kc_p))
-    k4r_io = (_pair_depth_need(1, w, nt, nkc)[1] + 4 * (nt + nkc), 4 * depth * nt)
+    # the sliding-histogram route's function: nt + w codes read once, ab and
+    # the K codes written once; the recurrence's O(1) operations a position
+    # (two bin reads, two bin updates, the subtraction, the K code's store)
+    k4r_io = (nt + w + 4 * (nt + nkc), HIST_OPS_PER_POSITION * nt)
+    # the depth loop's operations at this depth, the count of the TPU kernel's
+    # algorithm (the row's bound before the sliding histogram)
+    loop_bound = bound(nt + w + 4 * (nt + nkc), 4 * depth * nt)
     print(
-        f"K4r codes_pair_ab_kcodes, {record.shape[0]} bp record as {nkc} uint8 strobe codes ({n_high} >= 128), "
-        f"k 1, w {w}, depth {depth}: {k4r_ms:.3f} ms, plain twin {k4r_plain_ms:.3f} ms, "
-        f"bound {bound(*k4r_io)[0]:.4f} ms ({bound(*k4r_io)[1]}), bit-identical={k4r_err == 0} [{label}]"
+        f"K4r codes_pair_ab_kcodes (sliding-histogram route), {record.shape[0]} bp record as {nkc} uint8 strobe codes "
+        f"({n_high} >= 128), k 1, w {w}, depth {depth}: {k4r_ms:.4f} ms (fastest window {k4r_ms.min:.4f}), plain twin "
+        f"{k4r_plain_ms:.3f} ms, bound {bound(*k4r_io)[0]:.4f} ms ({bound(*k4r_io)[1]}; counted as the depth loop's "
+        f"4 * depth operations a position: {loop_bound[0]:.4f} ms), bit-identical={k4r_err == 0} [{label}]"
     )
     require(k4r_err == 0, "K4r differs from its plain twin")
     del sc, prep, ab, kc, ab_p, kc_p
+
+    # --- K4r's depth-loop route: int32 strobe codes at s = 3 ----------------
+    p3 = gen_strobe_ref_ws_cons(REF, s=3, w_min=3, w_max=6)
+    w3 = p3.windowsize - p3.k
+    rec3 = record[: ctx["whole_bp"]]
+    n3 = rec3.shape[0] - p3.windowsize - 1
+    sc3 = strobe_2_mer_codes_torch(torch.from_numpy(rec3).to(device), p3.s, p3.w_min, p3.w_max, p3.q)
+    prep3 = StrobeSpanEngine(p3, int(sc3[w3]), device=device).prepare_codes(sc3[: n3 + w3])
+    require(prep3.dtype == torch.int32 and int(prep3.max()) >= 256, f"s = 3 strobe codes: {prep3.dtype}")
+    args3 = (prep3, 1, w3, n3, n3 + w3, w3 - 1)
+    loop_ms, (ab3, kc3) = kernel_ms(lambda: codes_pair_ab_kcodes(*args3), on_card, reps=5)
+    ab3_p, kc3_p = _codes_pair_ab_kcodes_plain(*args3)
+    loop_err = max_err((ab3, ab3_p), (kc3, kc3_p))
+    print(
+        f"K4r's depth-loop route, {rec3.shape[0]} bp record as {n3 + w3} int32 strobe codes at s = 3 "
+        f"({4 ** (2 * p3.s)} values), w {w3}, depth {w3 - 1}: {loop_ms:.3f} ms, bit-identical={loop_err == 0} [{label}]"
+    )
+    require(loop_err == 0, "K4r's depth loop differs from its plain twin on s = 3 int32 codes")
+    k4r_err = max(k4r_err, loop_err)
+    del sc3, prep3, ab3, kc3, ab3_p, kc3_p
 
     # --- strobe goldens ------------------------------------------------------
     hits = kt.strobemer_find_genes(str(DATA / "Alp_V_locus.fasta"), REF, verbose=False, device=device)[0]
@@ -1087,14 +1156,14 @@ def k1_twin_err(engine, codes, thr: float) -> tuple[int, int]:
     return max_err((bm, fused_record_bitmaps_plain(*args, **kw))), int(bm.sum())
 
 
-def k3_stage_ms(codes, s_stack, thr_ints, l0s, nws, kw, reps: int = 20) -> list:
+def k3_stage_ms(args: dict, l0s, reps: int = 20) -> list:
     """Median device ms of K3's pass 1, the tile-base scan and pass 2 over
-    ``reps`` calls, CUDA events around each stage (on the card)."""
+    ``reps`` calls, CUDA events around each stage (on the card); ``args``
+    from ``_k3_args`` (K3) or ``_k1_args`` (K1, K3's kernel at m = 1)."""
     import torch
 
-    from kmergma_tpu_torch.ops.scan_cluster_fused import _k3_args, _k3_bitmap, _k3_tile_bases, _k3_totals
+    from kmergma_tpu_torch.ops.scan_cluster_fused import _k3_bitmap, _k3_tile_bases, _k3_totals
 
-    args = _k3_args(codes, s_stack, thr_ints, nws, **kw)
     totals, counts = _k3_totals(args)
     _k3_bitmap(args, _k3_tile_bases(totals, l0s)[0], counts)
     torch.cuda.synchronize()

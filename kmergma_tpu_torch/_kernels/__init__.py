@@ -88,10 +88,6 @@ def _build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)  # a host int array (``int_array``)
-    lib.kmg_fused_bitmaps.restype = i
-    lib.kmg_fused_bitmaps.argtypes = [
-        p, p, i, i, i, i, i, i, i, i, i, ll, p, p, p, i, p,
-    ]
     lib.kmg_match_counts.restype = i
     lib.kmg_match_counts.argtypes = [p, ll, i, i, i, p, p]
     lib.kmg_pair_multi.restype = i

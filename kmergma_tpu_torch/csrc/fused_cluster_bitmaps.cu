@@ -1,10 +1,12 @@
-// K3: the fused multi-cluster lower-bound bitmap pass, and K8: the
-// round trip of every table entry through K3's lookup, written by hand for
-// Hopper (sm_90a).
+// K3: the fused multi-cluster lower-bound bitmap pass, which at m = 1 is
+// also K1, and K8: the round trip of every table entry through K3's lookup,
+// written by hand for Hopper (sm_90a).
 //
 // K3 replaces kmergma_tpu/ops/scan_cluster_fused.py::_fused_cluster_kernel
-// (entry fused_cluster_record_bitmaps): K1 (csrc/fused_bitmaps.cu) for m
-// cluster profiles in one pass over the codes.  For one tile of t windows a
+// (entry fused_cluster_record_bitmaps): K1 for m cluster profiles in one
+// pass over the codes.  K1, kmergma_tpu/ops/scan_fused.py::_fused_kernel
+// (entry fused_record_bitmaps), is this kernel at m = 1: one bitmap kernel
+// serves one profile or many.  For one tile of t windows a
 // block computes the rolling K codes and the depth-limited left and right
 // pair counts Lc, Rc once (csrc/pair_counts.cuh), then for each cluster c
 // (width w_c = ws_c - k + 1, size r_c)
@@ -28,10 +30,11 @@
 //     (and in pass 2 its pair counts) arrive by cp.async while the block
 //     computes the tile before, into two buffers.  The codes are packed 16
 //     to a word and every K code is one 64-bit shift of two words.
-//   - Pass 1 computes the pair counts (for k <= 8 and depth <= 16 two
-//     positions at a time on 16-bit K codes, see left_counts16) and
-//     leaves them, 2 bytes a window, in a scratch buffer for pass 2, which
-//     so never recomputes them.  It telescopes each tile's total:
+//   - Pass 1 computes the pair counts (for k <= 8 and depth <= 16 from
+//     16-bit K codes tiled in registers, 16 positions a lane, see
+//     pair_counts16) and leaves them, 2 bytes a window, in a scratch buffer
+//     for pass 2, which so never recomputes them.  It telescopes each
+//     tile's total:
 //       2 r^2 (sum_x Lc[x] - sum_p Rc[p] - E_c)
 //         + 2 r (sum_{i < L} S[K[i]] - sum_{t + w - L <= i < t + w} S[K[i]]),
 //     L = min(t, w), E_c the Lc of the w_max - w_min positions outside
@@ -48,14 +51,16 @@
 //     block barrier for kPair = 2 clusters give every lane its offsets, and
 //     the lane walks its 8 bounds in registers.  A warp's windows lie in one
 //     bitmap block (block is a multiple of 256), so its flag is one
-//     __any_sync and one shared store.
+//     __any_sync and one shared store.  The empty half of the last pair
+//     (m odd; K1's m = 1) skips its scan.
 // What bounds it now: shared-memory instruction issue.  Pass 1 is mostly
-// the pair counts; pass 2 is mostly the clusters' deltas: per window and
+// the pair counts' XOR tests (ALU work, after the register tiling); pass 2
+// is mostly the clusters' deltas: per window and
 // cluster two table gathers (with their bank conflicts), two plain loads and
 // the buffer's store and load.  `-Xptxas -v` (the build log chip_smoke
-// prints) gives 40 registers for pass 1 and 91 (tables in shared memory) or
-// 116 (__ldg) for pass 2, so one 512-thread block per SM either way; the
-// per-pass times are chip_smoke's.
+// prints) gives each pass's registers; the shared memory of the layout
+// leaves one 512-thread block per SM either way; the per-pass times are
+// chip_smoke's.
 //
 // Why two launches still.  The TPU kernel chains the absolute base through
 // a scalar carry over a sequential grid.  CUDA blocks run in no order, and a
@@ -151,75 +156,126 @@ __device__ __forceinline__ Tables<kInSmem> stage_tables(const int32_t* __restric
   }
 }
 
-// The pair counts from 16-bit K codes, two positions per thread per step
-// (K at an even position and the next share a 32-bit word of k2), for
-// depth <= 16: one XOR tests both halves at once, and the nine words from a
-// pair to 16 positions away serve all its compares, byte-permuted for odd
-// distances.  A half of x is nonzero iff bit 15 of ((x & 0x7fff) + 0x7fff)
-// | x is set (no carry leaves a half); the counts of unequal halves, at most
-// 16 each, sit in the two halves of one word.
-//   Lc over [lo, hi) into lc[x - lo] (lo > 16; k2 holds K[0 .. hi]);
-//   Rc over [0, t) into rc[p].
-// Both return this thread's sum of the counts.
+// The pair counts from 16-bit K codes, tiled in registers (depth <= 16).
+// Two positions share a 32-bit word of k2 (K at an even position in the low
+// half), and k2 is padded by one word per 8 (word i at pad8(i)), so a lane
+// that owns a unit of kUnitWords consecutive words (16 positions) reads them
+// and its 8-word halo with the lanes of its warp on 32 distinct banks.  It
+// loads the unit once (16 words, one a position) and does its 16 XOR tests a
+// word from registers: one XOR tests both halves at once, and the words up
+// to 16 positions away serve all the compares, byte-permuted for odd
+// distances.  A half of x is nonzero iff bit 15 of ((x & 0x7fff) + 0x7fff) |
+// x is set (no carry leaves a half); with K codes below 4096 (k <= 6) a half
+// is nonzero iff bit 12 of x + 0xfff is set, one operation fewer, summed
+// over eight distances at a time so no count leaves its half.  The counts of
+// unequal halves, at most 16 each, sit in the two halves of one word; the
+// unit's 16 count bytes leave as one 16-byte store.  A tile has t / 16 left
+// and t / 16 right units, one a thread at t = 4096 and 512 threads.
+constexpr int kUnitWords = 8;
+constexpr int kUnit = 2 * kUnitWords;  // positions a lane owns
+
+__host__ __device__ __forceinline__ int pad8(int i) { return i + (i >> 3); }
+
 __device__ __forceinline__ uint32_t unequal_halves(uint32_t a, uint32_t b) {
   const uint32_t x = a ^ b;
   return ((((x & 0x7fff7fffu) + 0x7fff7fffu) | x) & 0x80008000u) >> 15;
 }
 
-__device__ __forceinline__ int left_counts16(const uint32_t* __restrict__ k2, int lo, int hi, int depth,
-                                             uint8_t* __restrict__ lc) {
-  int sum = 0;
-  for (int q = (lo >> 1) + static_cast<int>(threadIdx.x); 2 * q < hi; q += blockDim.x) {
-    uint32_t w[9];  // w[j] = (K[2(q - 8 + j)], K[2(q - 8 + j) + 1])
+// n[i] = the pair counts of the two positions of word q0 + i, i < 8: left
+// (kLeft, partners 1..depth before) or right (after).  Returns their sum.
+template <bool kNarrow, bool kLeft>
+__device__ __forceinline__ int unit_counts(const uint32_t* __restrict__ k2, int q0, int depth,
+                                           uint32_t n[kUnitWords]) {
+  uint32_t w[2 * kUnitWords];  // left: words q0 - 8 .. q0 + 7; right: q0 .. q0 + 15
 #pragma unroll
-    for (int j = 0; j < 9; ++j) w[j] = k2[q - 8 + j];
+  for (int j = 0; j < 2 * kUnitWords; ++j) w[j] = k2[pad8(kLeft ? q0 - 8 + j : q0 + j)];
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < kUnitWords; ++i) {
+    const uint32_t own = kLeft ? w[8 + i] : w[i];
     uint32_t ne = 0;
+    uint32_t near = 0;  // kNarrow: flags at bits 12 and 28, distances 1..8
+    uint32_t far = 0;   // and 9..16
 #pragma unroll
     for (int d = 1; d <= 16; ++d) {
-      // (K[2q - d], K[2q + 1 - d])
-      const uint32_t back = d % 2 == 0 ? w[8 - d / 2] : __byte_perm(w[8 - (d + 1) / 2], w[8 - (d - 1) / 2], 0x5432);
-      if (d <= depth) ne += unequal_halves(w[8], back);
+      // the partners of (K[2(q0 + i)], K[2(q0 + i) + 1]) at distance d
+      uint32_t other;
+      if (kLeft) {
+        other = d % 2 == 0 ? w[8 + i - d / 2] : __byte_perm(w[8 + i - (d + 1) / 2], w[8 + i - (d - 1) / 2], 0x5432);
+      } else {
+        other = d % 2 == 0 ? w[i + d / 2] : __byte_perm(w[i + (d - 1) / 2], w[i + (d + 1) / 2], 0x5432);
+      }
+      if (d <= depth) {
+        if (kNarrow) {
+          const uint32_t f = ((own ^ other) + 0x0fff0fffu) & 0x10001000u;
+          if (d <= 8) {
+            near += f;
+          } else {
+            far += f;
+          }
+        } else {
+          ne += unequal_halves(own, other);
+        }
+      }
     }
-    const uint32_t n = static_cast<uint32_t>(depth) * 0x00010001u - ne;
-    const int x = 2 * q;
-    if (x >= lo) {
-      lc[x - lo] = static_cast<uint8_t>(n);
-      sum += static_cast<int>(n & 0xffffu);
-    }
-    if (x + 1 < hi) {
-      lc[x + 1 - lo] = static_cast<uint8_t>(n >> 16);
-      sum += static_cast<int>(n >> 16);
-    }
+    if (kNarrow) ne = (near >> 12) + (far >> 12);
+    n[i] = static_cast<uint32_t>(depth) * 0x00010001u - ne;
+    sum += static_cast<int>((n[i] & 0xffffu) + (n[i] >> 16));
   }
   return sum;
 }
 
-__device__ __forceinline__ int right_counts16(const uint32_t* __restrict__ k2, int t, int depth,
-                                              uint8_t* __restrict__ rc) {
-  int sum = 0;
-  for (int q = threadIdx.x; 2 * q < t; q += blockDim.x) {
-    uint32_t w[9];  // w[j] = (K[2(q + j)], K[2(q + j) + 1])
+// A unit's 8 count words (two positions each) as 16 bytes.
+__device__ __forceinline__ void store_unit(const uint32_t n[kUnitWords], uint8_t* __restrict__ dst) {
+  uint32_t b[4];
 #pragma unroll
-    for (int j = 0; j < 9; ++j) w[j] = k2[q + j];
-    uint32_t ne = 0;
-#pragma unroll
-    for (int d = 1; d <= 16; ++d) {
-      // (K[2q + d], K[2q + 1 + d])
-      const uint32_t ahead = d % 2 == 0 ? w[d / 2] : __byte_perm(w[(d - 1) / 2], w[(d + 1) / 2], 0x5432);
-      if (d <= depth) ne += unequal_halves(w[0], ahead);
-    }
-    const uint32_t n = static_cast<uint32_t>(depth) * 0x00010001u - ne;
-    rc[2 * q] = static_cast<uint8_t>(n);
-    rc[2 * q + 1] = static_cast<uint8_t>(n >> 16);
-    sum += static_cast<int>((n & 0xffffu) + (n >> 16));
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = n[2 * i];
+    const uint32_t c = n[2 * i + 1];
+    b[i] = (a & 0xffu) | ((a >> 8) & 0xff00u) | ((c & 0xffu) << 16) | ((c << 8) & 0xff000000u);
   }
-  return sum;
+  *reinterpret_cast<uint4*>(dst) = make_uint4(b[0], b[1], b[2], b[3]);
+}
+
+// A tile's pair counts (block-cooperative): Lc over [lo, hi) into lc[x -
+// lc_lo], lc_lo = lo & ~1 (lo > 16), the first t of them in units, the rest
+// (hi - lc_lo - t, the spread of the widths) one position a thread from the
+// int32 K codes kc; Rc over [0, t) into rc[p].  k2 holds K[0 .. hi] in
+// padded words.  lsum, rsum: this thread's sums over [lo, hi) and [0, t).
+template <bool kNarrow>
+__device__ __forceinline__ void pair_counts16(const uint32_t* __restrict__ k2, const int32_t* __restrict__ kc,
+                                              int lo, int hi, int t, int depth, uint8_t* __restrict__ lc,
+                                              uint8_t* __restrict__ rc, int& lsum, int& rsum) {
+  const int lc_lo = lo & ~1;
+  const int n_units = t / kUnit;
+  for (int u = threadIdx.x; u < 2 * n_units; u += blockDim.x) {
+    uint32_t n[kUnitWords];
+    if (u < n_units) {
+      const int q0 = (lc_lo >> 1) + kUnitWords * u;
+      lsum += unit_counts<kNarrow, true>(k2, q0, depth, n);
+      if (2 * q0 < lo) lsum -= static_cast<int>(n[0] & 0xffffu);  // Lc[lo - 1]: below the range
+      store_unit(n, lc + kUnit * u);
+    } else {
+      const int v = u - n_units;
+      rsum += unit_counts<kNarrow, false>(k2, kUnitWords * v, depth, n);
+      store_unit(n, rc + kUnit * v);
+    }
+  }
+  for (int x = lc_lo + t + static_cast<int>(threadIdx.x); x < hi; x += blockDim.x) {
+    const int v = kc[x];
+    int c = 0;
+    for (int d = 1; d <= depth; ++d) c += kc[x - d] == v;
+    lc[x - lc_lo] = static_cast<uint8_t>(c);
+    lsum += c;
+  }
 }
 
 // A tile's pair counts as pass 1 leaves them for pass 2, in shared memory
-// and in the scratch buffer alike: t + w_max - w_min left counts Lc[w_min ..
-// t + w_max), padded to 16 bytes, then t right counts Rc[0 .. t).
-__host__ __device__ inline int lc_bytes(int t, int w_min, int w_max) { return (t + w_max - w_min + 15) / 16 * 16; }
+// and in the scratch buffer alike: the left counts Lc[lc_lo .. t + w_max),
+// lc_lo = w_min & ~1 (the unit grid of pair_counts16), padded to 16 bytes,
+// then t right counts Rc[0 .. t).
+__host__ __device__ inline int lc_lo(int w_min) { return w_min & ~1; }
+__host__ __device__ inline int lc_bytes(int t, int w_min, int w_max) { return (t + w_max - lc_lo(w_min) + 15) / 16 * 16; }
 __host__ __device__ inline int count_bytes(int t, int w_min, int w_max) { return lc_bytes(t, w_min, w_max) + t; }
 
 // Byte offsets of K3's dynamic shared memory, each section 16-byte
@@ -230,8 +286,8 @@ __host__ __device__ inline int count_bytes(int t, int w_min, int w_max) { return
 // next tile's arrive while this one is computed; the raw codes packed 16 to
 // a word, two bits each, first code highest; flags (m x t / 256, room for
 // the finest bitmap block, so the placement does not depend on it); t +
-// w_max K codes (int32); t + w_max + 1 K codes as 16-bit halves for the
-// 16-bit pair counts (pass 1).
+// w_max K codes (int32); K[0 .. t + w_max] as 16-bit halves in padded words
+// (pad8), with room for the units' loads, for the 16-bit pair counts.
 struct Layout {
   size_t wtot, xbuf, raw, raw_bytes, cnt, cnt_bytes, codes2, flags, kc, k16, end;
 };
@@ -251,7 +307,7 @@ __host__ __device__ inline Layout cluster_layout(bool tables_in_smem, int m, int
   l.flags = l.codes2 + align16((l.raw_bytes / 16 + 1) * sizeof(uint32_t));
   l.kc = l.flags + align16(static_cast<size_t>(m) * (t / 256) * sizeof(int32_t));
   l.k16 = l.kc + align16(static_cast<size_t>(t + w_max) * sizeof(int32_t));
-  l.end = l.k16 + static_cast<size_t>(t + w_max + 2) / 2 * sizeof(uint32_t);
+  l.end = l.k16 + static_cast<size_t>(pad8((t + w_max) / 2 + kUnitWords) + 1) * sizeof(uint32_t);
   return l;
 }
 
@@ -363,6 +419,7 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
   int32_t* kc = reinterpret_cast<int32_t*>(smem + lay.kc);
   uint16_t* k16 = reinterpret_cast<uint16_t*>(smem + lay.k16);
   const int lcb = lc_bytes(t, w_min, w_max);
+  const int lo0 = lc_lo(w_min);
   // pass 1's pair counts: on 16-bit K codes (depth <= 16, and 16 K codes
   // left of every Lc position) or plain
   const bool pairs16 = !kEmit && nbins <= 65536 && depth <= 16 && w_min > 16;
@@ -417,7 +474,7 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
       }
     }
     // pass 1 computes the counts into buffer 0; pass 2 finds them in rb
-    uint8_t* lc = smem + lay.cnt + (kEmit ? rb : 0) * lay.cnt_bytes;  // Lc[w_min .. t + w_max)
+    uint8_t* lc = smem + lay.cnt + (kEmit ? rb : 0) * lay.cnt_bytes;  // Lc[lc_lo .. t + w_max)
     uint8_t* rc = lc + lcb;                                            // Rc[0 .. t)
     rb ^= 1;
     __syncthreads();
@@ -428,7 +485,7 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
           static_cast<unsigned long long>(codes2[g >> 4]) << 32 | codes2[(g >> 4) + 1];
       const uint32_t v = static_cast<uint32_t>(x >> (64 - 2 * ((g & 15) + k))) & kmask;
       if (i < t + w_max) kc[i] = static_cast<int32_t>(v);
-      if (pairs16) k16[i] = static_cast<uint16_t>(v);
+      if (pairs16) k16[2 * pad8(i >> 1) + (i & 1)] = static_cast<uint16_t>(v);
     }
     __syncthreads();
 
@@ -437,14 +494,17 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
       int rsum = 0;  // and of sum_p Rc[p]
       if (pairs16) {
         const uint32_t* k2 = reinterpret_cast<const uint32_t*>(k16);
-        lsum = left_counts16(k2, w_min, t + w_max, depth, lc);
-        rsum = right_counts16(k2, t, depth, rc);
+        if (nbins <= 4096) {
+          pair_counts16<true>(k2, kc, w_min, t + w_max, t, depth, lc, rc, lsum, rsum);
+        } else {
+          pair_counts16<false>(k2, kc, w_min, t + w_max, t, depth, lc, rc, lsum, rsum);
+        }
       } else {
         for (int x = w_min + tid; x < t + w_max; x += kThreads) {
           const int v = kc[x];
           int n = 0;
           for (int d = 1; d <= depth; ++d) n += kc[x - d] == v;
-          lc[x - w_min] = static_cast<uint8_t>(n);
+          lc[x - lo0] = static_cast<uint8_t>(n);
           lsum += n;
         }
         for (int p = tid; p < t; p += kThreads) {
@@ -470,7 +530,7 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
         const int w = cl.w[c];
         const int edge = t < w ? t : w;
         int e = 0;
-        for (int j = lane; j < spread; j += 32) e += lc[j < w - w_min ? j : t + j];
+        for (int j = lane; j < spread; j += 32) e += lc[(j < w - w_min ? j : t + j) + w_min - lo0];
         long long g = 0;
         for (int i = lane; i < edge; i += 32) g += tab.get(c, kc[i]) - tab.get(c, kc[t + w - edge + i]);
         long long sum = 2LL * cl.r[c] * g - 2LL * cl.r[c] * cl.r[c] * e;
@@ -514,7 +574,7 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
               for (int j = 0; j < kJ; ++j) {
                 // scaled lower-bound delta of cluster c's transition i -> i + 1
                 const int i = seg + 32 * j + lane;
-                const int ab = static_cast<int>(lc[i + w - w_min]) - rc_i[j];
+                const int ab = static_cast<int>(lc[i + w - lo0]) - rc_i[j];
                 xb[33 * j + lane] = static_cast<uint32_t>(r2 * ab + r1 * (tab.get(c, k_i[j]) - tab.get(c, kc[i + w])));
               }
               __syncwarp();
@@ -527,12 +587,14 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
               // the buffer is written again only after the barrier below
             }
             incl[h] = s[h];
+            if (c < cl.m) {  // block-uniform: no scan for the empty half of a pair (m odd, m = 1 for K1)
 #pragma unroll
-            for (int off = 1; off < 32; off <<= 1) {
-              const uint32_t v = __shfl_up_sync(0xffffffffu, incl[h], off);
-              if (lane >= off) incl[h] += v;
+              for (int off = 1; off < 32; off <<= 1) {
+                const uint32_t v = __shfl_up_sync(0xffffffffu, incl[h], off);
+                if (lane >= off) incl[h] += v;
+              }
+              if (lane == 31) wsum[buf][h][warp] = incl[h];
             }
-            if (lane == 31) wsum[buf][h][warp] = incl[h];
           }
           __syncthreads();
 #pragma unroll

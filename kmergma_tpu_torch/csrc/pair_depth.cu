@@ -13,21 +13,47 @@
 // strobemer span engine's exact pass, 14 to 16 on the cluster split pass);
 // a count is at most depth, so it stays an int.
 //
-// What bounds it on an H100: shared-memory reads, 2 * depth compares per
-// position, against one code (1 or 4 bytes) read and one or two int32
-// written per position in device memory.  A block stages its tile's t + w
-// K codes (int32) in shared memory, built from t + w + k - 1 codes (K4) or
-// copied (K6); each thread then takes positions p = tid, tid + 256, ... and
-// loops over the depth, so neighbouring threads read neighbouring words and
-// the compares are free of bank conflicts.  No register tiling across
-// positions yet: a simple kernel that is right comes first.
+// Two routes, chosen by shape inside kmg_pair_depth_codes (a dispatch, not a
+// fallback):
+//
+// The sliding histogram (byte codes, k = 1, depth = w - 1: the strobe span
+// engine's exact pass at s = 2, K4r's main shape).  At that depth both sums
+// run over the same open interval (p, p + w):
+//   ab[p] = H_p[K[p+w]] - H_p[K[p]],  H_p the histogram of K[p+1 .. p+w-1],
+//   H_{p+1} = H_p - e_{K[p+1]} + e_{K[p+w]},
+// so a thread that walks a contiguous segment of positions with its own
+// histogram does O(1) work a position: w - 1 increments to start, then two
+// reads and two updates a step.  The 256 bins of 16-bit counts (a count is at
+// most w - 1 < 65536) sit two to a 32-bit word, word-major with the thread
+// minor, so a warp's lanes hit 32 distinct banks whatever their codes.  A
+// thread's codes come 16 at a time by aligned 16-byte loads (the window's
+// right edge through a byte funnel), a chunk ahead.  The segment length is
+// chosen so that the grid is one wave of resident threads.  What bounds it
+// on an H100: the 4 bytes of ab and 4 of K written per position.  Lanes a
+// segment apart that each store their own 16 results write 32 scattered
+// pieces per instruction, which cost more than the whole histogram walk, so
+// the K codes leave coalesced, a block's range at a time, and ab through a
+// per-warp buffer, eight lanes' 64-byte chunks an instruction.
+//
+// The depth loop (every other shape: int32 strobe codes at s = 3, 4,096
+// values; K4 on 2-bit genome codes; K6 below w - 1): bound by shared-memory
+// reads, 2 * depth compares per position, against one code read and one or
+// two int32 written per position in device memory.  A block stages its
+// tile's t + w K codes (int32) in shared memory, built from t + w + k - 1
+// codes (K4) or copied (K6); each thread then takes positions p = tid, tid +
+// 256, ... and loops over the depth, so neighbouring threads read
+// neighbouring words and the compares are free of bank conflicts.
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kHistThreads = 64;                  // threads per sliding-histogram block
+constexpr int kHistWords = 128;                   // 256 bins, two 16-bit counts a word
+constexpr int kChunk = 16;                        // positions a thread takes per step of its loop
 
 // ab[tile_pos + p] for the tile's positions, from its K codes in shared
 // memory (kc[i] = K[tile_pos + i], i < t + w).
@@ -44,6 +70,169 @@ __device__ __forceinline__ void tile_pair_deltas(const int32_t* __restrict__ kc,
       b += static_cast<int>(kc[p + d] == kl);
     }
     ab[tile_pos + p] = a - b;
+  }
+}
+
+// 16 bytes of codes from byte q + off of the aligned granules lo = codes[q ..
+// q + 16), hi = codes[q + 16 .. q + 32) (0 <= off < 16), as four words.
+__device__ __forceinline__ void funnel16(const uint4& lo, const uint4& hi, int off, uint32_t out[4]) {
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int s = 8 * (off & 3);
+  switch (off >> 2) {
+#define KMG_FUNNEL_CASE(Q)                                                  \
+  case Q:                                                                   \
+    for (int i = 0; i < 4; ++i) out[i] = __funnelshift_r(w[Q + i], w[Q + i + 1], s); \
+    break;
+    KMG_FUNNEL_CASE(0)
+    KMG_FUNNEL_CASE(1)
+    KMG_FUNNEL_CASE(2)
+    KMG_FUNNEL_CASE(3)
+#undef KMG_FUNNEL_CASE
+  }
+}
+
+// The aligned 16-byte granule g of `base` (16-byte aligned), or zeros when it
+// holds no byte below `end` (it then may lie past the allocation).
+__device__ __forceinline__ uint4 granule(const uint4* __restrict__ base, long long g, long long end) {
+  return 16 * g < end ? base[g] : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Byte b of four words (b a compile-time constant after unrolling).
+__device__ __forceinline__ int byte_of(const uint32_t v[4], int b) { return (v[b >> 2] >> (8 * (b & 3))) & 0xff; }
+
+// Byte b of a granule, b known only at run time (no indexed registers).
+__device__ __forceinline__ int byte_at(const uint4& g, int b) {
+  const int q = b >> 2;
+  const uint32_t v = q == 0 ? g.x : q == 1 ? g.y : q == 2 ? g.z : g.w;
+  return (v >> (8 * (b & 3))) & 0xff;
+}
+
+// K4r's sliding histogram: thread g takes the segment [g * seg, (g + 1) *
+// seg) of positions (seg a multiple of kChunk) and writes ab[p] for p < nt
+// and kc[p] = codes[p] for p < nkc.  A warp's 32 chunks of each (16
+// positions a lane, one chunk each) leave through padded per-warp buffers,
+// four lanes to a chunk's 64 bytes, so a store instruction writes 8 whole
+// chunks instead of 32 scattered quarters.  codes holds n_codes bytes, every
+// one that is read below it.
+__global__ void __launch_bounds__(kHistThreads)
+pair_roll_hist_kernel(const uint8_t* __restrict__ codes, long long n_codes, int w, int seg, int nt,
+                      int nkc, int32_t* __restrict__ ab, int32_t* __restrict__ kc) {
+  __shared__ uint32_t hist[kHistWords * kHistThreads];  // word j of thread tid at j * kHistThreads + tid
+  __shared__ int32_t xbuf[kHistThreads / 32][32 * (kChunk + 1)];  // a warp's ab chunks, lane-major, padded
+  __shared__ uint32_t cbuf[kHistThreads / 32][32 * 5];             // and its chunks of codes, 4 words a lane
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  int32_t* xb = xbuf[tid >> 5];
+  uint32_t* cb = cbuf[tid >> 5];
+  uint32_t* h = hist + tid;
+  const long long g0 = static_cast<long long>(blockIdx.x) * kHistThreads;  // the block's first thread
+  const long long p0 = (g0 + tid) * seg;
+  const long long n_out = nt > nkc ? nt : nkc;
+  if (g0 * seg >= n_out) return;  // block-uniform
+  // codes as granules of the aligned address at or below codes
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(codes) & 15);
+  const uint4* gran = reinterpret_cast<const uint4*>(codes - mis);
+  const long long end = n_codes + mis;
+#pragma unroll 8
+  for (int j = 0; j < kHistWords; ++j) h[j * kHistThreads] = 0u;
+  auto one = [](int v) { return 1u << (16 * (v & 1)); };  // bin v's unit in its word
+  const bool any_ab = p0 < nt;
+  if (any_ab) {
+    // H_{p0}: K[p0 + 1 .. p0 + w - 1], 16 codes a step, the next granule in flight
+    const long long a = p0 + mis;
+    const int off = static_cast<int>(a & 15);
+    uint4 lo = granule(gran, a >> 4, end);
+    uint4 hi = granule(gran, (a >> 4) + 1, end);
+    for (int c = 0; c < w; c += kChunk) {
+      const uint4 nx = granule(gran, ((a + c) >> 4) + 2, end);
+      uint32_t v[4];
+      funnel16(lo, hi, off, v);
+#pragma unroll
+      for (int b = 0; b < kChunk; ++b) {
+        const int x = byte_of(v, b);
+        if (c + b >= 1 && c + b < w) h[(x >> 1) * kHistThreads] += one(x);
+      }
+      lo = hi;
+      hi = nx;
+    }
+  }
+  const long long p_end = p0 + seg < n_out ? p0 + seg : n_out;
+  // left codes K[p .. p + 16) (and K[p + 16], for the last step's K[p + 1]),
+  // right codes K[p + w .. p + w + 16), each from two granules, the next
+  // chunk's granules loaded a chunk ahead
+  const long long al = p0 + mis;
+  const long long ar = p0 + w + mis;
+  const int offl = static_cast<int>(al & 15);
+  const int offr = static_cast<int>(ar & 15);
+  uint4 l_lo = granule(gran, al >> 4, end);
+  uint4 l_hi = granule(gran, (al >> 4) + 1, end);
+  uint4 r_lo = granule(gran, ar >> 4, end);
+  uint4 r_hi = granule(gran, (ar >> 4) + 1, end);
+  // every thread of a warp walks the same chunks (the buffer is shared);
+  // positions at or past p_end are computed from padding and not stored
+  for (int c = 0; c < seg; c += kChunk) {
+    const long long p = p0 + c;
+    const uint4 l_nx = granule(gran, ((al + c) >> 4) + 2, end);
+    const uint4 r_nx = granule(gran, ((ar + c) >> 4) + 2, end);
+    uint32_t kl[4];
+    funnel16(l_lo, l_hi, offl, kl);
+    int32_t a[kChunk];
+    if (p < p_end && p < nt) {
+      uint32_t kr[4];
+      funnel16(r_lo, r_hi, offr, kr);
+      // K[p + 16] lies in l_hi at the same offset as K[p] in l_lo
+      const int k16 = byte_at(l_hi, offl);
+#pragma unroll
+      for (int b = 0; b < kChunk; ++b) {
+        const int vl = byte_of(kl, b);
+        const int vr = byte_of(kr, b);
+        const int vn = b + 1 < kChunk ? byte_of(kl, b + 1) : k16;  // K[p + b + 1]
+        // three loads issued together, then one or two stores: H[vn] -= 1
+        // and H[vr] += 1 (the bin of vn holds K[p + 1], so no borrow leaves
+        // it; at w = 1 the two updates meet in one bin)
+        uint32_t* hr = h + (vr >> 1) * kHistThreads;
+        uint32_t* hn = h + (vn >> 1) * kHistThreads;
+        const uint32_t wr = *hr;
+        const uint32_t wl = h[(vl >> 1) * kHistThreads];
+        const uint32_t wn = *hn;
+        a[b] = static_cast<int>((wr >> (16 * (vr & 1))) & 0xffffu) - static_cast<int>((wl >> (16 * (vl & 1))) & 0xffffu);
+        const bool same = hr == hn;
+        *hn = wn - one(vn) + (same ? one(vr) : 0u);
+        if (!same) *hr = wr + one(vr);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kChunk; ++b) xb[lane * (kChunk + 1) + b] = a[b];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cb[lane * 5 + j] = kl[j];
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int src = 8 * i + (lane >> 2);  // the lane whose chunk this lane writes a quarter of
+      const int q = 4 * (lane & 3);
+      const long long pq = (g0 + (tid & ~31) + src) * seg + c + q;
+      const int32_t* x = xb + src * (kChunk + 1) + q;
+      if (pq + 4 <= nt) {
+        *reinterpret_cast<int4*>(ab + pq) = make_int4(x[0], x[1], x[2], x[3]);
+      } else {
+        for (int j = 0; j < 4; ++j) {
+          if (pq + j < nt) ab[pq + j] = x[j];
+        }
+      }
+      const uint32_t k4 = cb[src * 5 + (lane & 3)];  // codes K[pq .. pq + 4)
+      if (pq + 4 <= nkc) {
+        *reinterpret_cast<int4*>(kc + pq) = make_int4(k4 & 0xff, (k4 >> 8) & 0xff, (k4 >> 16) & 0xff, k4 >> 24);
+      } else {
+        for (int j = 0; j < 4; ++j) {
+          if (pq + j < nkc) kc[pq + j] = (k4 >> (8 * j)) & 0xff;
+        }
+      }
+    }
+    __syncwarp();
+    l_lo = l_hi;
+    l_hi = l_nx;
+    r_lo = r_hi;
+    r_hi = r_nx;
   }
 }
 
@@ -83,6 +272,55 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Resident sliding-histogram blocks per SM and the SM count of the current
+// device, queried once per device (with the shared-memory carveout raised to
+// its maximum, so the 32 KB blocks fill the SM).
+cudaError_t roll_hist_residency(int* sms, int* blocks_per_sm) {
+  static std::mutex mu;
+  static int cached_dev = -1;
+  static int cached_sms = 0;
+  static int cached_blocks = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev != cached_dev) {
+    err = cudaFuncSetAttribute(pair_roll_hist_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cached_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cached_blocks, pair_roll_hist_kernel, kHistThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    if (cached_blocks < 1) return cudaErrorInvalidConfiguration;
+    cached_dev = dev;
+  }
+  *sms = cached_sms;
+  *blocks_per_sm = cached_blocks;
+  return cudaSuccess;
+}
+
+// The sliding histogram over max(nt, nkc) positions: one wave of resident
+// threads, each with a segment of positions that is a multiple of kChunk
+// (at 16 Mbp on an H100: 384 positions a thread, 652 blocks, 5 resident an
+// SM).
+int launch_roll_hist(const uint8_t* codes, long long n_codes, int w, int nt, int nkc, int32_t* ab,
+                     int32_t* kc, cudaStream_t stream) {
+  const long long n_out = nt > nkc ? nt : nkc;
+  if (n_out <= 0) return static_cast<int>(cudaSuccess);
+  int sms = 0;
+  int blocks_per_sm = 0;
+  const cudaError_t err = roll_hist_residency(&sms, &blocks_per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long resident = static_cast<long long>(sms) * blocks_per_sm * kHistThreads;
+  const long long per_thread = (n_out + resident - 1) / resident;
+  const int seg = static_cast<int>((per_thread + kChunk - 1) / kChunk * kChunk);
+  const long long threads = (n_out + seg - 1) / seg;
+  const int grid = static_cast<int>((threads + kHistThreads - 1) / kHistThreads);
+  pair_roll_hist_kernel<<<grid, kHistThreads, 0, stream>>>(codes, n_codes, w, seg, nt, nkc, ab, kc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Code>
 int launch_codes(const void* codes, int k, int w, int depth, int t, int n_tiles, int nt,
                  int nkc, void* ab, void* kc, cudaStream_t stream) {
@@ -100,12 +338,18 @@ int launch_codes(const void* codes, int k, int w, int depth, int t, int n_tiles,
 // K4 / K4r: ab[nt], kc[nkc] from codes of code_bytes bytes each (1: int8
 // 2-bit codes or uint8 strobe codes, both 0..255 as read here; 4: int32).
 // codes must hold n_tiles * t + w + k - 1 entries, with n_tiles * t >=
-// max(nt, nkc).  Returns cudaGetLastError().
+// max(nt, nkc).  Byte codes at k = 1 and depth = w - 1 take the sliding
+// histogram (t and n_tiles then only size the codes), every other shape the
+// depth loop.  Returns cudaGetLastError().
 extern "C" int kmg_pair_depth_codes(const void* codes, int code_bytes, int k, int w, int depth,
                                     int t, int n_tiles, int nt, int nkc, void* ab, void* kc,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (depth < 0 || depth >= w) return static_cast<int>(cudaErrorInvalidValue);
+  if (code_bytes == 1 && k == 1 && depth == w - 1 && w < 65536) {
+    return launch_roll_hist(static_cast<const uint8_t*>(codes), static_cast<long long>(n_tiles) * t + w, w, nt,
+                            nkc, static_cast<int32_t*>(ab), static_cast<int32_t*>(kc), s);
+  }
   switch (code_bytes) {
     case 1:
       return launch_codes<uint8_t>(codes, k, w, depth, t, n_tiles, nt, nkc, ab, kc, s);

@@ -24,6 +24,10 @@ import torch
 
 from .reference import RefProfile
 
+#: the largest pair depth of K1's and K3's bitmap kernel, which keeps its
+#: pair counts as bytes
+MAX_BITMAP_DEPTH = 255
+
 _INT32_MAX = 2**31 - 1
 
 
@@ -456,7 +460,9 @@ class ScanEngine:
     replay_single``) consumes.  The pass's block bitmap comes from K1's
     certified lower bounds at ``bound_depth`` (16 by default), or with
     ``bound_depth=None`` (exact mode, the strobemer span engine) from the
-    exact distances of K4's full-depth pair counts.
+    exact distances of K4's full-depth pair counts.  A ``bound_depth``
+    above K1's ``MAX_BITMAP_DEPTH`` that reaches the window's full depth
+    ws - k takes exact mode; one that stops short of it raises.
     """
 
     #: host dtype of the record codes that cross to the device: 2-bit
@@ -472,7 +478,17 @@ class ScanEngine:
         # K1 flags blocks from certified lower bounds at this pair depth,
         # 16 by default as in the JAX engine (equality at depth = W - 1, so
         # clamping keeps short windows exact); None = exact mode
-        self.bound_depth = None if bound_depth is None else min(bound_depth, ws - k)
+        depth = None if bound_depth is None else min(bound_depth, ws - k)
+        if depth is not None and depth > MAX_BITMAP_DEPTH:
+            if depth < ws - k:
+                raise ValueError(
+                    f"ScanEngine: bound_depth {bound_depth} is above K1's {MAX_BITMAP_DEPTH} and below the "
+                    f"window's full depth {ws - k}; use at most {MAX_BITMAP_DEPTH}, or the full depth (exact mode)"
+                )
+            # the bounds at full depth are the exact distances, which exact
+            # mode computes without K1's byte counts
+            depth = None
+        self.bound_depth = depth
         self.scale = 2.0 * k * r * r
         self.block = 512  # bitmap granularity (windows per activity block)
         self.rspan = 1 << 10  # region-recompute granularity (windows per region)

@@ -12,16 +12,16 @@ cluster-major: int32[m, n_tiles * t // block].
 
 Source note.  K3 replaces ``kmergma_tpu/ops/scan_cluster_fused.py::
 _fused_cluster_kernel``: K1 for m profiles in one pass, bound by
-shared-memory instruction issue.  Persistent blocks stage the m tables
-once (in shared memory when they fit beside the tile, m = 6 at k = 6,
-else read through ``__ldg``) and walk the tiles.  Pass 1 computes each
-window's pair counts once for every cluster, leaves them in a scratch
-buffer for pass 2 (2 bytes a window) and sums each tile's deltas in
-telescoped form; pass 2 holds 8 consecutive windows per thread in
-registers, one block barrier per two clusters and tile.  The carry chain
-stays two launches with the tile bases scanned here in torch
-(``_k3_totals``, ``_k3_tile_bases``, ``_k3_bitmap``).  K8 replaces the
-kernel of ``pack_lookup_roundtrip``, which certified the TPU's MXU one-hot
+shared-memory instruction issue; K1 (``scan_fused.fused_record_bitmaps``)
+launches it at m = 1.  Persistent blocks stage the m tables once (in
+shared memory when they fit beside the tile, m = 6 at k = 6, else read
+through ``__ldg``) and walk the tiles.  Pass 1 computes each window's pair
+counts once for every cluster (16 positions a lane, tiled in registers),
+leaves them in a scratch buffer for pass 2 (2 bytes a window) and sums
+each tile's deltas in telescoped form; pass 2 holds 8 consecutive windows
+per thread in registers, one block barrier per two clusters and tile.  The
+carry chain stays two launches with the tile bases scanned here in torch
+(``_k3_run``).  K8 replaces the kernel of ``pack_lookup_roundtrip``, which certified the TPU's MXU one-hot
 lookup per chip; here one block per cluster stages that cluster's slice as
 K3 does and reads every entry back through K3's lookup, the check of K3's
 table staging on the card.
@@ -35,7 +35,7 @@ import functools
 
 import torch
 
-from .scan import _k1_halo, profile_lookup_multi
+from .scan import MAX_BITMAP_DEPTH, _k1_halo, profile_lookup_multi
 from .scan_fused import _THREADS, fused_record_bitmaps_plain
 
 #: clusters one K3 launch takes (the per-cluster scalars ride the launch)
@@ -77,10 +77,10 @@ def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thr
         )
     if len(thrs) != m or len(nws) != m or l0s.shape != (m,):
         raise ValueError(f"fused_cluster_record_bitmaps: {m} clusters need m thresholds, bounds and window counts")
-    if t % block or block % _THREADS or not 0 <= depth < min(widths) or depth > 255:
+    if t % block or block % _THREADS or not 0 <= depth < min(widths) or depth > MAX_BITMAP_DEPTH:
         raise ValueError(
             f"fused_cluster_record_bitmaps: need t % block == 0, block % {_THREADS} == 0, "
-            f"0 <= depth < min(w), depth <= 255 (t={t}, block={block}, depth={depth}, w_min={min(widths)})"
+            f"0 <= depth < min(w), depth <= {MAX_BITMAP_DEPTH} (t={t}, block={block}, depth={depth}, w_min={min(widths)})"
         )
     kw = dict(k=k, specs=specs, depth=depth, t=t, block=block, n_tiles=n_tiles)
     if codes.device.type == "cpu":
@@ -89,15 +89,7 @@ def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thr
         raise ValueError(f"fused_cluster_record_bitmaps: unsupported device {codes.device}")
     if not (codes.is_contiguous() and s_stack.is_contiguous() and s_stack.device == codes.device):
         raise ValueError("fused_cluster_record_bitmaps: codes and S must be contiguous on one device")
-    args = _k3_args(codes, s_stack, thrs, nws, **kw)
-    totals, counts = _k3_totals(args)
-    bases, fits = _k3_tile_bases(totals, l0s)
-    bitmap = _k3_bitmap(args, bases, counts)
-    # checked after pass 2 is queued, so the host waits once, not between
-    # the passes; a bitmap from wrapped bases is never returned
-    if not bool(fits):
-        raise OverflowError("fused_cluster_record_bitmaps: a tile base overflows int32")
-    return bitmap
+    return _k3_run(_k3_args(codes, s_stack, thrs, nws, **kw), l0s)
 
 
 #: K3 launches (two per call: totals, then bitmap) since the count was
@@ -118,9 +110,10 @@ def _raw_stream(dev: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def _k3_args(codes: torch.Tensor, s_stack: torch.Tensor, thrs, nws, *, k: int, specs, depth: int, t: int, block: int, n_tiles: int) -> dict:
-    """What K3's two launches share: the device, shapes and the C arguments
-    up to n_tiles."""
+def _k3_args(codes: torch.Tensor, s_stack: torch.Tensor, thrs, nws, *, k: int, specs, depth: int, t: int, block: int, n_tiles: int, wrapper=None) -> dict:
+    """What K3's two launches share: the device, shapes, the C arguments up
+    to n_tiles, and the wrapper whose launch count they raise
+    (``fused_cluster_record_bitmaps``, or ``fused_record_bitmaps`` for K1)."""
     from .._kernels import int_array
 
     m = len(specs)
@@ -128,6 +121,7 @@ def _k3_args(codes: torch.Tensor, s_stack: torch.Tensor, thrs, nws, *, k: int, s
     scalars = [int_array(v) for v in (widths, [r for _ws, r in specs], thrs, nws)]
     return dict(
         dev=codes.device, m=m, n_tiles=n_tiles, per_tile=t // block,
+        wrapper=fused_cluster_record_bitmaps if wrapper is None else wrapper,
         count_bytes=_count_bytes(t, min(widths), max(widths)),
         c_args=(codes.data_ptr(), s_stack.data_ptr(), m, 4**k, k, *scalars, depth, t, block, n_tiles),
     )
@@ -149,8 +143,23 @@ def _k3_launch(args: dict, bases, totals, bitmap, counts: torch.Tensor, emit: bo
     dev = args["dev"]
     with _on_device(dev):
         err = load().kmg_fused_cluster_bitmaps(*args["c_args"], *ptrs, int(emit), _raw_stream(dev))
-    check(err, f"fused_cluster_record_bitmaps pass {2 if emit else 1}")
-    fused_cluster_record_bitmaps.launches += 1
+    wrapper = args["wrapper"]
+    check(err, f"{wrapper.__name__} pass {2 if emit else 1}")
+    wrapper.launches += 1
+
+
+def _k3_run(args: dict, l0s: torch.Tensor) -> torch.Tensor:
+    """K3's two launches and the tile bases between them, from the
+    int32[m] first-window bounds: the int32[m, n_tiles * t // block]
+    bitmap."""
+    totals, counts = _k3_totals(args)
+    bases, fits = _k3_tile_bases(totals, l0s)
+    bitmap = _k3_bitmap(args, bases, counts)
+    # checked after pass 2 is queued, so the host waits once, not between
+    # the passes; a bitmap from wrapped bases is never returned
+    if not bool(fits):
+        raise OverflowError(f"{args['wrapper'].__name__}: a tile base overflows int32")
+    return bitmap
 
 
 def _k3_totals(args: dict) -> tuple[torch.Tensor, torch.Tensor]:

@@ -34,10 +34,14 @@ Source note (K4, K4r, K6).  Replace ``_codes_pair_kernel`` (K4),
 ``kmergma_tpu/ops/scan_pallas.py``: one function, the net pair delta at one
 width and a run-time depth, with codes in (K4 and K4r, which also return
 the K codes; K4r only kept Mosaic's VMEM O(1) in depth) or K codes in (K6),
-so one source with two entry points serves all three.  Bound by
-shared-memory reads, 2 * depth compares per position (564 at the strobe
-engine's depth 282), against one code read and one or two int32 written
-per position in device memory.
+so one source with two entry points serves all three.  Two routes, chosen
+by shape in the C entry: byte codes at k = 1 and depth w - 1 (the strobe
+engine's s = 2 exact pass, K4r's main shape) take a sliding histogram,
+ab[p] = H_p[K[p+w]] - H_p[K[p]] with H_p the histogram of K[p+1 .. p+w-1],
+one thread a segment of positions with its own 256 bins in shared memory,
+O(1) work a position; every other shape takes the depth loop, bound by
+shared-memory reads, 2 * depth compares per position, against one code
+read and one or two int32 written per position in device memory.
 """
 
 from __future__ import annotations

@@ -170,6 +170,34 @@ def test_exact_mode_streams_match_jax(k, ws, alphabet):
     assert port.prepare_codes(codes).dtype == (torch.uint8 if alphabet > 4 else torch.int8)
 
 
+@pytest.mark.parametrize("bound_depth", [283, 10_000])
+def test_depth_past_bitmap_kernel_takes_exact_mode(bound_depth):
+    """K1 runs on K3's kernel, whose pair counts are bytes (depth at most
+    MAX_BITMAP_DEPTH).  A bound_depth past that which reaches the window's
+    full depth (ws - k = 283 at ws 289, k 6, the Alp_V windowsize) takes
+    exact mode: the bounds are then the distances, and the stream equals
+    the JAX engine's at the same bound_depth."""
+    k, ws, r = 6, 289, 5
+    s, codes = _planted(5, n=30_000, k=k, ws=ws, r=r)
+    port = tscan.ScanEngine(s, k=k, ws=ws, r=r, device="cpu", bound_depth=bound_depth)
+    ref = _jax_engine(s, k, ws, r, bound_depth=bound_depth, chunk_windows=1 << 13)
+    d = jscan.scan_window_distances_np(codes.astype(np.int64), s, k, ws, r)
+    thr = float(np.percentile(d / port.scale, 3.0))
+    got = port.record_stream(codes, thr)
+    want = ref.record_stream(codes, thr)
+    assert ws - k > tscan.MAX_BITMAP_DEPTH and port.bound_depth is None and ref.bound_depth == ws - k
+    assert got[0] == want[0] and got[1] == want[1] and len(got[1]) > 4
+
+
+def test_depth_past_bitmap_kernel_short_of_full_depth_raises():
+    """A bound_depth above MAX_BITMAP_DEPTH but below ws - k has neither K1
+    nor exact mode to run it: the engine refuses it when built."""
+    s, _codes = _planted(6, n=1_000, k=6, ws=289, r=5)
+    with pytest.raises(ValueError, match="full depth 283"):
+        tscan.ScanEngine(s, k=6, ws=289, r=5, device="cpu", bound_depth=tscan.MAX_BITMAP_DEPTH + 1)
+    assert tscan.ScanEngine(s, k=6, ws=289, r=5, device="cpu", bound_depth=tscan.MAX_BITMAP_DEPTH).bound_depth == 255
+
+
 def test_k10_on_one_device_matches_jax_host_engine():
     """Big k on one device (4^10 bins, a 4 MB int32 table: K1's __ldg
     route, K2 and the plain profile gather) at the inputs of the JAX

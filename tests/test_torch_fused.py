@@ -83,3 +83,5 @@ def test_bitmap_rejects_bad_shapes(profile6):
         fused_record_bitmaps(codes[:4096], s_t, 0, l0, 100, t=4096, **kw)
     with pytest.raises(ValueError):  # int32 codes
         fused_record_bitmaps(codes.int(), s_t, 0, l0, 100, t=4096, **kw)
+    with pytest.raises(ValueError, match="depth <= 255"):  # K3's kernel keeps pair counts as bytes
+        fused_record_bitmaps(codes, s_t, 0, l0, 100, t=4096, **{**kw, "depth": 256})

@@ -157,9 +157,11 @@ def test_k1_matches_twin_on_card(record, cuda_device):
     eng, prep, nw, l0, kw = _bitmap_inputs(codes, p.sum_kfv, 6, p.windowsize, p.n_records, cuda_device)
     for thr in (int(eng._thr_int(30.0)), int(eng._thr_int(45.0))):
         before = fused_record_bitmaps.launches
+        before3 = fused_cluster_record_bitmaps.launches
         got = fused_record_bitmaps(prep, eng.s_dev, thr, l0, nw, **kw)
         torch.cuda.synchronize()
         assert fused_record_bitmaps.launches == before + 2
+        assert fused_cluster_record_bitmaps.launches == before3  # K1 runs K3's kernel, counted as K1
         want = fused_record_bitmaps_plain(prep, eng.s_dev, thr, l0, nw, **kw)
         assert torch.equal(got, want)
         assert int(got.sum()) > 0
@@ -432,6 +434,52 @@ def test_k4r_matches_twin_on_card(record, cuda_device, s):
     ab_p, kc_p = _codes_pair_ab_kcodes_plain(*args)
     assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
     np.testing.assert_array_equal(kc.cpu().numpy(), sc[: nw + w - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,nt,nkc,offset",
+    [
+        (3 * 2048 + 400, 3 * 2048 - 283, 3 * 2048 + 1, 0),  # tile edges: n_tiles * 2048 just above nkc
+        (3 * 2048 + 400, 2048, 2048, 0),  # nt and nkc on a tile edge
+        (3 * 2048 + 400, 2047, 2049, 3),  # one off either side; codes 3 bytes off a 16-byte boundary
+        (40, 5, 15, 1),  # fewer positions than one chunk
+        (5_000_000, 5_000_000 - 283 - 17, 5_000_000 - 1, 0),  # many positions a thread, ragged last chunk
+        (5_000_000, 4_999_000, 4_999_701, 13),
+    ],
+)
+def test_k4r_sliding_histogram_matches_twin_on_card(cuda_device, n, nt, nkc, offset):
+    """K4r's sliding-histogram route (uint8 codes, k = 1, depth w - 1) at
+    segment, chunk and tile edges, on codes that do not start on a 16-byte
+    boundary, and with a run of one code long enough for a count of w - 1."""
+    w = 283
+    rng = np.random.default_rng(n + offset)
+    codes = rng.integers(0, 256, n + offset + w + 2048).astype(np.uint8)
+    codes[offset + 100 : offset + 100 + 2 * w] = 9
+    dev = torch.from_numpy(codes).to(cuda_device)[offset:]
+    before = codes_pair_ab_kcodes.launches
+    ab, kc = codes_pair_ab_kcodes(dev, 1, w, nt, nkc, w - 1)
+    torch.cuda.synchronize()
+    assert codes_pair_ab_kcodes.launches == before + 1
+    ab_p, kc_p = _codes_pair_ab_kcodes_plain(dev, 1, w, nt, nkc, w - 1)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
+    if nt > 100 + w:
+        assert int(ab.abs().max()) == w - 1
+
+
+@pytest.mark.cuda
+def test_k1_and_k3_count_their_own_launches(record, alp_clusters, cuda_device):
+    """K1 launches K3's kernel but counts on its own wrapper: a K1 call adds
+    2 to K1's count and leaves K3's, a K3 call the other way round."""
+    codes, p = record
+    eng, prep, nw, l0, kw = _bitmap_inputs(codes, p.sum_kfv, 6, p.windowsize, p.n_records, cuda_device)
+    k1, k3 = fused_record_bitmaps.launches, fused_cluster_record_bitmaps.launches
+    fused_record_bitmaps(prep, eng.s_dev, int(eng._thr_int(30.0)), l0, nw, **kw)
+    assert (fused_record_bitmaps.launches, fused_cluster_record_bitmaps.launches) == (k1 + 2, k3)
+    cl = ClusterScanEngine(alp_clusters, k=6, device=cuda_device)
+    cl.fused_min_windows = 1
+    cl.record_streams(codes, [35.0, 31.0, 38.0, 34.0, 27.0, 27.0])
+    assert fused_record_bitmaps.launches == k1 + 2 and fused_cluster_record_bitmaps.launches == k3 + 2
 
 
 @pytest.mark.cuda
