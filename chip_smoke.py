@@ -6,11 +6,11 @@
 Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
 ``build/kmergma_tpu_torch/``) and drives every path of the port:
 
-* single profile: K1 (K3's kernel at one profile, per stage for both of
-  pass 2's routes, reading pass 1's pair-count scratch or computing the
-  counts again) and K2 against their plain PyTorch twins on the card at
-  the main path's shapes (bit-identical: the scan is integer
-  arithmetic), the golden hits through ``kmergma_tpu_torch.find_genes``,
+* single profile: K1 (K3's kernel at one profile, also per stage) and
+  K2 (on the planned region rows and on the whole-record scan's
+  overlapping rows, with its device time beside the wrapper's) against
+  their plain PyTorch twins on the card at the main path's shapes
+  (bit-identical: the scan is integer arithmetic), the golden hits through ``kmergma_tpu_torch.find_genes``,
   then a 64 Mbp synthetic genome (four 16 Mbp contigs of hashed background
   with the 84 Alp_V reference genes planted every 500 kb) mined against the
   int64 host oracle, and where one call's wall goes: each stage timed
@@ -31,7 +31,7 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   recurrence, and where one call's wall goes;
 * a mixed-depth cluster set (the six Alp_V clusters plus a profile of the
   genes' 20 bp prefixes, ws 20, pair depth 14): K4 and K6 against their
-  twins, then ``ClusterScanEngine`` on one 16 Mbp contig and the short
+  twins, each at both of its depths with its device time, then ``ClusterScanEngine`` on one 16 Mbp contig and the short
   contig, its streams equal to an int64 host cluster oracle's;
 * the port's throughput harness (``kmergma_tpu_torch.bench.run``) at its
   default sizes, every genome made on the card by K7 (a 512 Mbp headline,
@@ -50,6 +50,12 @@ Each path's kernels are shown to have launched in that path's run: their
 launch counts are set to 0 just before it and read just after.  Kernel
 times are CUDA events over back-to-back launches after a warm-up, the
 median of five windows with the fastest beside it.
+
+``python3 chip_smoke.py --pair-kernels`` times K2, K4 and K6 alone at
+those shapes (one JSON line); a copy of this file placed in the root of
+an earlier checkout times that checkout's kernels the same way.  It is
+the parent-against-change tool of the pair kernels' redesigns and takes
+no other option.
 
 It imports only the port (``kmergma_tpu_torch``), never jax or the JAX
 package.  Exits non-zero, printing no result, without a CUDA device or
@@ -608,17 +614,16 @@ def single_profile_phase(ctx) -> list:
     """K1 and K2 against their twins, the goldens, and ``find_genes`` on
     the synthetic genome against the int64 host oracle."""
     import numpy as np
-    import torch
 
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch.models.miner import mine_genome
     from kmergma_tpu_torch.ops.scan import (
-        ScanEngine, _first_window_l0, _k1_halo, _plan_regions, rolling_kmer_codes, scan_window_distances,
+        ScanEngine, _first_window_l0, _k1_halo, scan_window_distances,
     )
     from kmergma_tpu_torch.ops.scan_cluster_fused import cluster_launch_shape
     from kmergma_tpu_torch.ops.scan_fused import _k1_args, fused_record_bitmaps, fused_record_bitmaps_plain
     from kmergma_tpu_torch.ops.scan_host import HostScanEngine
-    from kmergma_tpu_torch.ops.scan_kernels import _match_counts_plain, match_counts, scan_window_distances_kernel
+    from kmergma_tpu_torch.ops.scan_kernels import scan_window_distances_kernel
     from kmergma_tpu_torch.utils.native import scan_rolling_i64_native
 
     device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
@@ -660,23 +665,9 @@ def single_profile_phase(ctx) -> list:
             f"per SM {shapes[0]['blocks_per_sm']} and {shapes[1]['blocks_per_sm']} [{label}]"
         )
 
-    # --- K2 vs its plain twin: the main path's region rows --------------
-    rspan = engine.rspan
-    w = ws - k + 1
-    starts, nvr = _plan_regions(bm.reshape(-1).bool(), nw, rspan, engine.block, 256)
-    rows = prep[starts[:, None] + torch.arange(rspan + ws - 1, device=device)[None, :]]
-    tiles = torch.nn.functional.pad(rolling_kmer_codes(rows, k), (0, 1))
-    k2_ms, ab = kernel_ms(lambda: match_counts(tiles, w, rspan), on_card)
-    k2_plain_ms, ab_plain = kernel_ms(lambda: _match_counts_plain(tiles, w, rspan), on_card, reps=3)
-    k2_err = max_err((ab, ab_plain))
-    n_rows = tiles.shape[0]
-    k2_io = (4 * n_rows * (rspan + w) + 4 * n_rows * rspan, 4 * w * n_rows * rspan)
-    print(
-        f"K2 match_counts, {n_rows} region rows x {tiles.shape[1]} K codes "
-        f"({int(nvr)} active regions): {k2_ms:.3f} ms, plain twin {k2_plain_ms:.3f} ms, "
-        f"bound {bound(*k2_io)[0]:.4f} ms, bit-identical={k2_err == 0} [{label}]"
-    )
-    require(k2_err == 0, "K2 region rows differ from the plain twin")
+    # --- K2 vs its plain twin: region rows and the whole-record scan's rows
+    k2 = k2_measure(engine, prep, bm, nw, ctx["whole_bp"], on_card, label)
+    k2_err = max(k2["err"], k2["whole_err"])
 
     # --- K2 on a whole-record distance scan ------------------------------
     whole_bp = ctx["whole_bp"]
@@ -692,7 +683,7 @@ def single_profile_phase(ctx) -> list:
         f"int64 host oracle {'agrees' if oracle is not None and oracle_ok else 'unavailable' if oracle is None else 'DIFFERS'} [{label}]"
     )
     require(kd_err == 0 and oracle_ok, "K2 whole-record distances differ")
-    del prep, bm, bm_plain, rows, tiles, whole, d_kernel, d_plain
+    del prep, bm, bm_plain, whole, d_kernel, d_plain
 
     # --- goldens through find_genes ------------------------------------------
     with warnings.catch_warnings():
@@ -739,8 +730,74 @@ def single_profile_phase(ctx) -> list:
         entry("fused_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
               launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms, *k1_io, stages_ms=k1_stages),
         entry("match_counts", "match_counts.cu", "kmergma_tpu/ops/scan_pallas.py:43",
-              launches["match_counts"], k2_err, k2_ms, k2_plain_ms, *k2_io),
+              launches["match_counts"], k2_err, k2["ms"], k2["plain_ms"], *k2["io"], device_ms=k2["device_ms"],
+              whole_record=k2["whole"]),
     ]
+
+
+def k2_io(n_rows: int, t: int, w: int) -> tuple[int, int]:
+    """(bytes, operations) K2's function needs on n_rows rows of t + w K
+    codes: each row's codes read once and its t results written once; w - 1
+    histogram increments a row to start, then the sliding histogram's O(1)
+    operations a position and the match term's compare and add."""
+    return 4 * n_rows * (t + w) + 4 * n_rows * t, n_rows * (w - 1) + (HIST_OPS_PER_POSITION + 2) * n_rows * t
+
+
+def k2_measure(engine, prep, bm, nw: int, whole_bp: int, on_card: bool, label: str) -> dict:
+    """K2 against its plain twin at the main path's two shapes: the planned
+    region rows (``_plan_regions`` over K1's bitmap, at most 256 rows of
+    ``engine.rspan`` transitions) and the whole-record scan's overlapping
+    rows of 2048 transitions over ``whole_bp`` windows (row stride 2048,
+    as ``scan_window_distances_kernel`` tiles a record).  Wrapper ms
+    (``kernel_ms``), device ms (``queued_device_ms``, on the card) and the
+    bound's bytes and operations: K2 is K4r's function at depth w - 1 plus
+    [K[p] == K[p+w]] - 1, so a row needs w - 1 histogram increments to
+    start and O(1) operations a position after (``k2_io``), not the 2 w
+    compares a position its kernel does; that count is printed beside."""
+    import torch
+
+    from kmergma_tpu_torch.ops.scan import _plan_regions, rolling_kmer_codes
+    from kmergma_tpu_torch.ops.scan_kernels import _match_counts_plain, match_counts
+
+    k, ws, rspan = engine.k, engine.ws, engine.rspan
+    w = ws - k + 1
+    device = prep.device
+    starts, nvr = _plan_regions(bm.reshape(-1).bool(), nw, rspan, engine.block, 256)
+    rows = prep[starts[:, None] + torch.arange(rspan + ws - 1, device=device)[None, :]]
+    tiles = torch.nn.functional.pad(rolling_kmer_codes(rows, k), (0, 1))
+    ms, ab = kernel_ms(lambda: match_counts(tiles, w, rspan), on_card)
+    plain_ms, ab_plain = kernel_ms(lambda: _match_counts_plain(tiles, w, rspan), on_card, reps=3)
+    err = max_err((ab, ab_plain))
+    n_rows = tiles.shape[0]
+    io = k2_io(n_rows, rspan, w)
+    device_ms = queued_device_ms(lambda: match_counts(tiles, w, rspan)) if on_card else None
+
+    t = 2048
+    kcodes = rolling_kmer_codes(prep[: whole_bp + ws - 1], k)
+    n_tiles = -(-whole_bp // t)
+    kcodes_pad = torch.nn.functional.pad(kcodes, (0, n_tiles * t + w - kcodes.shape[0]))
+    wtiles = kcodes_pad.unfold(0, t + w, t)
+    wms, wab = kernel_ms(lambda: match_counts(wtiles, w, t), on_card)
+    whole_err = max_err((wab, _match_counts_plain(wtiles, w, t)))
+    wdev = queued_device_ms(lambda: match_counts(wtiles, w, t)) if on_card else None
+    wio = k2_io(n_tiles, t, w)
+    dev = "" if device_ms is None else f", device {device_ms:.5f} ms"
+    wdev_s = "" if wdev is None else f", device {wdev:.5f} ms"
+    # the count of the kernel's algorithm beside it: 2 w compares and adds a position
+    loop = [bound(n_bytes, 4 * w * n * tt)[0] for (n_bytes, _), n, tt in ((io, n_rows, rspan), (wio, n_tiles, t))]
+    print(
+        f"K2 match_counts, {n_rows} region rows x {tiles.shape[1]} K codes ({int(nvr)} active regions): "
+        f"{ms:.4f} ms (fastest window {ms.min:.4f}){dev}, plain twin {plain_ms:.3f} ms, bound {bound(*io)[0]:.5f} ms "
+        f"({bound(*io)[1]}; counted as the depth loop's 4 w operations a position: {loop[0]:.5f} ms), "
+        f"bit-identical={err == 0}; whole-record rows, {n_tiles} x {t + w} K codes at stride {t}: {wms:.4f} ms "
+        f"(fastest window {wms.min:.4f}){wdev_s}, bound {bound(*wio)[0]:.5f} ms ({bound(*wio)[1]}; depth loop "
+        f"{loop[1]:.5f} ms), bit-identical={whole_err == 0} [{label}]"
+    )
+    require(err == 0, "K2 region rows differ from the plain twin")
+    require(whole_err == 0, "K2 whole-record rows differ from the plain twin")
+    whole = {"rows": n_tiles, "ms": float(wms), "ms_min": wms.min, "device_ms": wdev, "bound_ms": bound(*wio)[0]}
+    return {"n_rows": n_rows, "ms": ms, "plain_ms": plain_ms, "err": err, "io": io, "device_ms": device_ms,
+            "whole": whole, "whole_err": whole_err}
 
 
 def cluster_phase(ctx) -> list:
@@ -992,7 +1049,7 @@ def strobe_phase(ctx) -> list:
     require(k4r_err == 0, "K4r differs from its plain twin")
     del sc, prep, ab, kc, ab_p, kc_p
 
-    # --- K4r's depth-loop route: int32 strobe codes at s = 3 ----------------
+    # --- K4r's register-blocked route: int32 strobe codes at s = 3 ----------
     p3 = gen_strobe_ref_ws_cons(REF, s=3, w_min=3, w_max=6)
     w3 = p3.windowsize - p3.k
     rec3 = record[: ctx["whole_bp"]]
@@ -1005,10 +1062,11 @@ def strobe_phase(ctx) -> list:
     ab3_p, kc3_p = _codes_pair_ab_kcodes_plain(*args3)
     loop_err = max_err((ab3, ab3_p), (kc3, kc3_p))
     print(
-        f"K4r's depth-loop route, {rec3.shape[0]} bp record as {n3 + w3} int32 strobe codes at s = 3 "
-        f"({4 ** (2 * p3.s)} values), w {w3}, depth {w3 - 1}: {loop_ms:.3f} ms, bit-identical={loop_err == 0} [{label}]"
+        f"K4r's register-blocked route, {rec3.shape[0]} bp record as {n3 + w3} int32 strobe codes at s = 3 "
+        f"({4 ** (2 * p3.s)} values), w {w3}, depth {w3 - 1}: {loop_ms:.4f} ms (fastest window {loop_ms.min:.4f}), "
+        f"bit-identical={loop_err == 0} [{label}]"
     )
-    require(loop_err == 0, "K4r's depth loop differs from its plain twin on s = 3 int32 codes")
+    require(loop_err == 0, "K4r's register-blocked route differs from its plain twin on s = 3 int32 codes")
     k4r_err = max(k4r_err, loop_err)
     del sc3, prep3, ab3, kc3, ab3_p, kc3_p
 
@@ -1046,29 +1104,19 @@ def strobe_phase(ctx) -> list:
                 f"a kernel of the strobe path never launched: {slaunches}")
     return [
         entry("codes_pair_ab_kcodes[K4r]", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:329",
-              slaunches["codes_pair_ab_kcodes"], k4r_err, k4r_ms, k4r_plain_ms, *k4r_io),
+              slaunches["codes_pair_ab_kcodes"], k4r_err, k4r_ms, k4r_plain_ms, *k4r_io,
+              s3={"bp": int(rec3.shape[0]), "depth": w3 - 1, "ms": float(loop_ms), "ms_min": loop_ms.min}),
     ]
 
 
-def mixed_depth_phase(ctx) -> list:
-    """K4 and K6 against their twins at the split pass's shapes and at the
-    single-profile width, then the mixed-depth set through
-    ``ClusterScanEngine`` on a 16 Mbp contig and the short contig, its
-    streams equal to the int64 host cluster oracle's."""
-    import numpy as np
-    import torch
-
+def mixed_depth_engine(clusters, cthrs, device, label: str):
+    """(engine, profiles, thresholds) of the mixed-depth cluster set: the
+    six Alp_V clusters plus a profile of the genes' 20 bp prefixes."""
     from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
-    from kmergma_tpu_torch.ops.scan import _pair_ab
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
-    from kmergma_tpu_torch.ops.scan_kernels import (
-        _codes_pair_ab_kcodes_plain, _pair_depth_need, codes_pair_ab_kcodes, pair_ab_from_kcodes,
-    )
     from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold
     from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
 
-    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
-    contigs, clusters, cthrs = ctx["contigs"], ctx["clusters"], ctx["cthrs"]
     k = 6
     prefixes = gen_ref_ws_cons([FastaRecord(rec.description, rec.seq[:PREFIX_BP]) for rec in as_records(REF)], k)
     # the auto estimate's buffer of 7 exceeds the prefix profile's mean
@@ -1083,32 +1131,23 @@ def mixed_depth_phase(ctx) -> list:
     print(f"mixed-depth cluster set: {len(profiles)} profiles, (windowsize, pair depth) groups {groups}, "
           f"prefix profile R {prefixes.n_records}, threshold {prefix_thr} [{label}]")
     require(not eng.one_depth and groups[0] == (PREFIX_BP, PREFIX_BP - k), f"groups {groups}")
+    return eng, profiles, thrs
+
+
+def mixed_depth_phase(ctx) -> list:
+    """K4 and K6 against their twins at the split pass's shapes and at the
+    single-profile width, then the mixed-depth set through
+    ``ClusterScanEngine`` on a 16 Mbp contig and the short contig, its
+    streams equal to the int64 host cluster oracle's."""
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    contigs = ctx["contigs"]
+    eng, profiles, thrs = mixed_depth_engine(ctx["clusters"], ctx["cthrs"], device, label)
+    k = eng.k
+    groups = [(ws, depth) for ws, depth, _i, _r in eng.groups]
 
     # --- K4 and K6 vs their twins --------------------------------------------
     record = contigs[0]
-    prep = eng.prepare_codes(record)
-    span = eng._split_span(record.shape[0] - PREFIX_BP + 1)
-    max_w = eng.max_ws - k + 1
-    nt, nkc = span - 1, span + max_w - 1
-    results = {}
-    for name, w, depth in (("K4", PREFIX_BP - k + 1, PREFIX_BP - k), ("K4", 289 - k + 1, 16)):
-        args = (prep, k, w, nt, nkc, depth)
-        ms, (ab, kc) = kernel_ms(lambda: codes_pair_ab_kcodes(*args), on_card)
-        pms, (ab_p, kc_p) = kernel_ms(lambda: _codes_pair_ab_kcodes_plain(*args), on_card, reps=1)
-        io = (_pair_depth_need(k, w, nt, nkc)[1] + 4 * (nt + nkc), 4 * depth * nt)
-        results[(name, depth)] = (ms, pms, max_err((ab, ab_p), (kc, kc_p)), io)
-    kcodes = kc
-    for w_g, depth in ((groups[1][0] - k + 1, groups[1][1]), (PREFIX_BP - k + 1, PREFIX_BP - k)):
-        kc_g = kcodes[: nt + w_g]
-        ms, ab6 = kernel_ms(lambda: pair_ab_from_kcodes(kc_g, w_g, nt, depth), on_card)
-        pms, ab6_p = kernel_ms(lambda: _pair_ab(kc_g, w_g, nt, depth), on_card, reps=1)
-        io = (4 * (nt + w_g) + 4 * nt, 4 * depth * nt)
-        results[("K6", depth)] = (ms, pms, max_err((ab6, ab6_p)), io)
-    for (name, depth), (ms, pms, err, io) in results.items():
-        print(f"{name} at depth {depth}, k {k}, {nt} transitions of a {record.shape[0]} bp record: {ms:.3f} ms, "
-              f"plain twin {pms:.3f} ms, bound {bound(*io)[0]:.4f} ms ({bound(*io)[1]}), bit-identical={err == 0} [{label}]")
-        require(err == 0, f"{name} at depth {depth} differs from its plain twin")
-    del prep, ab, kc, ab_p, kc_p, kcodes, ab6, ab6_p
+    results = pair_depth_measure(eng, record, on_card, label)
 
     # --- the mixed-depth set against the int64 host cluster oracle ----------
     oracle = HostClusterOracle(profiles, k)
@@ -1129,14 +1168,61 @@ def mixed_depth_phase(ctx) -> list:
                     and launches["match_counts"] > 0, f"the mixed-depth pass did not run K4, K6 and K2: {launches}")
     k4 = results[("K4", PREFIX_BP - k)]
     k6 = results[("K6", groups[1][1])]
+    k6_prefix = results[("K6", PREFIX_BP - k)]
     return [
         entry("codes_pair_ab_kcodes[K4]", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:236",
-              total["codes_pair_ab_kcodes"], max(v[2] for (n_, _d), v in results.items() if n_ == "K4"),
-              k4[0], k4[1], *k4[3]),
+              total["codes_pair_ab_kcodes"], max(v["err"] for (n_, _d), v in results.items() if n_ == "K4"),
+              k4["ms"], k4["plain_ms"], *k4["io"], device_ms=k4["device_ms"]),
         entry("pair_ab_from_kcodes", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:75",
-              total["pair_ab_from_kcodes"], max(v[2] for (n_, _d), v in results.items() if n_ == "K6"),
-              k6[0], k6[1], *k6[3]),
+              total["pair_ab_from_kcodes"], max(v["err"] for (n_, _d), v in results.items() if n_ == "K6"),
+              k6["ms"], k6["plain_ms"], *k6["io"], device_ms=k6["device_ms"],
+              prefix_depth={"depth": PREFIX_BP - k, "ms": float(k6_prefix["ms"]), "ms_min": k6_prefix["ms"].min,
+                            "device_ms": k6_prefix["device_ms"], "bound_ms": bound(*k6_prefix["io"])[0]}),
     ]
+
+
+def pair_depth_measure(eng, record, on_card: bool, label: str) -> dict:
+    """K4 and K6 against their twins at the mixed-depth split pass's shapes
+    on ``record`` (K4 at the prefix group's width and depth and at the
+    single-profile width and depth 16; K6 at the second group's width and
+    depth and at the prefix group's): {(name, depth): {ms, plain_ms, err,
+    io, device_ms}}, wrapper ms from ``kernel_ms``, device ms from
+    ``queued_device_ms`` (on the card)."""
+    from kmergma_tpu_torch.ops.scan import _pair_ab
+    from kmergma_tpu_torch.ops.scan_kernels import (
+        _codes_pair_ab_kcodes_plain, _pair_depth_need, codes_pair_ab_kcodes, pair_ab_from_kcodes,
+    )
+
+    k = eng.k
+    groups = [(ws, depth) for ws, depth, _i, _r in eng.groups]
+    prep = eng.prepare_codes(record)
+    span = eng._split_span(record.shape[0] - PREFIX_BP + 1)
+    max_w = eng.max_ws - k + 1
+    nt, nkc = span - 1, span + max_w - 1
+    results = {}
+    for name, w, depth in (("K4", PREFIX_BP - k + 1, PREFIX_BP - k), ("K4", 289 - k + 1, 16)):
+        args = (prep, k, w, nt, nkc, depth)
+        ms, (ab, kc) = kernel_ms(lambda: codes_pair_ab_kcodes(*args), on_card)
+        pms, (ab_p, kc_p) = kernel_ms(lambda: _codes_pair_ab_kcodes_plain(*args), on_card, reps=1)
+        io = (_pair_depth_need(k, w, nt, nkc)[1] + 4 * (nt + nkc), 4 * depth * nt)
+        dev = queued_device_ms(lambda: codes_pair_ab_kcodes(*args)) if on_card else None
+        results[(name, depth)] = {"ms": ms, "plain_ms": pms, "err": max_err((ab, ab_p), (kc, kc_p)), "io": io,
+                                  "device_ms": dev}
+    kcodes = kc
+    for w_g, depth in ((groups[1][0] - k + 1, groups[1][1]), (PREFIX_BP - k + 1, PREFIX_BP - k)):
+        kc_g = kcodes[: nt + w_g]
+        ms, ab6 = kernel_ms(lambda: pair_ab_from_kcodes(kc_g, w_g, nt, depth), on_card)
+        pms, ab6_p = kernel_ms(lambda: _pair_ab(kc_g, w_g, nt, depth), on_card, reps=1)
+        io = (4 * (nt + w_g) + 4 * nt, 4 * depth * nt)
+        dev = queued_device_ms(lambda: pair_ab_from_kcodes(kc_g, w_g, nt, depth)) if on_card else None
+        results[("K6", depth)] = {"ms": ms, "plain_ms": pms, "err": max_err((ab6, ab6_p)), "io": io, "device_ms": dev}
+    for (name, depth), v in results.items():
+        dev = "" if v["device_ms"] is None else f", device {v['device_ms']:.5f} ms"
+        print(f"{name} at depth {depth}, k {k}, {nt} transitions of a {record.shape[0]} bp record: {v['ms']:.4f} ms "
+              f"(fastest window {v['ms'].min:.4f}){dev}, plain twin {v['plain_ms']:.3f} ms, bound "
+              f"{bound(*v['io'])[0]:.4f} ms ({bound(*v['io'])[1]}), bit-identical={v['err'] == 0} [{label}]")
+        require(v["err"] == 0, f"{name} at depth {depth} differs from its plain twin")
+    return results
 
 
 def k1_twin_err(engine, codes, thr: float) -> tuple[int, int]:
@@ -1431,6 +1517,67 @@ def bench_phase(ctx) -> list:
     ]
 
 
+def build_kernels(label: str) -> None:
+    """Build (or load) the kernel library, printing the build time and
+    ptxas's registers and spills per kernel."""
+    from kmergma_tpu_torch import _kernels
+
+    lib_path, log_path = _kernels.paths()
+    built = not lib_path.exists()
+    t0 = time.perf_counter()
+    _kernels.load()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled now: {built}, {lib_path}) [{label}]")
+    if log_path.exists():
+        for line in log_path.read_text().splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp: int = 4_000_000) -> dict:
+    """K2, K4 and K6 alone at the shapes the main paths give them
+    (``python3 chip_smoke.py --pair-kernels``): the first contig of the
+    synthetic genome, K1's bitmap over it for K2's region rows, the
+    whole-record scan's rows, and the mixed-depth split pass's K4 and K6
+    shapes, each against its plain twin.  It calls only the package's
+    public wrappers and engines, so the same script times an earlier
+    checkout of the package: run from a copy of this file placed in that
+    checkout's root.  Returns {shape: {ms, ms_min, device_ms}}."""
+    import torch
+
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import ScanEngine, _first_window_l0
+    from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        build_kernels(label)
+    profile = gen_ref_ws_cons(REF, 6)
+    record = synthetic_genome(1, contig_bp, 500_000, [rec.codes for rec in as_records(REF)])[0]
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+    engine = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
+    thr = estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0)
+    nw = record.shape[0] - ws + 1
+    prep = engine.prepare_codes(record)
+    depth = engine.bound_depth
+    l0 = _first_window_l0(prep, engine.s_dev, k=k, ws=ws, r=r, depth=depth)
+    bm = fused_record_bitmaps(prep, engine.s_dev, int(engine._thr_int(thr)), l0, nw, k=k, ws=ws, r=r, depth=depth,
+                              t=engine.fused_t, block=engine.block, n_tiles=-(-nw // engine.fused_t))
+    k2 = k2_measure(engine, prep, bm, nw, whole_bp, on_card, label)
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6))
+    cthrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+    eng, _profiles, _thrs = mixed_depth_engine(clusters, cthrs, device, label)
+    out = {
+        "K2_region_rows": {"ms": float(k2["ms"]), "ms_min": k2["ms"].min, "device_ms": k2["device_ms"]},
+        "K2_whole_record": {key: k2["whole"][key] for key in ("ms", "ms_min", "device_ms")},
+    }
+    for (name, d), v in pair_depth_measure(eng, record, on_card, label).items():
+        out[f"{name}_depth{d}"] = {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"]}
+    return out
+
+
 def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     ``runs`` timed runs follow one warm-up at size, and each stage of the
@@ -1439,7 +1586,6 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
     report."""
     import torch
 
-    from kmergma_tpu_torch import _kernels
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
     from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
     from kmergma_tpu_torch.utils.fasta import as_records
@@ -1448,17 +1594,8 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
-    # --- build -------------------------------------------------------
     if on_card:
-        lib_path, log_path = _kernels.paths()
-        built = not lib_path.exists()
-        t0 = time.perf_counter()
-        _kernels.load()
-        print(f"kernel build: {time.perf_counter() - t0:.2f} s (compiled now: {built}, {lib_path}) [{label}]")
-        if log_path.exists():
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "Compiling entry" in line:
-                    print(f"  ptxas: {line.strip()}")
+        build_kernels(label)
 
     profile = gen_ref_ws_cons(REF, 6)
     genes = [rec.codes for rec in as_records(REF)]
@@ -1504,6 +1641,10 @@ def main() -> int:
     print(f"card: {label}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     try:
+        if sys.argv[1:] == ["--pair-kernels"]:
+            print(json.dumps({"pair_kernels": pair_kernels("cuda", label=label)}))
+            print(f"card: {label}")
+            return 0
         report = run("cuda", label=label)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -91,7 +91,6 @@
 #include <map>
 #include <mutex>
 #include <tuple>
-#include <utility>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -344,11 +343,10 @@ cudaError_t device_info(DeviceInfo* out) {
 }
 
 // Raises the kernel's dynamic shared-memory limit to `smem` when it is
-// below (never lowers it: a later, smaller launch must not shrink it under
-// an earlier size) and returns its resident blocks per SM at `threads` and
-// `smem`, once per (device, kernel, smem).
+// below (kmg::allow_smem_once, which never lowers it) and returns its
+// resident blocks per SM at `threads` and `smem`, once per (device, kernel,
+// smem).
 cudaError_t kernel_ready(const void* kernel, int threads, size_t smem, int* blocks_per_sm) {
-  static std::map<std::pair<int, const void*>, size_t> limits;
   static std::map<std::tuple<int, const void*, size_t>, int> occupancy;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -357,12 +355,8 @@ cudaError_t kernel_ready(const void* kernel, int threads, size_t smem, int* bloc
   const auto key = std::make_tuple(dev, kernel, smem);
   auto it = occupancy.find(key);
   if (it == occupancy.end()) {
-    size_t& limit = limits[std::make_pair(dev, kernel)];
-    if (smem > limit) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-      limit = smem;
-    }
+    err = kmg::allow_smem_once(kernel, smem);
+    if (err != cudaSuccess) return err;
     int n = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
     if (err != cudaSuccess) return err;

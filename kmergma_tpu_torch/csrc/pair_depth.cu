@@ -13,8 +13,9 @@
 // strobemer span engine's exact pass, 14 to 16 on the cluster split pass);
 // a count is at most depth, so it stays an int.
 //
-// Two routes, chosen by shape inside kmg_pair_depth_codes (a dispatch, not a
-// fallback):
+// Routes are chosen by shape inside the C entry points (a dispatch, not a
+// fallback): the sliding histogram for K4r's main shape, else the
+// register-blocked routine, itself on one of two routes by depth:
 //
 // The sliding histogram (byte codes, k = 1, depth = w - 1: the strobe span
 // engine's exact pass at s = 2, K4r's main shape).  At that depth both sums
@@ -35,43 +36,36 @@
 // the K codes leave coalesced, a block's range at a time, and ab through a
 // per-warp buffer, eight lanes' 64-byte chunks an instruction.
 //
-// The depth loop (every other shape: int32 strobe codes at s = 3, 4,096
-// values; K4 on 2-bit genome codes; K6 below w - 1): bound by shared-memory
-// reads, 2 * depth compares per position, against one code read and one or
-// two int32 written per position in device memory.  A block stages its
-// tile's t + w K codes (int32) in shared memory, built from t + w + k - 1
-// codes (K4) or copied (K6); each thread then takes positions p = tid, tid +
-// 256, ... and loops over the depth, so neighbouring threads read
-// neighbouring words and the compares are free of bank conflicts.
+// The register-blocked routine (every other shape: int32 strobe codes at
+// s = 3, 4,096 values; K4 on 2-bit genome codes; K6), csrc/pair_counts.cuh:
+// a block stages its tile's K codes (int32) in shared memory with one pad
+// word per 16, built from the codes (K4) or copied (K6), and each of its
+// t / 16 threads owns 16 consecutive positions, their targets in registers.
+// Depth <= 16 (K6's split pass, K4 at depth 14) holds each thread's 32
+// codes of either side in registers and compares on registers; deeper
+// (K4r's s = 3 pass at depth 280, K6 deeper) streams each column of the
+// thread's two runs of depth + 15 codes once.  Shared loads fall from 2 *
+// depth a position to about 2 (depth + 15) / 16; the 2 * depth compares
+// remain, two to an instruction pair when the codes fit 16 bits.  What
+// bounds it on an H100: instruction issue (the compares, the staging, the
+// stores) at every depth, above the device-memory bytes (4 in, 4 or 8 out a
+// position) even at depth 16.  At k > 1 the K codes are built in shared
+// memory from the tile's codes in device memory, rolling from one to the
+// next.  The tile's padded K codes fill a block's shared memory: at t =
+// 2048 on an H100 (227 KB a block) w reaches 52,628, and a wider w fails at
+// launch.
 
 #include <cstdint>
 #include <mutex>
 #include <cuda_runtime.h>
 
+#include "pair_counts.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kHistThreads = 64;                  // threads per sliding-histogram block
 constexpr int kHistWords = 128;                   // 256 bins, two 16-bit counts a word
 constexpr int kChunk = 16;                        // positions a thread takes per step of its loop
-
-// ab[tile_pos + p] for the tile's positions, from its K codes in shared
-// memory (kc[i] = K[tile_pos + i], i < t + w).
-__device__ __forceinline__ void tile_pair_deltas(const int32_t* __restrict__ kc, long long tile_pos,
-                                                 int w, int depth, int t, int nt,
-                                                 int32_t* __restrict__ ab) {
-  for (int p = threadIdx.x; p < t && tile_pos + p < nt; p += kThreads) {
-    const int kl = kc[p];
-    const int kr = kc[p + w];
-    int a = 0;
-    int b = 0;
-    for (int d = 1; d <= depth; ++d) {
-      a += static_cast<int>(kc[p + w - d] == kr);
-      b += static_cast<int>(kc[p + d] == kl);
-    }
-    ab[tile_pos + p] = a - b;
-  }
-}
 
 // 16 bytes of codes from byte q + off of the aligned granules lo = codes[q ..
 // q + 16), hi = codes[q + 16 .. q + 32) (0 <= off < 16), as four words.
@@ -236,41 +230,91 @@ pair_roll_hist_kernel(const uint8_t* __restrict__ codes, long long n_codes, int 
   }
 }
 
+// The staged K codes of a tile from its codes c[0 .. t + w + k - 1), padded
+// as the staged ones (block-cooperative): each thread takes a run of
+// consecutive staged codes x, K[x] zero off [0, t + w), the first by its sum
+// and the rest rolling.  The codes are read where they lie, through the
+// read-only cache (a tile's codes are a few KB, and a warp's runs touch a
+// few lines a load), so the tile's shared memory holds the K codes alone and
+// w reaches as far as K6's.  Returns this thread's OR of the K codes.
 template <typename Code>
-__global__ void __launch_bounds__(kThreads)
-pair_depth_codes_kernel(const Code* __restrict__ codes, int k, int w, int depth, int t,
-                        int nt, int nkc, int32_t* __restrict__ ab,
-                        int32_t* __restrict__ kc_out) {
-  extern __shared__ int32_t kc[];  // t + w
+__device__ __forceinline__ uint32_t build_kcodes_rolling(const Code* __restrict__ c, int k, int t, int w,
+                                                         int32_t* __restrict__ s) {
+  auto code = [c](int i) { return static_cast<uint32_t>(static_cast<int>(__ldg(c + i))); };  // sign as c[i] reads
+  const int span = kmg::pair_tile_span(t, w);
+  const int run = (span + static_cast<int>(blockDim.x) - 1) / static_cast<int>(blockDim.x);
+  const int i_lo = static_cast<int>(threadIdx.x) * run;
+  const int i_hi = i_lo + run < span ? i_lo + run : span;
+  const uint32_t pow_k = k < 16 ? 1u << (2 * k) : 0u;
+  uint32_t v = 0;
+  bool rolling = false;
+  uint32_t any = 0;
+#pragma unroll 4
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int x = i - kmg::kPairHalo;
+    uint32_t kx = 0;
+    if (x >= 0 && x < t + w) {
+      if (rolling) {
+        v = 4u * v - pow_k * code(x - 1) + code(x + k - 1);
+      } else {
+        for (int j = 0; j < k; ++j) v = 4u * v + code(x + j);
+        rolling = true;
+      }
+      kx = v;
+    }
+    s[kmg::pair_pad(i)] = static_cast<int32_t>(kx);
+    any |= kx;
+  }
+  return any;
+}
+
+// K4 and K4r's other shapes: one tile of t positions a block (t / 16 x
+// pair_groups threads).  At k = 1 the codes are the K codes and are staged
+// as they are (int32 codes four a load); at k > 1 each thread builds a run
+// of consecutive K codes from the tile's t + w + k - 1 codes, rolling:
+// K[x] = 4 K[x - 1] - 4^k c[x - 1] + c[x + k - 1], modulo 2^32 as the sum
+// it replaces.  Then the K codes (kc_out[p] = K[p] for p <
+// nkc) and ab from the staged tile.
+template <typename Code, bool kSmall>
+__global__ void __launch_bounds__(kmg::kPairMaxThreads)
+pair_depth_codes_kernel(const Code* __restrict__ codes, int k, int w, int depth, int nt, int nkc,
+                        int32_t* __restrict__ ab, int32_t* __restrict__ kc_out) {
+  extern __shared__ int32_t s[];
+  const int t = static_cast<int>(blockDim.x) / kmg::pair_groups(kSmall) * kmg::kPairR;
   const long long tile_pos = static_cast<long long>(blockIdx.x) * t;
   const Code* c = codes + tile_pos;
-  for (int i = threadIdx.x; i < t + w; i += kThreads) {
-    int v = 0;
-    for (int j = 0; j < k; ++j) v = v * 4 + static_cast<int>(c[i + j]);
-    kc[i] = v;
+  bool narrow;
+  if (k == 1 && sizeof(Code) == sizeof(int32_t)) {
+    narrow = kmg::pair_stage_rows(s, t, w, reinterpret_cast<const int32_t*>(c), 0, t + w);
+  } else if (k == 1) {
+    narrow = kmg::pair_stage(s, t, w, [&](int x) { return x >= 0 && x < t + w ? static_cast<int>(c[x]) : 0; });
+  } else {
+    const uint32_t any = build_kcodes_rolling(c, k, t, w, s);
+    narrow = __syncthreads_or(static_cast<int>(any >> 16)) == 0;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < t && tile_pos + i < nkc; i += kThreads) kc_out[tile_pos + i] = kc[i];
-  tile_pair_deltas(kc, tile_pos, w, depth, t, nt, ab);
+  const long long n_kc = nkc - tile_pos;
+  kmg::pair_store(s, kmg::kPairHalo, n_kc < t ? static_cast<int>(n_kc) : t, kc_out + tile_pos);
+  const long long left = nt - tile_pos;
+  kmg::pair_tile_deltas<kSmall, false>(s, t, w, depth, narrow, left < t ? static_cast<int>(left) : t, ab + tile_pos);
 }
 
-__global__ void __launch_bounds__(kThreads)
-pair_depth_kcodes_kernel(const int32_t* __restrict__ kcodes, long long n_kcodes, int w,
-                         int depth, int t, int nt, int32_t* __restrict__ ab) {
-  extern __shared__ int32_t kc[];  // t + w
+// K6: one tile of t positions a block (t / 16 x pair_groups threads), its K
+// codes copied (zero past n_kcodes).
+template <bool kSmall>
+__global__ void __launch_bounds__(kmg::kPairMaxThreads)
+pair_depth_kcodes_kernel(const int32_t* __restrict__ kcodes, long long n_kcodes, int w, int depth, int nt,
+                         int32_t* __restrict__ ab) {
+  extern __shared__ int32_t s[];
+  const int t = static_cast<int>(blockDim.x) / kmg::pair_groups(kSmall) * kmg::kPairR;
   const long long tile_pos = static_cast<long long>(blockIdx.x) * t;
-  for (int i = threadIdx.x; i < t + w; i += kThreads) {
-    kc[i] = tile_pos + i < n_kcodes ? kcodes[tile_pos + i] : 0;
-  }
-  __syncthreads();
-  tile_pair_deltas(kc, tile_pos, w, depth, t, nt, ab);
+  const bool narrow = kmg::pair_stage_rows(s, t, w, kcodes + tile_pos, -tile_pos, n_kcodes - tile_pos);
+  const long long left = nt - tile_pos;
+  kmg::pair_tile_deltas<kSmall, false>(s, t, w, depth, narrow, left < t ? static_cast<int>(left) : t, ab + tile_pos);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+// The tile of the register-blocked kernels: whole warps of 16-position
+// threads, at most kPairMaxTile positions.
+bool pair_tile_ok(int t) { return t > 0 && t % (32 * kmg::kPairR) == 0 && t <= kmg::kPairMaxTile; }
 
 // Resident sliding-histogram blocks per SM and the SM count of the current
 // device, queried once per device (with the shared-memory carveout raised to
@@ -324,12 +368,14 @@ int launch_roll_hist(const uint8_t* codes, long long n_codes, int w, int nt, int
 template <typename Code>
 int launch_codes(const void* codes, int k, int w, int depth, int t, int n_tiles, int nt,
                  int nkc, void* ab, void* kc, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(t + w) * sizeof(int32_t);
-  cudaError_t err = allow_smem(pair_depth_codes_kernel<Code>, smem);
+  if (!pair_tile_ok(t)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool small = depth <= kmg::kPairR;
+  const size_t smem = static_cast<size_t>(kmg::pair_tile_words(t, w)) * sizeof(int32_t);
+  auto kernel = small ? pair_depth_codes_kernel<Code, true> : pair_depth_codes_kernel<Code, false>;
+  const cudaError_t err = kmg::allow_smem_once(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_depth_codes_kernel<Code><<<n_tiles, kThreads, smem, stream>>>(
-      static_cast<const Code*>(codes), k, w, depth, t, nt, nkc, static_cast<int32_t*>(ab),
-      static_cast<int32_t*>(kc));
+  kernel<<<n_tiles, t / kmg::kPairR * kmg::pair_groups(small), smem, stream>>>(
+      static_cast<const Code*>(codes), k, w, depth, nt, nkc, static_cast<int32_t*>(ab), static_cast<int32_t*>(kc));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,7 +386,8 @@ int launch_codes(const void* codes, int k, int w, int depth, int t, int n_tiles,
 // codes must hold n_tiles * t + w + k - 1 entries, with n_tiles * t >=
 // max(nt, nkc).  Byte codes at k = 1 and depth = w - 1 take the sliding
 // histogram (t and n_tiles then only size the codes), every other shape the
-// depth loop.  Returns cudaGetLastError().
+// register-blocked routine (t a multiple of 512, at most 2048; w at most
+// 52,628 at t = 2048 on an H100).  Returns cudaGetLastError().
 extern "C" int kmg_pair_depth_codes(const void* codes, int code_bytes, int k, int w, int depth,
                                     int t, int n_tiles, int nt, int nkc, void* ab, void* kc,
                                     void* stream) {
@@ -361,15 +408,17 @@ extern "C" int kmg_pair_depth_codes(const void* codes, int code_bytes, int k, in
 }
 
 // K6: ab[nt] from K codes kcodes[n_kcodes] (n_kcodes >= nt + w), with
-// n_tiles * t >= nt.  Returns cudaGetLastError().
+// n_tiles * t >= nt (t a multiple of 512, at most 2048; w at most 52,628 at
+// t = 2048 on an H100).  Returns cudaGetLastError().
 extern "C" int kmg_pair_depth_kcodes(const void* kcodes, long long n_kcodes, int w, int depth,
                                      int t, int n_tiles, int nt, void* ab, void* stream) {
-  if (depth < 0 || depth >= w) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(t + w) * sizeof(int32_t);
-  cudaError_t err = allow_smem(pair_depth_kcodes_kernel, smem);
+  if (depth < 0 || depth >= w || !pair_tile_ok(t)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool small = depth <= kmg::kPairR;
+  const size_t smem = static_cast<size_t>(kmg::pair_tile_words(t, w)) * sizeof(int32_t);
+  auto kernel = small ? pair_depth_kcodes_kernel<true> : pair_depth_kcodes_kernel<false>;
+  const cudaError_t err = kmg::allow_smem_once(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_depth_kcodes_kernel<<<n_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(kcodes), n_kcodes, w, depth, t, nt,
-      static_cast<int32_t*>(ab));
+  kernel<<<n_tiles, t / kmg::kPairR * kmg::pair_groups(small), smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(kcodes), n_kcodes, w, depth, nt, static_cast<int32_t*>(ab));
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,16 @@ on CUDA tensors and run their plain PyTorch twins on CPU tensors; any other
 device raises.
 
 Source note (K2).  Replaces ``kmergma_tpu/ops/scan_pallas.py::_match_counts_kernel``.
-On the H100 it is bound by shared-memory reads: 2w compares per position
-(568 at ws = 289, k = 6) against one read of K and one write of AB in
-device memory.  One block stages a row of t + w int32 K codes in shared
-memory and neighbouring threads take neighbouring positions, so the reads
-are free of bank conflicts; rows may overlap in memory (a row stride), so
-the whole-record scan tiles K without a copy.
+K2 is the net pair delta at depth w - 1 plus [K[p] == K[p+w]] - 1, so it
+runs the register-blocked routine of ``csrc/pair_counts.cuh`` with that
+term in its epilogue: a thread owns 16 consecutive positions, keeps their
+targets in registers and streams each of the w + 14 columns of its two
+runs from a staged tile once (one pad word per 16, so no bank conflicts),
+about 37 shared loads a position at ws = 289, k = 6 instead of 568.  The
+2 (w - 1) compares a position remain, two to an XOR and a DPX halfword
+minimum when a tile's codes fit 16 bits: integer issue bounds it on the
+H100.  Rows may overlap in memory (a row stride), so the whole-record
+scan tiles K without a copy.
 
 Source note (K5).  Replaces ``_codes_pair_roll_multi_kernel`` (K5r) and
 ``_codes_pair_multi_kernel`` (K5) of ``kmergma_tpu/ops/scan_pallas.py``,
@@ -34,14 +38,17 @@ Source note (K4, K4r, K6).  Replace ``_codes_pair_kernel`` (K4),
 ``kmergma_tpu/ops/scan_pallas.py``: one function, the net pair delta at one
 width and a run-time depth, with codes in (K4 and K4r, which also return
 the K codes; K4r only kept Mosaic's VMEM O(1) in depth) or K codes in (K6),
-so one source with two entry points serves all three.  Two routes, chosen
+so one source with two entry points serves all three.  Routes are chosen
 by shape in the C entry: byte codes at k = 1 and depth w - 1 (the strobe
 engine's s = 2 exact pass, K4r's main shape) take a sliding histogram,
 ab[p] = H_p[K[p+w]] - H_p[K[p]] with H_p the histogram of K[p+1 .. p+w-1],
 one thread a segment of positions with its own 256 bins in shared memory,
-O(1) work a position; every other shape takes the depth loop, bound by
-shared-memory reads, 2 * depth compares per position, against one code
-read and one or two int32 written per position in device memory.
+O(1) work a position; every other shape takes K2's register-blocked
+routine (``csrc/pair_counts.cuh``), 16 positions a thread with their
+targets in registers: at depth <= 16 (K6's split pass, K4) all of a
+thread's codes sit in registers, about 4 shared loads a position; deeper,
+the columns stream from the staged tile.  Instruction issue binds at every
+depth, above the device-memory bytes even at depth 16.
 """
 
 from __future__ import annotations

@@ -271,11 +271,18 @@ def test_chip_smoke_phases_on_cpu(capsys):
         "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome",
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    # each median time with its fastest window beside it; K1's and K3's stages on the card
-    extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms"}
+    # each median time with its fastest window beside it; K1's and K3's stages on the card; device
+    # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
+    extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
+    assert [k["name"] for k in report["kernels"] if "device_ms" in k] == [
+        "match_counts", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
+    ]
+    k2 = next(k for k in report["kernels"] if k["name"] == "match_counts")
+    k6 = next(k for k in report["kernels"] if k["name"] == "pair_ab_from_kcodes")
+    assert k2["whole_record"]["rows"] > 0 and k6["prefix_depth"]["depth"] == 14
     assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
     assert all(k["replaces"].startswith(("kmergma_tpu/", "bench.py:")) and (_ROOT / k["source"]).exists() for k in report["kernels"])
     assert all(k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations") for k in report["kernels"])
@@ -293,6 +300,21 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert "strobe hits equal the host oracle's" in out
     assert out.count("mixed-depth streams equal the int64 host oracle's") == 2
     assert out.count("idle share") == 5
+
+
+def test_chip_smoke_pair_kernels_on_cpu(capsys):
+    """``chip_smoke.py --pair-kernels`` (K2, K4 and K6 alone at the main
+    paths' shapes, each held against its plain twin) on CPU tensors at a
+    small size: every shape timed, no device time off the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000)
+    assert sorted(out) == ["K2_region_rows", "K2_whole_record", "K4_depth14", "K4_depth16", "K6_depth14", "K6_depth16"]
+    assert all(v["ms"] > 0 and v["ms_min"] <= v["ms"] and v["device_ms"] is None for v in out.values())
+    assert "bit-identical=False" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

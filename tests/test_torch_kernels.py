@@ -210,6 +210,105 @@ def test_k2_matches_twin_on_card(record, cuda_device):
     assert torch.equal(got, tscan.scan_window_distances(dev_codes, s, k, ws, r))
 
 
+def _edge_kcodes(n: int, k: int, seed: int, run: tuple | None, device) -> torch.Tensor:
+    """int32 K codes of a seeded record with a low-complexity quarter and
+    optionally a run of one code, on ``device``."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n + k - 1, dtype=np.int8)
+    q = n // 4
+    codes[q : 2 * q] = np.tile(rng.integers(0, 4, 7, dtype=np.int8), -(-q // 7))[:q]
+    kc = tscan.rolling_kmer_codes(torch.from_numpy(codes), k)
+    if run is not None:
+        kc[run[0] : run[1]] = kc[run[0]]
+    return kc.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,w,t,n_rows,stride,run",
+    [
+        (6, 284, 1000, 5, None, (30, 700)),  # t off a multiple of 16; a run longer than w
+        (6, 284, 4097, 3, None, None),  # three tiles a row, the last of one position
+        (6, 284, 2048, 40, 2048, (5_000, 5_400)),  # overlapping rows of a whole record
+        (6, 284, 17, 9, None, None),
+        (6, 17, 333, 4, 100, (40, 90)),  # depth 16: the small route
+        (6, 18, 333, 4, None, None),  # depth 17: the streaming route
+        (6, 1, 64, 3, None, None),  # depth 0
+        (10, 120, 1024, 6, 1024, (500, 700)),  # k = 10: codes past 16 bits
+    ],
+)
+def test_k2_routes_match_twin_on_card(cuda_device, k, w, t, n_rows, stride, run):
+    """K2's register-blocked routine at its edges against the plain twin."""
+    stride = t + w if stride is None else stride
+    flat = _edge_kcodes((n_rows - 1) * stride + t + w, k, t + w, run, cuda_device)
+    tiles = flat.as_strided((n_rows, t + w), (stride, 1))
+    before = match_counts.launches
+    got = match_counts(tiles, w, t)
+    torch.cuda.synchronize()
+    assert match_counts.launches == before + 1
+    assert torch.equal(got, _match_counts_plain(tiles, w, t))
+    if run is not None and run[1] - run[0] > w:
+        assert int(got.abs().max()) == w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,w,depth,nt,run,offset",
+    [
+        (6, 284, 1, 5_000 - 3, None, 0),
+        (6, 15, 14, 4_100 - 5, (900, 1_000), 0),
+        (6, 284, 16, 2 * 2048 + 17, (100, 600), 0),
+        (6, 284, 16, 2 * 2048 + 17, (100, 600), 1),  # K codes off a 16-byte boundary
+        (6, 284, 17, 3_001, (100, 600), 0),
+        (6, 284, 283, 2_048 + 1, (700, 1_200), 0),
+        (6, 284, 283, 2_048 + 1, (700, 1_200), 3),
+        (10, 284, 16, 4_111, None, 0),
+        (10, 120, 119, 2_500, (50, 400), 0),
+    ],
+)
+def test_k6_routes_match_twin_on_card(cuda_device, k, w, depth, nt, run, offset):
+    """K6's two routes at depths 1, 14, 16, 17 and w - 1, nt off a multiple
+    of 16 and of the tile, runs of one code longer than w, k = 10, and K
+    codes that do not start on a 16-byte boundary."""
+    kc = _edge_kcodes(nt + w + 29 + offset, k, depth + nt, run, cuda_device)[offset:]
+    before = pair_ab_from_kcodes.launches
+    ab = pair_ab_from_kcodes(kc, w, nt, depth)
+    torch.cuda.synchronize()
+    assert pair_ab_from_kcodes.launches == before + 1
+    assert torch.equal(ab, tscan._pair_ab(kc, w, nt, depth))
+    if run is not None:
+        assert int(ab.abs().max()) == depth
+
+
+#: the widest window of K4's and K6's register-blocked route at their
+#: 2048-position tile on an H100: the tile's padded K codes (16 + 2048 + w,
+#: one pad word per 16) fill the 227 KB of shared memory a block may take
+_PAIR_WIDEST_W = 52_628
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [16, 300])
+def test_k4_and_k6_widest_window_on_card(cuda_device, depth):
+    """K4 (k = 6, K codes built from the codes) and K6 at the widest window
+    their tile allows match their twins; one code wider is refused, and the
+    refusal does not leak into the next launch."""
+    w, nt = _PAIR_WIDEST_W, 2 * 2048 + 5
+    rng = np.random.default_rng(depth)
+    codes = torch.from_numpy(rng.integers(0, 4, nt + w + 9, dtype=np.int8)).to(cuda_device)
+    codes[1_000:1_400] = 2  # a run of one code: counts up to depth
+    ab, kc = codes_pair_ab_kcodes(codes, 6, w, nt, nt + w, depth)
+    ab_p, kc_p = _codes_pair_ab_kcodes_plain(codes, 6, w, nt, nt + w, depth)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
+    assert int(ab.abs().max()) == depth
+    assert torch.equal(pair_ab_from_kcodes(kc, w, nt, depth), ab_p)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        codes_pair_ab_kcodes(codes, 6, w + 1, nt, nt, depth)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pair_ab_from_kcodes(kc, w + 1, nt - 1, depth)
+    assert torch.equal(pair_ab_from_kcodes(kc, w, nt, depth), ab_p)
+    assert torch.equal(codes_pair_ab_kcodes(codes, 6, w, nt, nt + w, depth)[0], ab_p)
+
+
 @pytest.mark.cuda
 def test_engine_on_card_matches_cpu(record, cuda_device):
     codes, p = record
