@@ -22,7 +22,13 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   goldens through ``find_genes_cluster_mode``
   (the split route, so K5), both routes on one record, then the same
   genome plus one short contig (the split route again) mined against an
-  int64 host cluster oracle, and where one call's wall goes;
+  int64 host cluster oracle, and where one call's wall goes; K5 with its
+  device time and launch shape on 60 kb, 16 kb and 4 Mbp records; then a
+  fragmented assembly (1,024 records of 16 kb, 16.4 Mbp, each on the
+  split route) through ``ClusterScanEngine.record_streams``, the first 64
+  records against the int64 host cluster oracle, and one 16 kb and one
+  60 kb bitmap pass on both routes: K5's device time against the torch
+  glue after it, and K3's route on the same record;
 * strobemers (the Alp_V strobe profile, s 2, w_min 3, w_max 5, q 5): K4r
   (K4 at depth ws - k = 282 over uint8 strobe codes, codes >= 128 present:
   the sliding-histogram route) against its twin, and its depth-loop route
@@ -51,8 +57,8 @@ launch counts are set to 0 just before it and read just after.  Kernel
 times are CUDA events over back-to-back launches after a warm-up, the
 median of five windows with the fastest beside it.
 
-``python3 chip_smoke.py --pair-kernels`` times K2, K4 and K6 alone at
-those shapes (one JSON line); a copy of this file placed in the root of
+``python3 chip_smoke.py --pair-kernels`` times K2, K4, K6 and K5 alone
+at those shapes (one JSON line); a copy of this file placed in the root of
 an earlier checkout times that checkout's kernels the same way.  It is
 the parent-against-change tool of the pair kernels' redesigns and takes
 no other option.
@@ -101,6 +107,12 @@ GOLDEN_STROBE = [
 #: the cluster path's extra contig: shorter than K3's cutover of 65,536
 #: windows, so it takes the split route (K5)
 SHORT_CONTIG_BP = 60_000
+#: the fragmented assembly: FRAGMENTS records of FRAGMENT_BP each, cut
+#: from the synthetic genome (16.4 Mbp), all on the split route (K5)
+FRAGMENT_BP = 16_000
+FRAGMENTS = 1_024
+#: of which the first ORACLE_FRAGMENTS are held against the int64 host oracle
+ORACLE_FRAGMENTS = 64
 #: the mixed-depth set's extra profile: the reference genes' prefixes
 PREFIX_BP = 20
 #: the bench phase's row sizes, the harness's defaults: a 512 Mbp headline,
@@ -815,7 +827,6 @@ def cluster_phase(ctx) -> list:
         _k3_args, _lookup_roundtrip_plain, cluster_launch_shape, cluster_tables_in_smem, fused_cluster_record_bitmaps,
         fused_cluster_record_bitmaps_plain, lookup_roundtrip,
     )
-    from kmergma_tpu_torch.ops.scan_kernels import _codes_pair_multi_plain, _pair_multi_need, codes_pair_multi
     from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
 
     device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
@@ -910,24 +921,8 @@ def cluster_phase(ctx) -> list:
     del cprep, bm3, bm3_plain, back, back_plain
 
     # --- K5 vs its plain twin: the split pass's shapes ----------------------
-    ws_groups = tuple(g[0] for g in ceng.groups)
-    k5 = {}
-    for n_bp in (SHORT_CONTIG_BP, ctx["whole_bp"]):
-        pp = ceng.prepare_codes(record[:n_bp])
-        span = ceng._split_span(n_bp - min(clusters.windowsizes) + 1)
-        args = (pp, k, ws_groups, span - 1, span + max(widths) - 1, depth)
-        ms, (ab5, kc5) = kernel_ms(lambda: codes_pair_multi(*args), on_card)
-        pms, (ab5p, kc5p) = kernel_ms(lambda: _codes_pair_multi_plain(*args), on_card, reps=3)
-        err = max_err((ab5, ab5p), (kc5, kc5p))
-        io = (_pair_multi_need(ws_groups, span - 1, span + max(widths) - 1)[1]
-              + 4 * (len(ws_groups) * (span - 1) + span + max(widths) - 1), 4 * depth * (span - 1))
-        k5[n_bp] = (ms, pms, err, io)
-        print(
-            f"K5 codes_pair_multi, {n_bp} bp record, span {span}, groups {ws_groups}, depth {depth}: "
-            f"{ms:.3f} ms, plain twin {pms:.3f} ms, bound {bound(*io)[0]:.5f} ms, bit-identical={err == 0} [{label}]"
-        )
-        require(err == 0, f"K5 differs from its plain twin on a {n_bp} bp record")
-    k5_err = max(v[2] for v in k5.values())
+    k5 = k5_measure(ceng, record, (SHORT_CONTIG_BP, FRAGMENT_BP, ctx["whole_bp"]), on_card, label)
+    k5_err = max(v["err"] for v in k5.values())
 
     # --- cluster goldens through find_genes_cluster_mode (the split route) --
     ctx["launches"].reset()
@@ -986,13 +981,19 @@ def cluster_phase(ctx) -> list:
         missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts")
                    if claunches[n] == 0]
         require(not missing, f"a kernel of the cluster path never launched: {claunches}")
+    frag = fragmented_phase(ctx, short_contig)
     return [
         entry("fused_cluster_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:187",
               claunches["fused_cluster_record_bitmaps"], k3_err, k3_ms, k3_plain_ms, *k3_io, stages_ms=k3_stages),
         entry("lookup_roundtrip", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_cluster_fused.py:169",
               claunches["lookup_roundtrip"], k8_err, k8_ms, k8_plain_ms, *k8_io, library_ms=k8_lib_ms),
         entry("codes_pair_multi", "pair_multi.cu", "kmergma_tpu/ops/scan_pallas.py:368",
-              claunches["codes_pair_multi"], k5_err, *k5[SHORT_CONTIG_BP][:2], *k5[SHORT_CONTIG_BP][3]),
+              claunches["codes_pair_multi"], k5_err, k5[SHORT_CONTIG_BP]["ms"], k5[SHORT_CONTIG_BP]["plain_ms"],
+              *k5[SHORT_CONTIG_BP]["io"], device_ms=k5[SHORT_CONTIG_BP]["device_ms"],
+              shapes={str(n_bp): {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"],
+                                  "bound_ms": bound(*v["io"])[0], "bound_by": bound(*v["io"])[1], "launch": v["shape"]}
+                      for n_bp, v in k5.items()},
+              fragmented=frag),
     ]
 
 
@@ -1179,6 +1180,157 @@ def mixed_depth_phase(ctx) -> list:
               prefix_depth={"depth": PREFIX_BP - k, "ms": float(k6_prefix["ms"]), "ms_min": k6_prefix["ms"].min,
                             "device_ms": k6_prefix["device_ms"], "bound_ms": bound(*k6_prefix["io"])[0]}),
     ]
+
+
+def k5_measure(ceng, record, n_bps, on_card: bool, label: str, time_plain: bool = True) -> dict:
+    """K5 against its twin at the split pass's shapes on the first ``n_bp``
+    bp of ``record`` for each of ``n_bps``: {n_bp: {ms, plain_ms, err, io,
+    device_ms, shape}}, wrapper ms from ``kernel_ms``, device ms from
+    ``queued_device_ms`` (on the card), the launch shape where the package
+    reports it.  It calls only ``codes_pair_multi``, ``_pair_multi_need``
+    and the engine's ``prepare_codes`` / ``_split_span``, so it times an
+    earlier checkout too."""
+    from kmergma_tpu_torch.ops import scan_kernels as sk
+
+    k, depth = ceng.k, ceng.groups[0][1]
+    ws_groups = tuple(g[0] for g in ceng.groups)
+    max_w = max(ws_groups) - k + 1
+    launch_shape = getattr(sk, "pair_multi_launch_shape", None)
+    out = {}
+    for n_bp in n_bps:
+        pp = ceng.prepare_codes(record[:n_bp])
+        span = ceng._split_span(n_bp - min(ws_groups) + 1)
+        args = (pp, k, ws_groups, span - 1, span + max_w - 1, depth)
+        ms, (ab, kc) = kernel_ms(lambda: sk.codes_pair_multi(*args), on_card)
+        if time_plain:
+            pms, (ab_p, kc_p) = kernel_ms(lambda: sk._codes_pair_multi_plain(*args), on_card, reps=3)
+        else:
+            pms, (ab_p, kc_p) = None, sk._codes_pair_multi_plain(*args)
+        err = max_err((ab, ab_p), (kc, kc_p))
+        io = (sk._pair_multi_need(ws_groups, span - 1, span + max_w - 1)[1]
+              + 4 * (len(ws_groups) * (span - 1) + span + max_w - 1), 4 * depth * (span - 1))
+        dev = queued_device_ms(lambda: sk.codes_pair_multi(*args)) if on_card else None
+        shape = launch_shape(k, ws_groups, span - 1, span + max_w - 1) if launch_shape else None
+        out[n_bp] = {"ms": ms, "plain_ms": pms, "err": err, "io": io, "device_ms": dev, "shape": shape}
+        plain = "" if pms is None else f", plain twin {pms:.3f} ms"
+        devs = "" if dev is None else f", device {dev:.5f} ms"
+        print(f"K5 codes_pair_multi, {n_bp} bp record, span {span}, groups {ws_groups}, depth {depth}: {ms:.4f} ms "
+              f"(fastest window {ms.min:.4f}){devs}{plain}, bound {bound(*io)[0]:.5f} ms ({bound(*io)[1]}), launch "
+              f"{shape}, bit-identical={err == 0} [{label}]")
+        require(err == 0, f"K5 differs from its plain twin on a {n_bp} bp record")
+    return out
+
+
+def device_by_name(call, reps: int = 20) -> tuple[dict, int]:
+    """({kernel name: device ms per call}, device intervals per call) of
+    ``reps`` calls of ``call`` under torch.profiler, after a first profiled
+    call that only starts the tracer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=activities):
+        call()
+    with torch_profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    totals: dict = {}
+    dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    for e in dev:
+        totals[e.name] = totals.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return totals, len(dev) // reps
+
+
+def split_pass_profile(profiles, k: int, codes, thrs, device, on_card: bool, label: str) -> dict:
+    """One record's bitmap pass on both routes: the split pass (K5 and the
+    torch glue after it) and K3's route (an engine copy with
+    ``fused_min_windows = 0``), bitmaps equal over the record's blocks;
+    wall ms a call from ``kernel_ms`` and, on the card, device ms by
+    kernel from torch.profiler."""
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+
+    split_eng = ClusterScanEngine(profiles, k=k, device=device)
+    k3_eng = ClusterScanEngine(profiles, k=k, device=device)
+    k3_eng.fused_min_windows = 0
+    n = codes.shape[0]
+    nws = [n - e.ws + 1 for e in split_eng.engines]
+    thr_ints = [int(e._thr_int(x)) for e, x in zip(split_eng.engines, thrs)]
+    prep = split_eng.prepare_codes(codes)
+    routes = {"split": lambda: split_eng._split_bitmaps(prep, nws, thr_ints),
+              "K3": lambda: k3_eng._fused_bitmaps(prep, nws, thr_ints)}
+    bms = {name: call() for name, call in routes.items()}
+    nb = -(-max(nws) // split_eng.block)
+    a, b = bms["split"], bms["K3"]
+    require(bool((a[:, :nb] == b[:, :nb]).all()) and not bool(a[:, nb:].any()) and not bool(b[:, nb:].any()),
+            f"the split pass's and K3's bitmaps differ on a {n} bp record")
+    out = {}
+    for name, call in routes.items():
+        ms, _ = kernel_ms(call, on_card, reps=10)
+        row = {"wall_ms": float(ms), "wall_ms_min": ms.min}
+        if on_card:
+            totals, n_dev = device_by_name(call)
+            kern = "pair_multi" if name == "split" else "fused_cluster"
+            row["kernel_device_ms"] = sum(t for nm, t in totals.items() if kern in nm)
+            row["glue_device_ms"] = sum(t for nm, t in totals.items() if kern not in nm)
+            row["device_intervals"] = n_dev
+        out[name] = row
+    dev = {name: "" if "kernel_device_ms" not in r else
+           f", device: kernel {r['kernel_device_ms']:.5f} ms + glue {r['glue_device_ms']:.5f} ms in "
+           f"{r['device_intervals']} intervals" for name, r in out.items()}
+    print(f"bitmap pass of one {n} bp record, bitmaps equal on both routes: split pass (K5 + glue) "
+          f"{out['split']['wall_ms']:.4f} ms a call{dev['split']}; K3's route {out['K3']['wall_ms']:.4f} ms a "
+          f"call{dev['K3']} [{label}]")
+    return out
+
+
+def fragmented_phase(ctx, short_contig) -> dict:
+    """Cluster mode on a fragmented assembly: ``ClusterScanEngine
+    .record_streams`` over ``ctx["fragments"]`` records of FRAGMENT_BP bp
+    cut from the synthetic genome (the Alp_V set in six clusters, auto
+    thresholds), one K5 launch a record, the first ORACLE_FRAGMENTS
+    records' streams equal to the int64 host cluster oracle's; then one
+    16 kb and one 60 kb bitmap pass on both routes
+    (``split_pass_profile``)."""
+    import numpy as np
+
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    profiles, cthrs, k = ctx["clusters"].profiles, ctx["cthrs"], 6
+    n_rec = ctx["fragments"]
+    genome = np.concatenate(ctx["contigs"])
+    require(genome.shape[0] >= n_rec * FRAGMENT_BP, f"the genome holds fewer than {n_rec} fragments")
+    recs = genome[: n_rec * FRAGMENT_BP].reshape(n_rec, FRAGMENT_BP)
+    n_oracle = min(ORACLE_FRAGMENTS, n_rec)
+    eng = ClusterScanEngine(profiles, k=k, device=device)
+    for r in recs[:8]:  # warm-up
+        eng.record_streams(r, cthrs)
+    ctx["launches"].reset()
+    wall_s, streams = clock(lambda: [eng.record_streams(r, cthrs) for r in recs], sync)
+    wall_s /= 1e3
+    launches = ctx["launches"].read()
+    mbps = n_rec * FRAGMENT_BP / wall_s / 1e6
+    print(f"fragmented assembly: {n_rec} records of {FRAGMENT_BP} bp through ClusterScanEngine.record_streams: "
+          f"{wall_s:.3f} s = {mbps:.2f} Mbp/s, {sum(len(s) for st in streams for _d, s in st)} stream entries; "
+          f"launch counts {launches} [{label}]")
+    if on_card:
+        require(launches["codes_pair_multi"] == n_rec and launches["fused_cluster_record_bitmaps"] == 0,
+                f"the fragmented records did not take K5 once each: {launches}")
+    oracle = HostClusterOracle(profiles, k)
+    for i in range(n_oracle):
+        require(streams[i] == oracle.minimal_streams(recs[i], cthrs, eng.max_ws),
+                f"fragment {i}'s cluster streams differ from the int64 host oracle")
+    require(any(s for st in streams for _d, s in st), "no cluster stream entries on the fragmented genome")
+    print(f"the first {n_oracle} fragments' streams equal the int64 host cluster oracle's [{label}]")
+    device_share(f"{n_oracle}-fragment record_streams",
+                 lambda: [eng.record_streams(r, cthrs) for r in recs[:n_oracle]], sync, device, label)
+    passes = {str(n_bp): split_pass_profile(profiles, k, codes, cthrs, device, on_card, label)
+              for n_bp, codes in ((FRAGMENT_BP, recs[0]), (SHORT_CONTIG_BP, short_contig))}
+    return {"records": n_rec, "record_bp": FRAGMENT_BP, "wall_s": wall_s, "mbps": mbps,
+            "k5_launches": launches["codes_pair_multi"], "bitmap_pass": passes}
 
 
 def pair_depth_measure(eng, record, on_card: bool, label: str) -> dict:
@@ -1534,11 +1686,12 @@ def build_kernels(label: str) -> None:
 
 
 def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp: int = 4_000_000) -> dict:
-    """K2, K4 and K6 alone at the shapes the main paths give them
+    """K2, K4, K6 and K5 alone at the shapes the main paths give them
     (``python3 chip_smoke.py --pair-kernels``): the first contig of the
     synthetic genome, K1's bitmap over it for K2's region rows, the
-    whole-record scan's rows, and the mixed-depth split pass's K4 and K6
-    shapes, each against its plain twin.  It calls only the package's
+    whole-record scan's rows, the mixed-depth split pass's K4 and K6
+    shapes, and the cluster split pass's K5 on its first 60 kb, 16 kb and
+    ``whole_bp``, each against its plain twin.  It calls only the package's
     public wrappers and engines, so the same script times an earlier
     checkout of the package: run from a copy of this file placed in that
     checkout's root.  Returns {shape: {ms, ms_min, device_ms}}."""
@@ -1546,6 +1699,7 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
 
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
     from kmergma_tpu_torch.ops.scan import ScanEngine, _first_window_l0
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
     from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps
     from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
     from kmergma_tpu_torch.utils.fasta import as_records
@@ -1575,15 +1729,18 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     }
     for (name, d), v in pair_depth_measure(eng, record, on_card, label).items():
         out[f"{name}_depth{d}"] = {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"]}
+    ceng = ClusterScanEngine(clusters.profiles, k=6, device=device)
+    for n_bp, v in k5_measure(ceng, record, (SHORT_CONTIG_BP, FRAGMENT_BP, whole_bp), on_card, label, time_plain=False).items():
+        out[f"K5_{n_bp}bp"] = {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"]}
     return out
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None) -> dict:
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     ``runs`` timed runs follow one warm-up at size, and each stage of the
     breakdowns is the median of ``runs``; ``bench_sizes`` are the bench
-    phase's row sizes (``BENCH_SIZES`` by default).  Returns the kernels'
-    report."""
+    phase's row sizes (``BENCH_SIZES`` by default), ``fragments`` the
+    fragmented assembly's record count.  Returns the kernels' report."""
     import torch
 
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
@@ -1610,7 +1767,7 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         profile=profile, thr=estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0),
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
-        launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes,
+        launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx["fasta"] = Path(tmp) / "genome.fasta"

@@ -91,7 +91,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kmg_match_counts.restype = i
     lib.kmg_match_counts.argtypes = [p, ll, i, i, i, p, p]
     lib.kmg_pair_multi.restype = i
-    lib.kmg_pair_multi.argtypes = [p, i, i, ip, i, i, i, i, i, p, p, p]
+    lib.kmg_pair_multi.argtypes = [p, ll, i, i, ip, i, i, i, i, i, i, p, p, p]
     lib.kmg_pair_depth_codes.restype = i
     lib.kmg_pair_depth_codes.argtypes = [p, i, i, i, i, i, i, i, i, p, p, p]
     lib.kmg_pair_depth_kcodes.restype = i

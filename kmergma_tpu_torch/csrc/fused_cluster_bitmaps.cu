@@ -310,12 +310,6 @@ __host__ __device__ inline Layout cluster_layout(bool tables_in_smem, int m, int
   return l;
 }
 
-// Four 2-bit codes, one per byte (first byte lowest), as 8 bits with the
-// first code highest.
-__device__ __forceinline__ uint32_t pack4(uint32_t w) {
-  return ((w & 3u) << 6) | ((w >> 4) & 0x30u) | ((w >> 14) & 0x0cu) | ((w >> 24) & 3u);
-}
-
 // One device's limits, queried once.
 struct DeviceInfo {
   int optin;
@@ -458,7 +452,7 @@ fused_cluster_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict
     const uint4* raw = reinterpret_cast<const uint4*>(smem + lay.raw + rb * lay.raw_bytes);
     for (int q = tid; q < n_granules; q += kThreads) {
       const uint4 v = raw[q];
-      codes2[q] = pack4(v.x) << 24 | pack4(v.y) << 16 | pack4(v.z) << 8 | pack4(v.w);
+      codes2[q] = kmg::pack4(v.x) << 24 | kmg::pack4(v.y) << 16 | kmg::pack4(v.z) << 8 | kmg::pack4(v.w);
     }
     if constexpr (kEmit) {
       // the tile's bases; the carries were last read before the previous

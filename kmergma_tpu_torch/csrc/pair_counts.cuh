@@ -1,17 +1,37 @@
-// Device helpers of the pair kernels: a tile's rolling k-mer codes in shared
-// memory and the depth-limited equal-k-mer pair counts on either side of a
-// position (K3 csrc/fused_cluster_bitmaps.cu, K5 csrc/pair_multi.cu), and the
-// register-blocked net pair delta at one width (K2 csrc/match_counts.cu; K4,
-// K4r's other shapes and K6 csrc/pair_depth.cu).
+// Device helpers of the pair kernels: the depth-limited equal-k-mer pair
+// counts on either side of a position (K3 csrc/fused_cluster_bitmaps.cu, K5
+// csrc/pair_multi.cu), and the register-blocked net pair delta at one width
+// (K2 csrc/match_counts.cu; K4, K4r's other shapes and K6 csrc/pair_depth.cu).
 //
 // The net pair delta of window transition p at width w and depth d,
 //   ab_w[p] = sum_{j=1..d} [K[p+w-j] == K[p+w]] - [K[p+j] == K[p]],
 // splits into a term of x = p + w alone and a term of p alone:
 //   Lc[x] = sum_j [K[x-j] == K[x]],  Rc[p] = sum_j [K[p+j] == K[p]],
 //   ab_w[p] = Lc[p + w] - Rc[p],
-// so K3 and K5 count 2 * d compares per position once for every window
-// width.  Their counts are at most d and are kept as bytes (the wrappers
-// hold d <= 255).
+// so K3 and K5 count the pairs once for every window width.  K3 counts 2 d
+// compares a position (each side's on its own).  K5 counts each equal pair
+// once (pair_unit_counts below): the compare e(a, a + j) = [K[a] == K[a+j]]
+// adds to Rc[a] and to Lc[a + j], d compares a position.  Their counts are
+// at most d and are kept as bytes (the wrappers hold d <= 255).
+//
+// The once-counted unit (pair_unit_counts, d <= 16).  A thread owns a unit of
+// kPairR = 16 consecutive left ends a0 .. a0 + 15 and builds the 33 K codes
+// K[a0 .. a0 + 32] in registers from four words of 2-bit codes.  Its pairs
+// (a, a + j), j <= d, give the whole Rc of its unit and the part of Lc at a0
+// + 1 .. a0 + 31 whose left end is in the unit: Lc of its own 16 positions
+// but for the pairs that start in the unit before, and a carry for the next
+// unit's 16.  The caller hands the carry to the next lane by one warp
+// shuffle, and from a warp's last lane to the next warp's first through
+// shared memory.  The counts are of unequal pairs (d minus the equal ones),
+// which makes ab = Ru[p] - Lu[p + w] and keeps every partial count between
+// 0 and d.  Codes that fit 16 bits (k <= 8, or a warp whose K codes all do)
+// are compared two to a word: pe[q] = (K[2q], K[2q+1]), po[q] = (K[2q+1],
+// K[2q+2]); a target pair pe[m] against its partners at distance j (pe[m +
+// j/2] for even j, po[m + (j-1)/2] for odd) by one XOR and one DPX halfword
+// minimum, the result added to Rc's word m and to the even- or odd-aligned
+// Lc word it lands on.  Both halves count at most d <= 16 unequal pairs, so
+// no half carries into the other and no bias is needed.  About 1.5
+// instructions a compare, d compares a position.
 //
 // The register-blocked routine (pair_tile_deltas) computes ab at one width
 // for a staged tile.  A thread owns kPairR = 16 consecutive positions p0 ..
@@ -59,28 +79,6 @@
 #include <cuda_runtime.h>
 
 namespace kmg {
-
-// kc[i] = the code of the k-mer at c[i], for i in [0, n) (block-cooperative;
-// reads c[0 .. n + k - 2]).
-__device__ __forceinline__ void build_kcodes(const int8_t* __restrict__ c, int k, int n,
-                                             int32_t* __restrict__ kc) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int v = 0;
-    for (int j = 0; j < k; ++j) v = v * 4 + c[i + j];
-    kc[i] = v;
-  }
-}
-
-// lc[x - lo] = Lc[x] for x in [lo, hi) (block-cooperative; lo >= depth).
-__device__ __forceinline__ void left_pair_counts(const int32_t* __restrict__ kc, int lo, int hi,
-                                                 int depth, uint8_t* __restrict__ lc) {
-  for (int x = lo + static_cast<int>(threadIdx.x); x < hi; x += blockDim.x) {
-    const int v = kc[x];
-    int n = 0;
-    for (int d = 1; d <= depth; ++d) n += kc[x - d] == v;
-    lc[x - lo] = static_cast<uint8_t>(n);
-  }
-}
 
 // Rc[p]
 __device__ __forceinline__ int right_pair_count(const int32_t* __restrict__ kc, int p, int depth) {
@@ -487,6 +485,125 @@ __device__ __forceinline__ void pair_tile_deltas(int32_t* __restrict__ s, int T,
   }
   __syncthreads();
   pair_store(s, 0, n_out, out);
+}
+
+// ---- the once-counted unit ------------------------------------------------
+
+// Four 2-bit codes, one per byte (first byte lowest), as 8 bits with the
+// first code highest.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) {
+  return ((w & 3u) << 6) | ((w >> 4) & 0x30u) | ((w >> 14) & 0x0cu) | ((w >> 24) & 3u);
+}
+
+// Four byte counts as one word, the first lowest.
+__device__ __forceinline__ uint32_t bytes4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return a | b << 8 | c << 16 | d << 24;
+}
+
+// The K code of kk <= 16 codes whose first is code s of the 2-bit stream
+// codes2 (16 codes a word, first code highest).
+__device__ __forceinline__ uint32_t kcode_at(const uint32_t* __restrict__ codes2, int s, int kk) {
+  const uint32_t top = __funnelshift_l(codes2[(s >> 4) + 1], codes2[s >> 4], 2 * (s & 15));
+  return top >> (32 - 2 * kk);
+}
+
+// kv[i] = the K code of kk <= 16 codes from code s + i of codes2, i <= 32:
+// the 48 codes from s aligned into three words once, then two shifts a code.
+__device__ __forceinline__ void unit_kcodes(const uint32_t* __restrict__ codes2, int s, int kk,
+                                            uint32_t kv[2 * kPairR + 1]) {
+  const uint32_t* w = codes2 + (s >> 4);
+  const int sh = 2 * (s & 15);
+  const uint32_t w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+  const uint32_t y0 = __funnelshift_l(w1, w0, sh);
+  const uint32_t y1 = __funnelshift_l(w2, w1, sh);
+  const uint32_t y2 = __funnelshift_l(w3, w2, sh);
+  const int down = 32 - 2 * kk;
+#pragma unroll
+  for (int i = 0; i < kPairR; ++i) {
+    kv[i] = __funnelshift_l(y1, y0, 2 * i) >> down;
+    kv[kPairR + i] = __funnelshift_l(y2, y1, 2 * i) >> down;
+  }
+  kv[2 * kPairR] = y2 >> down;
+}
+
+// One unit's unequal-pair counts at depth <= 16 from its K codes kv[0 ..
+// 32] (see the head of this file), each as four words of byte counts, the
+// first position lowest: rc = Ru of positions 0 .. 15, own = the unit's
+// share of Lu of positions 0 .. 15, carry = its share of Lu of positions 16
+// .. 31 (the next unit's).  kNarrow: every kv fits 16 bits.
+template <bool kNarrow>
+__device__ __forceinline__ void pair_unit_counts(const uint32_t kv[2 * kPairR + 1], int depth, uint32_t own[4],
+                                                 uint32_t carry[4], uint32_t rc[4]) {
+  if constexpr (kNarrow) {
+    constexpr int kM = kPairR / 2;
+    uint32_t pe[kPairR];  // (K[2q], K[2q + 1])
+    uint32_t po[kPairR];  // (K[2q + 1], K[2q + 2])
+#pragma unroll
+    for (int q = 0; q < kPairR; ++q) {
+      pe[q] = pack2(kv[2 * q], kv[2 * q + 1]);
+      po[q] = pack2(kv[2 * q + 1], kv[2 * q + 2]);
+    }
+    uint32_t r2[kM];      // Ru of (2m, 2m + 1)
+    uint32_t le[kPairR];  // Lu of (2q, 2q + 1)
+    uint32_t lo[kPairR];  // Lu of (2q + 1, 2q + 2); lo[15] stays 0
+#pragma unroll
+    for (int q = 0; q < kPairR; ++q) {
+      le[q] = 0u;
+      lo[q] = 0u;
+      if (q < kM) r2[q] = 0u;
+    }
+#pragma unroll
+    for (int j = 1; j <= kPairR; ++j) {
+      if (j <= depth) {
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          const uint32_t e = unequal2(pe[m] ^ ((j & 1) ? po[m + (j - 1) / 2] : pe[m + j / 2]), 0x00010001u);
+          r2[m] += e;
+          if (j & 1) {
+            lo[m + (j - 1) / 2] += e;
+          } else {
+            le[m + j / 2] += e;
+          }
+        }
+      }
+    }
+    // h[q] = Lu of (2q, 2q + 1): the even word, the odd word before's high
+    // half and this odd word's low half
+    uint32_t h[kPairR];
+#pragma unroll
+    for (int q = 0; q < kPairR; ++q) h[q] = le[q] + __byte_perm(q > 0 ? lo[q - 1] : 0u, lo[q], 0x5432);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      own[r] = __byte_perm(h[2 * r], h[2 * r + 1], 0x6420);
+      carry[r] = __byte_perm(h[kM + 2 * r], h[kM + 2 * r + 1], 0x6420);
+      rc[r] = __byte_perm(r2[2 * r], r2[2 * r + 1], 0x6420);
+    }
+  } else {
+    uint32_t ru[kPairR];
+    uint32_t lu[2 * kPairR];
+#pragma unroll
+    for (int i = 0; i < 2 * kPairR; ++i) {
+      lu[i] = 0u;
+      if (i < kPairR) ru[i] = 0u;
+    }
+#pragma unroll
+    for (int j = 1; j <= kPairR; ++j) {
+      if (j <= depth) {
+#pragma unroll
+        for (int i = 0; i < kPairR; ++i) {
+          const uint32_t e = kv[i] != kv[i + j];
+          ru[i] += e;
+          lu[i + j] += e;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      own[r] = bytes4(lu[4 * r], lu[4 * r + 1], lu[4 * r + 2], lu[4 * r + 3]);
+      carry[r] = bytes4(lu[kPairR + 4 * r], lu[kPairR + 4 * r + 1], lu[kPairR + 4 * r + 2], lu[kPairR + 4 * r + 3]);
+      rc[r] = bytes4(ru[4 * r], ru[4 * r + 1], ru[4 * r + 2], ru[4 * r + 3]);
+    }
+  }
 }
 
 // Raises a kernel's dynamic shared-memory limit to smem when it is above

@@ -28,10 +28,17 @@ scan tiles K without a copy.
 Source note (K5).  Replaces ``_codes_pair_roll_multi_kernel`` (K5r) and
 ``_codes_pair_multi_kernel`` (K5) of ``kmergma_tpu/ops/scan_pallas.py``,
 bit-identical variants that differ only in how Mosaic kept VMEM, so one
-kernel serves both contracts.  Bound by shared-memory reads: 2 * depth
-compares per position for all G windowsize groups together, because
-ab_g[p] = Lc[p + w_g] - Rc[p] with left and right pair counts shared by
-every group (``csrc/pair_counts.cuh``).
+kernel serves both contracts.  ab_g[p] = Lc[p + w_g] - Rc[p] with left
+and right pair counts shared by every group, and each equal pair (a, a +
+j) counted once for both (``csrc/pair_counts.cuh``): a thread owns 16
+left ends with their K codes in registers (built from the codes packed
+two bits each), compares two 16-bit codes at once, and hands the left
+counts of the next 16 positions to the next lane by a warp shuffle, about
+d compares a position instead of 2 d.  The tile is chosen from the
+record's length (``_pair_multi_tile``: 256 positions on short records,
+so a 60 kb record gives every SM of an H100 a block, up to 2048 on long
+ones).  The 4 (G + 1) bytes written a position bound it on long records,
+the launch on short ones.
 
 Source note (K4, K4r, K6).  Replace ``_codes_pair_kernel`` (K4),
 ``_codes_pair_roll_kernel`` (K4r) and ``_pair_counts_kernel`` (K6) of
@@ -52,6 +59,8 @@ depth, above the device-memory bytes even at depth 16.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -143,15 +152,53 @@ def scan_window_distances_kernel(codes: torch.Tensor, s_profile: torch.Tensor, k
     return torch.cat([d0.view(1), d0 + _cumsum32(delta)])
 
 
-#: K5's tile: positions per CUDA block
-_PAIR_T = 4096
+#: K5's tiles, positions per CUDA block, and the SMs of an H100: a record
+#: takes the largest tile that still gives every SM a block, so short
+#: records fill the card and long ones keep the w_max halo a small share
+#: (14% at 2048; 4096-position tiles, two resident blocks an SM, were
+#: slower on a 4 Mbp record; PERF.md)
+_PAIR_MULTI_TILES = (256, 512, 1024, 2048)
+_PAIR_MULTI_SMS = 132
+#: positions of a K5 unit (one thread), and threads a block at most
+_PAIR_UNIT = 16
+_PAIR_MULTI_THREADS = 512
+
+
+def _pair_multi_tile(n: int) -> int:
+    """K5's tile for ``n`` = max(nt, nkc) positions."""
+    for t in reversed(_PAIR_MULTI_TILES):
+        if -(-n // t) >= _PAIR_MULTI_SMS:
+            return t
+    return _PAIR_MULTI_TILES[0]
 
 
 def _pair_multi_need(ws_tuple: tuple, nt: int, nkc: int) -> tuple[int, int]:
     """(tiles, codes the kernel reads) of ``codes_pair_multi``: each tile
-    builds _PAIR_T + w_max K codes, from _PAIR_T + max(ws) codes."""
-    n_tiles = max(1, -(-max(nt, nkc) // _PAIR_T))
-    return n_tiles, n_tiles * _PAIR_T + max(ws_tuple)
+    builds t + w_max K codes, from t + max(ws) codes (the kernel reads
+    zeros past the codes it is given; callers pad to this to share the
+    buffer with other passes)."""
+    n = max(nt, nkc)
+    t = _pair_multi_tile(n)
+    n_tiles = max(1, -(-n // t))
+    return n_tiles, n_tiles * t + max(ws_tuple)
+
+
+def pair_multi_launch_shape(k: int, ws_tuple: tuple, nt: int, nkc: int) -> dict:
+    """K5's launch: positions a tile, blocks, threads a block and units (16
+    left ends each) a tile, from the record alone."""
+    t = _pair_multi_tile(max(nt, nkc))
+    units = -(-(t + max(ws_tuple) - k + 1) // _PAIR_UNIT)
+    return {"tile": t, "grid": _pair_multi_need(ws_tuple, nt, nkc)[0],
+            "threads": min(-(-units // 32) * 32, _PAIR_MULTI_THREADS), "units": units}
+
+
+@functools.lru_cache(maxsize=256)
+def _pair_multi_widths(k: int, ws_tuple: tuple):
+    """The groups' window widths as a host C int array, built once per (k,
+    ws_tuple) (the cache keeps it alive for the C call)."""
+    from .._kernels import int_array
+
+    return int_array(ws - k + 1 for ws in ws_tuple)
 
 
 def _codes_pair_multi_plain(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc: int, depth: int):
@@ -168,11 +215,13 @@ def _codes_pair_multi_plain(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: in
 def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc: int, depth: int):
     """Net pair deltas of every windowsize group plus the K codes, one pass.
 
-    codes: int8[n] 2-bit codes (zero-padded when shorter than the tiles
-    read); ws_tuple: the G group windowsizes; one pair ``depth`` < every
-    window width.  Returns (ab int32[G, nt], kcodes int32[nkc]), ab[g]
-    bit-identical to ``_pair_ab(K, ws_tuple[g] - k + 1, nt, depth)``.
-    Launches K5 on a CUDA tensor, the plain twin on a CPU tensor."""
+    codes: int8[n] 2-bit codes (read as zeros past their end); ws_tuple:
+    the G group windowsizes; one pair ``depth`` < every window width.
+    Returns (ab int32[G, nt], kcodes int32[nkc]), ab[g] bit-identical to
+    ``_pair_ab(K, ws_tuple[g] - k + 1, nt, depth)``.  Launches K5 on a CUDA
+    tensor, the plain twin on a CPU tensor; K5's ab is a view of rows
+    padded to a multiple of four (each row 16-byte aligned), its K codes a
+    prefix of a buffer so padded."""
     ws_tuple = tuple(int(ws) for ws in ws_tuple)
     w_min = min(ws_tuple) - k + 1
     if codes.dim() != 1 or codes.dtype != torch.int8:
@@ -186,28 +235,27 @@ def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc:
         return _codes_pair_multi_plain(codes, k, ws_tuple, nt, nkc, depth)
     if codes.device.type != "cuda":
         raise ValueError(f"codes_pair_multi: unsupported device {codes.device}")
-    from .._kernels import check, int_array, load
+    from .._kernels import check, load
 
     lib = load()
-    n_tiles, need = _pair_multi_need(ws_tuple, nt, nkc)
-    if codes.shape[0] < need:
-        codes = torch.nn.functional.pad(codes, (0, need - codes.shape[0]))
+    shape = pair_multi_launch_shape(k, ws_tuple, nt, nkc)
     codes = codes.contiguous()
     dev = codes.device
-    ab = torch.empty((len(ws_tuple), nt), dtype=torch.int32, device=dev)
-    kc = torch.empty(nkc, dtype=torch.int32, device=dev)
+    ab_stride, kc_stride = -(-nt // 4) * 4, -(-nkc // 4) * 4
+    ab = torch.empty((len(ws_tuple), ab_stride), dtype=torch.int32, device=dev)
+    kc = torch.empty(kc_stride, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        widths = int_array(ws - k + 1 for ws in ws_tuple)
         check(
             lib.kmg_pair_multi(
-                codes.data_ptr(), k, len(ws_tuple), widths, depth, _PAIR_T, n_tiles, nt, nkc,
+                codes.data_ptr(), codes.shape[0], k, len(ws_tuple), _pair_multi_widths(k, ws_tuple), depth,
+                shape["tile"], shape["grid"], shape["threads"], ab_stride, kc_stride,
                 ab.data_ptr(), kc.data_ptr(), stream,
             ),
             "codes_pair_multi",
         )
     codes_pair_multi.launches += 1
-    return ab, kc
+    return ab[:, :nt], kc[:nkc]
 
 
 #: K5 launches since the count was last set to 0

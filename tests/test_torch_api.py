@@ -264,7 +264,7 @@ def test_chip_smoke_phases_on_cpu(capsys):
     spec.loader.exec_module(cs)
     bench_sizes = dict(n_mbp=0.5, dense_mbp=0.5, k10_mbp=0.2, strobe_mbp=0.1, g3_mbp=1.0, g3_rec_mbp=0.5)
     report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
-                    bench_sizes=bench_sizes)
+                    bench_sizes=bench_sizes, fragments=8)
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
@@ -273,13 +273,22 @@ def test_chip_smoke_phases_on_cpu(capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     # each median time with its fastest window beside it; K1's and K3's stages on the card; device
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
-    extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3"}
+    extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
+             "shapes", "fragmented"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
     assert [k["name"] for k in report["kernels"] if "device_ms" in k] == [
-        "match_counts", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
+        "match_counts", "codes_pair_multi", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
     ]
+    # K5 at the 60 kb, 16 kb and whole-record shapes, each with its launch shape and bound; the fragmented
+    # assembly on the split route with both routes' bitmap passes
+    k5 = next(k for k in report["kernels"] if k["name"] == "codes_pair_multi")
+    assert sorted(k5["shapes"]) == ["16000", "20000", "60000"]
+    assert all(v["bound_ms"] > 0 and v["launch"]["tile"] == 256 for v in k5["shapes"].values())
+    assert k5["fragmented"]["records"] == 8 and k5["fragmented"]["mbps"] > 0
+    assert sorted(k5["fragmented"]["bitmap_pass"]) == ["16000", "60000"]
+    assert "the first 8 fragments' streams equal the int64 host cluster oracle's" in out
     k2 = next(k for k in report["kernels"] if k["name"] == "match_counts")
     k6 = next(k for k in report["kernels"] if k["name"] == "pair_ab_from_kcodes")
     assert k2["whole_record"]["rows"] > 0 and k6["prefix_depth"]["depth"] == 14
@@ -299,11 +308,11 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert "strobe goldens: Alp_V_locus 3 hits" in out
     assert "strobe hits equal the host oracle's" in out
     assert out.count("mixed-depth streams equal the int64 host oracle's") == 2
-    assert out.count("idle share") == 5
+    assert out.count("idle share") == 6
 
 
 def test_chip_smoke_pair_kernels_on_cpu(capsys):
-    """``chip_smoke.py --pair-kernels`` (K2, K4 and K6 alone at the main
+    """``chip_smoke.py --pair-kernels`` (K2, K4, K6 and K5 alone at the main
     paths' shapes, each held against its plain twin) on CPU tensors at a
     small size: every shape timed, no device time off the card."""
     import importlib.util
@@ -312,7 +321,10 @@ def test_chip_smoke_pair_kernels_on_cpu(capsys):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000)
-    assert sorted(out) == ["K2_region_rows", "K2_whole_record", "K4_depth14", "K4_depth16", "K6_depth14", "K6_depth16"]
+    assert sorted(out) == [
+        "K2_region_rows", "K2_whole_record", "K4_depth14", "K4_depth16", "K5_16000bp", "K5_20000bp", "K5_60000bp",
+        "K6_depth14", "K6_depth16",
+    ]
     assert all(v["ms"] > 0 and v["ms_min"] <= v["ms"] and v["device_ms"] is None for v in out.values())
     assert "bit-identical=False" not in capsys.readouterr().out
 

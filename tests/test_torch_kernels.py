@@ -41,6 +41,7 @@ from kmergma_tpu_torch.ops.scan_kernels import (
 from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes
 from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
 
+from ._k5_cases import K5_CASES, k5_case
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -472,6 +473,25 @@ def test_k5_matches_twin_on_card(record, cuda_device, n, nt):
     ab_p, kc_p = _codes_pair_multi_plain(dev_codes, 6, ws_tuple, nt, nkc, 16)
     assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
     assert int(ab.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_routes_match_twin_on_card(cuda_device, case):
+    """K5's once-counted route at its edges (``tests/_k5_cases.py``)
+    against the plain twin, one launch a call."""
+    k, ws_tuple, depth, codes, nt, nkc, offset = k5_case(case)
+    buf = torch.zeros(codes.shape[0] + offset, dtype=torch.int8)
+    buf[offset:] = torch.from_numpy(codes)
+    dev_codes = buf.to(cuda_device)[offset:]
+    before = codes_pair_multi.launches
+    ab, kc = codes_pair_multi(dev_codes, k, ws_tuple, nt, nkc, depth)
+    torch.cuda.synchronize()
+    assert codes_pair_multi.launches == before + 1
+    assert ab.shape == (len(ws_tuple), nt) and kc.shape == (nkc,)
+    ab_p, kc_p = _codes_pair_multi_plain(dev_codes, k, ws_tuple, nt, nkc, depth)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p)
+    assert int(ab.abs().sum()) > 0 or depth == 0
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The register-blocked net pair delta behind K2, K4 and K6
-(``csrc/pair_counts.cuh``), checked on the CPU against the port's twins and
+"""The register-blocked net pair delta behind K2, K4 and K6 and the
+once-counted pair counts of K5 (``csrc/pair_counts.cuh``,
+``csrc/pair_multi.cu``), checked on the CPU against the port's twins and
 the JAX package (zero tolerance: integer arithmetic).
 
 A NumPy model of the routine with the kernels' own index arithmetic: tiles
@@ -18,6 +19,7 @@ against the port's ``_match_counts_plain`` and ``_pair_ab``, the JAX
 package's ``_pair_ab_xla`` (K2 through the identity
 ``match_counts(K, w, t)[p] == _pair_ab(K, w, t, w - 1)[p] + [K[p] == K[p+w]] - 1``)
 and, for whole region rows' distances, ``_scan_rows_d(use_pallas=False)``.
+K5's model is described where it starts, below.
 
 The kernels themselves are held against the twins on the card by the
 ``cuda`` tests of ``tests/test_torch_kernels.py`` and by ``chip_smoke.py``."""
@@ -32,10 +34,18 @@ import torch
 from kmergma_tpu.ops import scan as jscan
 from kmergma_tpu_torch.ops import scan as tscan
 from kmergma_tpu_torch.ops.kmers import kmer_count
-from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
-from kmergma_tpu_torch.ops.scan_kernels import _PAIR_DEPTH_T, _match_counts_plain
+from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
+from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+from kmergma_tpu_torch.ops.scan_kernels import (
+    _PAIR_DEPTH_T,
+    _codes_pair_multi_plain,
+    _match_counts_plain,
+    _pair_multi_need,
+    pair_multi_launch_shape,
+)
 from kmergma_tpu_torch.utils.fasta import as_records
 
+from ._k5_cases import K5_CASES, k5_case
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 REF = str(Path(__file__).parent / "data" / "Alp_V_ref.fasta")
@@ -412,3 +422,236 @@ def test_region_rows_distances_match_jax_scan_rows(rspan):
     # and d0 itself from the window's counts: the model's distances are exact
     counts = np.stack([kmer_count(row[: ws], k).astype(np.int64) for row in rows])
     np.testing.assert_array_equal(d0[:, 0], ((r * counts - p.sum_kfv.astype(np.int64)) ** 2).sum(axis=1))
+
+
+# ---- K5: the once-counted pair counts of every windowsize group -------------
+#
+# A NumPy model of ``csrc/pair_multi.cu`` with the kernel's own index
+# arithmetic: the tile and block from the record's length, the tile's codes
+# packed 16 to a word from 16-byte granules (junk before the codes, zeros
+# past them), one unit of 16 left ends a lane (u = u0 + tid, so lane = u %
+# 32 and a warp is a chunk of 32 units; lanes past the last unit compute on
+# the last unit's codes and vote with them), each unit's 33 K codes from
+# three funnel-aligned words, each pair (a, a + j) compared once for Ru[a]
+# and Lu[a + j] (packed halves on warps whose codes fit 16 bits, int32
+# otherwise), the carry of the next unit's 16 positions by a shuffle up one
+# lane and from lane 31 through the chunk's edge slot, the plain loop at
+# depths above 16, and the rows ab[g, p] = Ru[p] - Lu[p + w_g] read four
+# bytes at a time through a funnel shift into rows padded to whole fours.
+
+
+def byte_perm(x, y, sel: int):
+    """__byte_perm(x, y, sel): byte i of the result is byte (sel >> 4 i) & 7
+    of the eight bytes of y:x."""
+    v = (np.asarray(y, dtype=np.uint64) << np.uint64(32)) | np.asarray(x, dtype=np.uint64)
+    out = np.zeros(v.shape, dtype=np.int64)
+    for i in range(4):
+        b = (sel >> (4 * i)) & 7
+        out |= ((v >> np.uint64(8 * b)) & np.uint64(0xFF)).astype(np.int64) << (8 * i)
+    return out
+
+
+def funnel_l(lo, hi, sh):
+    """__funnelshift_l(lo, hi, sh): the high word of (hi:lo) << (sh & 31)."""
+    v = (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(lo, dtype=np.uint64)
+    return ((v << (np.asarray(sh, dtype=np.uint64) & np.uint64(31))) >> np.uint64(32)).astype(np.int64) & M32
+
+
+def funnel_r(lo, hi, sh):
+    """__funnelshift_r(lo, hi, sh): the low word of (hi:lo) >> (sh & 31)."""
+    v = (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(lo, dtype=np.uint64)
+    return (v >> (np.asarray(sh, dtype=np.uint64) & np.uint64(31))).astype(np.int64) & M32
+
+
+def pack4(w):
+    """Four byte codes (first lowest) as 8 bits, the first code highest."""
+    return sum(((w >> (8 * b)) & 3) << (6 - 2 * b) for b in range(4))
+
+
+def k5_codes2(codes: np.ndarray, mis: int, tile_pos: int, n_words: int) -> np.ndarray:
+    """The tile's codes packed 16 to a word: granule q is the 16 bytes from
+    tile_pos + 16 q - mis of the codes, junk before them, zeros past them."""
+    idx = tile_pos + 16 * np.arange(n_words)[:, None] + np.arange(16)[None, :] - mis
+    raw = np.where(idx < 0, 0xA5, codes[np.clip(idx, 0, max(codes.shape[0] - 1, 0))] if codes.size else 0)
+    raw = np.where(idx >= codes.shape[0], 0, raw).astype(np.int64) & 0xFF
+    words = raw[:, 0::4] | raw[:, 1::4] << 8 | raw[:, 2::4] << 16 | raw[:, 3::4] << 24  # uint4 .x .. .w
+    return pack4(words[:, 0]) << 24 | pack4(words[:, 1]) << 16 | pack4(words[:, 2]) << 8 | pack4(words[:, 3])
+
+
+def k5_kcode_at(codes2: np.ndarray, s, kk: int):
+    """kcode_at: the K code of kk codes from stream code s."""
+    s = np.asarray(s)
+    return funnel_l(codes2[(s >> 4) + 1], codes2[s >> 4], 2 * (s & 15)) >> (32 - 2 * kk)
+
+
+def k5_unit_kcodes(codes2: np.ndarray, s: np.ndarray, kk: int) -> np.ndarray:
+    """unit_kcodes: kv[u, i] for i <= 32 from three funnel-aligned words."""
+    w = [codes2[(s >> 4) + j] for j in range(4)]
+    sh = 2 * (s & 15)
+    y = [funnel_l(w[j + 1], w[j], sh) for j in range(3)]
+    kv = np.empty((s.shape[0], 33), dtype=np.int64)
+    for i in range(16):
+        kv[:, i] = funnel_l(y[1], y[0], 2 * i) >> (32 - 2 * kk)
+        kv[:, 16 + i] = funnel_l(y[2], y[1], 2 * i) >> (32 - 2 * kk)
+    kv[:, 32] = y[2] >> (32 - 2 * kk)
+    return kv
+
+
+def k5_unit_counts(kv: np.ndarray, depth: int, narrow: np.ndarray):
+    """pair_unit_counts for every unit: (own, carry, rc) words of byte
+    counts [n_units, 4], narrow units on packed halves, the others int32."""
+    n = kv.shape[0]
+    own, carry, rc = (np.zeros((n, 4), dtype=np.int64) for _ in range(3))
+    # packed: pe[q] = (K[2q], K[2q + 1]), po[q] = (K[2q + 1], K[2q + 2])
+    pe = pack2(kv[:, 0:32:2], kv[:, 1:32:2])
+    po = pack2(kv[:, 1:33:2], kv[:, 2:33:2])
+    r2 = np.zeros((n, 8), dtype=np.int64)
+    le = np.zeros((n, 16), dtype=np.int64)
+    lo = np.zeros((n, 16), dtype=np.int64)
+    for j in range(1, 17):
+        if j <= depth:
+            for m in range(8):
+                e = unequal2(pe[:, m] ^ (po[:, m + (j - 1) // 2] if j & 1 else pe[:, m + j // 2]), 0x10001)
+                r2[:, m] += e
+                if j & 1:
+                    lo[:, m + (j - 1) // 2] += e
+                else:
+                    le[:, m + j // 2] += e
+    for a in (r2, le, lo):  # each half counts at most depth unequal pairs: no half carries into the other
+        assert ((a & 0xFFFF) <= depth).all() and ((a >> 16) <= depth).all()
+    lo_prev = np.concatenate([np.zeros((n, 1), dtype=np.int64), lo[:, :-1]], axis=1)
+    h = le + byte_perm(lo_prev, lo, 0x5432)
+    p_own = [byte_perm(h[:, 2 * r], h[:, 2 * r + 1], 0x6420) for r in range(4)]
+    p_carry = [byte_perm(h[:, 8 + 2 * r], h[:, 9 + 2 * r], 0x6420) for r in range(4)]
+    p_rc = [byte_perm(r2[:, 2 * r], r2[:, 2 * r + 1], 0x6420) for r in range(4)]
+    # int32: ru[i], lu[i + j]
+    ru = np.zeros((n, 16), dtype=np.int64)
+    lu = np.zeros((n, 32), dtype=np.int64)
+    for j in range(1, 17):
+        if j <= depth:
+            e = (kv[:, :16] != kv[:, j : j + 16]).astype(np.int64)
+            ru += e
+            lu[:, j : j + 16] += e
+
+    def bytes4(a):
+        return a[:, 0] | a[:, 1] << 8 | a[:, 2] << 16 | a[:, 3] << 24
+
+    for r in range(4):
+        own[:, r] = np.where(narrow, p_own[r], bytes4(lu[:, 4 * r : 4 * r + 4]))
+        carry[:, r] = np.where(narrow, p_carry[r], bytes4(lu[:, 16 + 4 * r : 20 + 4 * r]))
+        rc[:, r] = np.where(narrow, p_rc[r], bytes4(ru[:, 4 * r : 4 * r + 4]))
+    return own, carry, rc
+
+
+def words_to_bytes(w: np.ndarray) -> np.ndarray:
+    return ((w.reshape(-1, 1) >> (8 * np.arange(4))) & 0xFF).reshape(-1)
+
+
+def model_pair_multi(codes: np.ndarray, k: int, ws_tuple: tuple, nt: int, nkc: int, depth: int, mis: int = 0):
+    """K5 (kmg_pair_multi) on codes that start ``mis`` bytes past a 16-byte
+    boundary: (ab[G, nt], kc[nkc]) and the launch shape."""
+    shape = pair_multi_launch_shape(k, ws_tuple, nt, nkc)
+    t, n_tiles, threads, n_units = shape["tile"], shape["grid"], shape["threads"], shape["units"]
+    ws = [w_ - k + 1 for w_ in ws_tuple]
+    w_min, w_max = min(ws), max(ws)
+    assert n_units == -(-(t + w_max) // R) and threads % 32 == 0 and n_tiles * t >= max(nt, nkc)
+    kk, ex = min(k, 16), max(k - 16, 0)
+    base = mis + ex
+    n_words = n_units + 5 + (ex + 15) // 16
+    ab_stride, kc_stride = -(-nt // 4) * 4, -(-nkc // 4) * 4
+    ab = np.full((len(ws), ab_stride), -(10**9), dtype=np.int64)
+    kc = np.full(kc_stride, -(10**9), dtype=np.int64)
+    u = np.arange(n_units)
+    lane = (u - u // threads * threads) % 32  # u = u0 + tid, u0 a multiple of threads
+    assert (lane == u % 32).all()
+    for tile in range(n_tiles):
+        tile_pos = tile * t
+        codes2 = k5_codes2(codes, mis, tile_pos, n_words)
+        lu = np.full(R * n_units + 8, 0x5A, dtype=np.int64)  # junk where nothing is written
+        ru = np.full(t, 0x5A, dtype=np.int64)
+        if depth <= R:
+            n_lanes = -(-n_units // 32) * 32
+            ur = np.minimum(np.arange(n_lanes), n_units - 1)  # lanes past the last unit take its codes
+            kv = k5_unit_kcodes(codes2, R * ur + base, kk)
+            fits = ((kv >> 16) == 0).all(axis=1).reshape(-1, 32).all(axis=1)  # __all_sync per warp
+            narrow = np.repeat(fits | (kk <= 8), 32)
+            own, carry, rc = k5_unit_counts(kv, depth, narrow)
+            own, carry, rc = own[:n_units], carry[:n_units], rc[:n_units]
+            own[1:] += np.where((lane[1:] > 0)[:, None], carry[:-1], 0)  # the shuffle up one lane
+            edge = {int(x) >> 5: carry[x] for x in u[lane == 31]}  # lane 31's carry, per chunk
+            for c in range(1, -(-n_units // 32)):  # after the barrier: each chunk's first unit
+                own[32 * c] += edge[c - 1]
+            lu[: R * n_units] = words_to_bytes(own)
+            n_r = t // R
+            ru[:] = words_to_bytes(rc[:n_r])
+            assert (lu[: R * n_units] <= depth).all()
+        else:  # the plain loop over K codes staged in shared memory
+            kcs = k5_kcode_at(codes2, np.arange(R * n_units) + base, kk)
+            x = np.arange(w_min, t + w_max)
+            lu[x] = sum((kcs[x - d] != kcs[x]).astype(np.int64) for d in range(1, depth + 1))
+            p = np.arange(t)
+            ru[:] = sum((kcs[p + d] != kcs[p]).astype(np.int64) for d in range(1, depth + 1))
+        luw = lu[: lu.shape[0] // 4 * 4].reshape(-1, 4) @ (1 << (8 * np.arange(4)))
+        q = np.arange(t // 4)
+        pos = tile_pos + 4 * q
+        rows = pos < ab_stride
+        for g, w_g in enumerate(ws):
+            x = 4 * q[rows] + w_g
+            l4 = funnel_r(luw[x >> 2], luw[(x >> 2) + 1], 8 * (x & 3))
+            for i in range(4):
+                ab[g, pos[rows] + i] = ru[4 * q[rows] + i] - ((l4 >> (8 * i)) & 0xFF)
+        kcs_out = pos < kc_stride
+        for i in range(4):
+            kc[pos[kcs_out] + i] = k5_kcode_at(codes2, 4 * q[kcs_out] + i + base, kk)
+    assert (ab[:, :nt] > -(10**9)).all() and (kc[:nkc] > -(10**9)).all()
+    return ab[:, :nt], kc[:nkc], shape
+
+
+def as_int32(x: np.ndarray) -> np.ndarray:
+    return (x & M32).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", sorted(c for c, v in K5_CASES.items() if v[-1]))
+def test_k5_route_matches_twin_and_jax(case):
+    """The model of K5's route against the port's ``_codes_pair_multi_plain``
+    and the JAX package's ``_pair_ab_xla`` on ``rolling_kmer_codes_jnp``
+    (codes past the end read as zeros, as the JAX kernel's padding does)."""
+    k, ws_tuple, depth, codes, nt, nkc, offset = k5_case(case)
+    ab, kc, shape = model_pair_multi(codes, k, ws_tuple, nt, nkc, depth, mis=offset % 16)
+    ab_p, kc_p = _codes_pair_multi_plain(torch.from_numpy(codes), k, ws_tuple, nt, nkc, depth)
+    np.testing.assert_array_equal(as_int32(ab), ab_p.numpy())
+    np.testing.assert_array_equal(as_int32(kc), kc_p.numpy())
+    if k <= 15:  # K fits int32 without wrapping, as the JAX package keeps it
+        padded = np.zeros(max(nt + max(ws_tuple) - k + 1, nkc) + k - 1, dtype=np.int8)
+        padded[: min(codes.shape[0], padded.shape[0])] = codes[: padded.shape[0]]
+        K = jscan.rolling_kmer_codes_jnp(jnp.asarray(padded), k)
+        np.testing.assert_array_equal(kc, np.asarray(K)[:nkc])
+        for g, ws in enumerate(ws_tuple):
+            np.testing.assert_array_equal(ab[g], np.asarray(jscan._pair_ab_xla(K, ws - k + 1, nt, depth)))
+    assert depth == 0 or int(np.abs(ab).max()) > 0
+    if case == "wide_units_loop":
+        assert shape["units"] > shape["threads"]  # units go round the block
+    if case == "k10_d16":  # warps of both kinds: int32 compares and, on the run of A, packed
+        assert shape["tile"] == 256
+
+
+def test_k5_tile_fills_the_card_and_covers_the_record():
+    """Short records (the split route's largest, 65,535 windows, and a 60 kb
+    contig) take 256-position tiles, at least one block per SM of an H100;
+    a 4 Mbp record 2048-position tiles, its w_max halo under a seventh of
+    a tile; ``_pair_multi_need`` covers every code the tiles read, and the
+    cluster engine pads a record to it."""
+    ws = (288, 289, 290)
+    for n, tile in ((16_000 - 288, 256), (60_000 - 288, 256), (65_535, 256), (4_000_000, 2048)):
+        shape = pair_multi_launch_shape(6, ws, n, n + 284)
+        assert shape["tile"] == tile
+        n_tiles, need = _pair_multi_need(ws, n, n + 284)
+        assert n_tiles == shape["grid"] and need == n_tiles * tile + max(ws)
+        if n >= 59_000:
+            assert shape["grid"] >= 132
+    assert (shape["units"] * R - shape["tile"]) / shape["tile"] < 1 / 7
+    eng = ClusterScanEngine(eliminate_null_params(cluster_ref_api(REF, 6)).profiles, k=6, device="cpu")
+    for n in (16_000, 60_000):
+        span = eng._split_span(n - min(g[0] for g in eng.groups) + 1)
+        need = _pair_multi_need(tuple(g[0] for g in eng.groups), span - 1, span + eng.max_ws - 6)[1]
+        assert eng.prepare_codes(np.zeros(n, dtype=np.int8)).shape[0] >= need
