@@ -35,6 +35,16 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   on int32 strobe codes at s = 3, the strobe goldens through ``strobemer_find_genes``,
   then the same genome mined against an int64 host oracle of the strobe
   recurrence, and where one call's wall goes;
+* checkpoint/resume: each of the three miners, with ``checkpoint_path=``,
+  killed on its third record of the genome its phase mined (an engine
+  that raises ``KeyboardInterrupt``), then resumed on the card with its
+  default engine: the hits, sequences and loci of that phase's
+  uninterrupted API call, only the records left scanned, the path's
+  kernels launched, the file removed; then ``find_genes`` resumes a killed
+  run through the API.  Each kill's and resume's wall and the file's size;
+* the paired k-mer spectrum (``kmer_pair_count_device``, k = 3, torch
+  histograms) of one 16 Mbp contig on the card against the CPU, a 4 kb
+  slice against the O(n^2) host loop, and its time a call;
 * a mixed-depth cluster set (the six Alp_V clusters plus a profile of the
   genes' 20 bp prefixes, ws 20, pair depth 14): K4 and K6 against their
   twins, each at both of its depths with its device time, then ``ClusterScanEngine`` on one 16 Mbp contig and the short
@@ -115,6 +125,10 @@ FRAGMENTS = 1_024
 ORACLE_FRAGMENTS = 64
 #: the mixed-depth set's extra profile: the reference genes' prefixes
 PREFIX_BP = 20
+#: the checkpoint phase kills each run on this record (counting from 0)
+KILL_AT = 2
+#: the paired spectrum's slice held against the O(n^2) host loop
+PAIRED_SLICE_BP = 4_000
 #: the bench phase's row sizes, the harness's defaults: a 512 Mbp headline,
 #: 64 Mbp hit-dense, k = 10 and strobe genomes, and 6 x 512 Mbp records
 BENCH_SIZES = {"n_mbp": 512.0, "dense_mbp": 64.0, "k10_mbp": 64.0, "strobe_mbp": 64.0, "g3_mbp": 3200.0}
@@ -716,8 +730,11 @@ def single_profile_phase(ctx) -> list:
     # --- the main path at size: find_genes on the synthetic genome ----------
     fasta, total_bp = ctx["fasta"], ctx["total_bp"]
     ctx["launches"].reset()
-    times, out = timed_calls(lambda: kt.find_genes(str(fasta), REF, verbose=False, device=device), sync, runs)
+    times, out = timed_calls(
+        lambda: kt.find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device), sync, runs
+    )
     hits = out[0]
+    ctx["uninterrupted"]["single"] = out
     launches = ctx["launches"].read()
     t_med = statistics.median(times)
     print(
@@ -951,26 +968,29 @@ def cluster_phase(ctx) -> list:
     # --- the cluster path at size ------------------------------------------------
     ccontigs = [*contigs, short_contig]
     ctotal = sum(c.shape[0] for c in ccontigs)
-    with tempfile.TemporaryDirectory() as tmp:
-        fasta = Path(tmp) / "genome.fasta"
-        write_fasta(fasta, ccontigs)
-        ctx["launches"].reset()
-        times, out = timed_calls(lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, runs)
-        chits = out[0]
-        claunches = ctx["launches"].read()
-        t_med = statistics.median(times)
-        print(
-            f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
-            f"median of {runs} {t_med:.3f} s = {ctotal / t_med / 1e6:.2f} Mbp/s "
-            f"(runs {', '.join(f'{x:.3f}' for x in times)} s), {len(chits)} hits [{label}]"
-        )
-        t0 = time.perf_counter()
-        coracle = mine_genome_clusters(str(fasta), profiles, thr_vec=cthrs, buff=100, engine=HostClusterOracle(profiles, k))
-        print(f"int64 host cluster oracle ({m} x HostScanEngine): {time.perf_counter() - t0:.3f} s, "
-              f"{len(coracle.hits)} hits [{label}]")
-        cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
-        device_share("find_genes_cluster_mode",
-                     lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, device, label)
+    fasta = ctx["cluster_fasta"]
+    write_fasta(fasta, ccontigs)
+    ctx["launches"].reset()
+    times, out = timed_calls(
+        lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device),
+        sync, runs,
+    )
+    chits = out[0]
+    ctx["uninterrupted"]["cluster"] = out
+    claunches = ctx["launches"].read()
+    t_med = statistics.median(times)
+    print(
+        f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
+        f"median of {runs} {t_med:.3f} s = {ctotal / t_med / 1e6:.2f} Mbp/s "
+        f"(runs {', '.join(f'{x:.3f}' for x in times)} s), {len(chits)} hits [{label}]"
+    )
+    t0 = time.perf_counter()
+    coracle = mine_genome_clusters(str(fasta), profiles, thr_vec=cthrs, buff=100, engine=HostClusterOracle(profiles, k))
+    print(f"int64 host cluster oracle ({m} x HostScanEngine): {time.perf_counter() - t0:.3f} s, "
+          f"{len(coracle.hits)} hits [{label}]")
+    cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
+    device_share("find_genes_cluster_mode",
+                 lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, device, label)
     require(len(chits) > 0, "no cluster hits on the planted genome")
     require(
         [(h.description, h.seq) for h in chits] == [(h.description, h.seq) for h in coracle.hits],
@@ -1079,8 +1099,12 @@ def strobe_phase(ctx) -> list:
     # --- the strobe path at size ------------------------------------------------
     fasta, total_bp = ctx["fasta"], ctx["total_bp"]
     ctx["launches"].reset()
-    times, out = timed_calls(lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, device=device), sync, runs)
+    times, out = timed_calls(
+        lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device),
+        sync, runs,
+    )
     shits = out[0]
+    ctx["uninterrupted"]["strobe"] = out
     slaunches = ctx["launches"].read()
     t_med = statistics.median(times)
     print(
@@ -1108,6 +1132,152 @@ def strobe_phase(ctx) -> list:
               slaunches["codes_pair_ab_kcodes"], k4r_err, k4r_ms, k4r_plain_ms, *k4r_io,
               s3={"bp": int(rec3.shape[0]), "depth": w3 - 1, "ms": float(loop_ms), "ms_min": loop_ms.min}),
     ]
+
+
+class Dying:
+    """An engine that raises ``KeyboardInterrupt`` when it is given record
+    number ``left[0]`` (counting from 0) of a run: the run is killed there.
+    ``left`` is one list shared by every engine of the run."""
+
+    def __init__(self, inner, left: list):
+        self.inner, self.left = inner, left
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _step(self) -> None:
+        if self.left[0] == 0:
+            raise KeyboardInterrupt("killed by chip_smoke")
+        self.left[0] -= 1
+
+    def record_stream(self, *args, **kwargs):
+        self._step()
+        return self.inner.record_stream(*args, **kwargs)
+
+    def record_streams(self, *args, **kwargs):
+        self._step()
+        return self.inner.record_streams(*args, **kwargs)
+
+
+def checkpoint_phase(ctx) -> None:
+    """Each miner killed on its third record with ``checkpoint_path=`` and
+    resumed on the card with its default engine: the resumed run must give
+    the phase's uninterrupted API call's hits, sequences and loci, scan only
+    the records left, run its path's kernels and remove the file.  Then
+    ``find_genes`` resumes a killed single-profile run through the API."""
+    import os
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.models.miner import mine_genome
+    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
+    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    profile, clusters = ctx["profile"], ctx["clusters"]
+    cthrs = list(map(float, ctx["cthrs"]))
+    sprofile = gen_strobe_ref_ws_cons(REF)
+
+    def single(ckpt, left=None):
+        p = profile
+        engine = None if left is None else Dying(ScanEngine(p.sum_kfv, k=p.k, ws=p.windowsize, r=p.n_records, device=device), left)
+        return mine_genome(str(ctx["fasta"]), p, thr=ctx["thr"], get_hit_loci=True, engine=engine,
+                           checkpoint_path=ckpt, device=device)
+
+    def cluster(ckpt, left=None):
+        engine = None if left is None else Dying(ClusterScanEngine(clusters.profiles, k=6, device=device), left)
+        return mine_genome_clusters(str(ctx["cluster_fasta"]), clusters.profiles, thr_vec=cthrs, buff=100,
+                                    get_hit_loci=True, engine=engine, checkpoint_path=ckpt, device=device)
+
+    def strobe(ckpt, left=None):
+        factory = None if left is None else (lambda p, x: Dying(StrobeSpanEngine(p, x, device=device), left))
+        return strobe_mine_genome(str(ctx["fasta"]), sprofile, thr=30, get_hit_loci=True, engine_factory=factory,
+                                  checkpoint_path=ckpt, device=device)
+
+    def killed(name, run, ckpt) -> tuple[float, int]:
+        """(wall in s, bytes of the file) of a run killed on its third record."""
+        sync()
+        t0 = time.perf_counter()
+        try:
+            run(ckpt, [KILL_AT])
+        except KeyboardInterrupt:
+            pass
+        else:
+            raise SmokeFailure(f"the {name} run was not killed")
+        sync()
+        wall = time.perf_counter() - t0
+        require(os.path.exists(ckpt), f"the killed {name} run left no checkpoint")
+        with open(ckpt) as fh:
+            next_record = json.load(fh)["next_record"]
+        require(next_record == KILL_AT, f"the killed {name} run's checkpoint says next_record {next_record}")
+        return wall, os.path.getsize(ckpt)
+
+    kernels = {
+        "single": ("fused_record_bitmaps", "match_counts"),
+        "cluster": ("fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi", "match_counts"),
+        "strobe": ("codes_pair_ab_kcodes", "match_counts"),
+    }
+    n_records = {"single": len(ctx["contigs"]), "cluster": len(ctx["contigs"]) + 1, "strobe": len(ctx["contigs"])}
+    for name, run in (("single", single), ("cluster", cluster), ("strobe", strobe)):
+        ckpt = str(ctx["tmp"] / f"{name}.ckpt")
+        kill_s, n_bytes = killed(name, run, ckpt)
+        ctx["launches"].reset()
+        sync()
+        t0 = time.perf_counter()
+        res = run(ckpt)
+        sync()
+        resume_s = time.perf_counter() - t0
+        launches = ctx["launches"].read()
+        want_hits, want_loci = ctx["uninterrupted"][name]
+        scanned = res.stats.records_scanned
+        print(f"checkpoint {name}: killed on record {KILL_AT} after {kill_s:.3f} s, checkpoint {n_bytes} bytes; "
+              f"resumed in {resume_s:.3f} s, {scanned} records scanned of {n_records[name]}, {len(res.hits)} hits; "
+              f"launches {dict((k, launches[k]) for k in kernels[name])} [{label}]")
+        require([(h.description, h.seq) for h in res.hits] == [(h.description, h.seq) for h in want_hits],
+                f"the resumed {name} run's hits differ from the uninterrupted run's")
+        require(res.hit_loci == want_loci, f"the resumed {name} run's loci differ from the uninterrupted run's")
+        require(scanned == n_records[name] - KILL_AT, f"the resumed {name} run scanned {scanned} records")
+        require(not os.path.exists(ckpt), f"the resumed {name} run left its checkpoint behind")
+        if on_card:
+            missing = [k for k in kernels[name] if launches[k] == 0]
+            require(not missing, f"the resumed {name} run never launched {missing}: {launches}")
+
+    # through the API: find_genes resumes a killed single-profile run
+    ckpt = str(ctx["tmp"] / "api.ckpt")
+    killed("single", single, ckpt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        hits, loci = kt.find_genes(str(ctx["fasta"]), REF, verbose=False, do_return_hit_loci=True,
+                                   checkpoint_path=ckpt, device=device)
+    want_hits, want_loci = ctx["uninterrupted"]["single"]
+    require([(h.description, h.seq) for h in hits] == [(h.description, h.seq) for h in want_hits] and loci == want_loci,
+            "find_genes resumed from a checkpoint differs from the uninterrupted call")
+    require(not os.path.exists(ckpt), "find_genes left its checkpoint behind")
+    print(f"checkpoint api: find_genes resumed a run killed on record {KILL_AT}, {len(hits)} hits equal the "
+          f"uninterrupted call's [{label}]")
+
+
+def paired_spectrum_check(ctx) -> None:
+    """``kmer_pair_count_device`` at k = 3: a whole contig on the device
+    against the same function on the CPU, and a 4 kb slice against the
+    O(n^2) host loop, with its time per call."""
+    import numpy as np
+
+    from kmergma_tpu_torch.ops.paired_kmers import kmer_pair_count, kmer_pair_count_device
+
+    device, on_card, label = ctx["device"], ctx["on_card"], ctx["label"]
+    record = ctx["contigs"][0]
+    ms, got = kernel_ms(lambda: kmer_pair_count_device(record, 3, device=device), on_card, reps=5)
+    cpu = kmer_pair_count_device(record, 3, device="cpu")
+    err = float(np.abs(got - cpu).max())
+    piece = record[:PAIRED_SLICE_BP]
+    slice_err = float(np.abs(kmer_pair_count_device(piece, 3, device=device) - kmer_pair_count(piece, 3)).max())
+    print(f"paired spectrum k = 3, {record.shape[0]} bp record on {device}: {ms:.3f} ms a call (fastest window "
+          f"{ms.min:.3f}), max_abs_err {err} against the CPU; {PAIRED_SLICE_BP} bp slice max_abs_err {slice_err} "
+          f"against the host loop; {int(got.sum())} pairs [{label}]")
+    require(err == 0 and slice_err == 0, "the paired spectrum on the device differs")
+    require(got.sum() == float(record.shape[0] - 2) ** 2, "the paired spectrum does not count every pair")
 
 
 def mixed_depth_engine(clusters, cthrs, device, label: str):
@@ -1770,9 +1940,12 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
     )
     with tempfile.TemporaryDirectory() as tmp:
-        ctx["fasta"] = Path(tmp) / "genome.fasta"
+        ctx.update(tmp=Path(tmp), fasta=Path(tmp) / "genome.fasta", cluster_fasta=Path(tmp) / "cluster_genome.fasta",
+                   uninterrupted={})
         write_fasta(ctx["fasta"], contigs)
         kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx)
+        checkpoint_phase(ctx)
+    paired_spectrum_check(ctx)
     kernels += mixed_depth_phase(ctx)
     kernels += bench_phase(ctx)
     return {"kernels": kernels}

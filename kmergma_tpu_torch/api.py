@@ -30,16 +30,11 @@ from .utils.fasta import FastaRecord, write_fasta
 logger = logging.getLogger("kmergma_tpu_torch")
 
 
-def _refuse_unported(devices, checkpoint_path) -> None:
+def _refuse_unported(devices) -> None:
     if devices is not None:
         raise NotImplementedError(
             "devices= (the sharded multi-GPU scan) is not ported yet: "
-            "ROADMAP.md Queue 1 item 10"
-        )
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4"
+            "ROADMAP.md Queue 1 item 2"
         )
 
 
@@ -72,9 +67,11 @@ def find_genes(
     caller asks for the CPU).
 
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
-    alignments and per-window distances.  ``devices`` and
-    ``checkpoint_path`` are not ported yet and raise."""
-    _refuse_unported(devices, checkpoint_path)
+    alignments and per-window distances.  ``checkpoint_path`` enables
+    per-record checkpoint/resume (utils/checkpoint.py; a file written by
+    either package resumes in the other).  ``devices`` is not ported yet
+    and raises."""
+    _refuse_unported(devices)
     device = resolve_device(device)
     if verbose:
         logger.info("pre-processing references and parameters...")
@@ -111,6 +108,7 @@ def find_genes(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        checkpoint_path=checkpoint_path,
         device=device,
     )
 
@@ -142,11 +140,12 @@ def find_genes_cluster_mode(
     genome in one pass per record.
 
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
-    alignments and per-cluster per-window distances.  ``devices`` and
-    ``checkpoint_path`` are not ported yet and raise."""
+    alignments and per-cluster per-window distances.  ``checkpoint_path``
+    enables per-record checkpoint/resume.  ``devices`` is not ported yet
+    and raises."""
     from .models.omn_miner import mine_genome_clusters
 
-    _refuse_unported(devices, checkpoint_path)
+    _refuse_unported(devices)
     device = resolve_device(device)
     if cluster_cutoffs is None:
         cluster_cutoffs = [7, 12, 20, 25]
@@ -190,6 +189,7 @@ def find_genes_cluster_mode(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        checkpoint_path=checkpoint_path,
         device=device,
     )
     return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
@@ -218,11 +218,10 @@ def strobemer_find_genes(
     No threshold estimate, as in the reference.
 
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
-    alignments and per-window distances.  ``checkpoint_path`` is not
-    ported yet and raises."""
+    alignments and per-window distances.  ``checkpoint_path`` enables
+    per-record checkpoint/resume."""
     from .models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
 
-    _refuse_unported(None, checkpoint_path)
     device = resolve_device(device)
     profile = gen_strobe_ref_ws_cons(ref_path, s=s, w_min=w_min, w_max=w_max, q=q)
     if verbose:
@@ -237,6 +236,7 @@ def strobemer_find_genes(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        checkpoint_path=checkpoint_path,
         device=device,
     )
     return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)

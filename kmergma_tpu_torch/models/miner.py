@@ -22,6 +22,7 @@ from ..ops.align import AlignResult, cigar_to_unitrange, semiglobal_align, semig
 from ..ops.reference import RefProfile
 from ..ops.scan import ScanEngine
 from ..ops.scan_host import HostScanEngine
+from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .state_machine import replay_single
 
@@ -119,11 +120,20 @@ def mine_genome(
     do_return_align: bool = False,
     get_hit_loci: bool = False,
     engine: "ScanEngine | HostScanEngine | None" = None,
+    checkpoint_path: str | None = None,
     device: "str | torch.device" = "cuda",
 ) -> MineResult:
     """Mine a genome against one profile.  Without ``engine``, the device
     engine runs on ``device`` (the card unless the caller asks for the
-    CPU), or the int64 host engine where int32 would overflow."""
+    CPU), or the int64 host engine where int32 would overflow.
+
+    With ``checkpoint_path`` the run records its progress after each record
+    (utils/checkpoint.py) and, started again on the same file, resumes from
+    the first record it had not finished, with the hits and loci of the
+    records before it; the file is removed when the run completes.  The
+    checkpoint is the JAX package's, identity string included, so either
+    package resumes the other's.  ``dists`` and ``stats`` cover only the
+    records this call scanned."""
     k, ws = profile.k, profile.windowsize
     if engine is None:
         engine = _default_engine(profile, device)
@@ -133,12 +143,24 @@ def mine_genome(
     dist_parts: list[np.ndarray] = []
     t_start = time.perf_counter()
 
-    genome_pos = 0
-    for record in as_records(genome):
+    ckpt = None
+    if checkpoint_path is not None:
+        genome_id = f"{genome if isinstance(genome, str) else 'records'}|k={k}|ws={ws}|thr={thr}"
+        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
+        res.hits.extend(ckpt.restore_hits())
+        res.hit_loci.extend(ckpt.hit_loci)
+
+    genome_pos = ckpt.genome_pos if ckpt else 0
+    for record_idx, record in enumerate(as_records(genome)):
+        if ckpt and record_idx < ckpt.next_record:
+            continue
+        hits_before, loci_before = len(res.hits), len(res.hit_loci)
         seq_len = len(record)
         if seq_len < ws:
             # the reference's `continue` also skips genome_pos
             stats.records_skipped += 1
+            if ckpt:
+                ckpt.record_done(record_idx, genome_pos, [], [])
             continue
         dist0, stream, dists = engine.record_stream(record.codes, thr, collect_dists=do_return_dists)
         stats.records_scanned += 1
@@ -177,7 +199,11 @@ def mine_genome(
             if get_hit_loci:
                 res.hit_loci.append(start + genome_pos)
         genome_pos += seq_len
+        if ckpt:
+            ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
 
+    if ckpt:
+        ckpt.done()
     stats.hits = len(res.hits)
     stats.wall_seconds = time.perf_counter() - t_start
     if do_return_dists:

@@ -27,6 +27,7 @@ import torch
 from ..ops.align import cigar_to_unitrange, semiglobal_align_batch
 from ..ops.reference import RefProfile
 from ..ops.scan_cluster import ClusterScanEngine
+from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .miner import MineResult, ScanStats, fmt_dist
 from .state_machine import OmnHitEvent, replay_omn
@@ -51,12 +52,10 @@ def mine_genome_clusters(
     ``record_streams(codes, thrs)`` and per-cluster ``engines[c].
     record_stream(codes, thr, collect_dists=True)``, such as an exact int64
     host oracle; by default the device ``ClusterScanEngine`` on ``device``
-    (the card unless the caller asks for the CPU)."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4"
-        )
+    (the card unless the caller asks for the CPU).  ``checkpoint_path``
+    checkpoints and resumes per record, as ``mine_genome``'s does; a
+    record too short to scan advances ``GenomePos`` before it is recorded
+    as done, as the JAX miner's does."""
     m = len(profiles)
     if len(thr_vec) != m:
         raise ValueError(f"{m} cluster profiles but {len(thr_vec)} thresholds")
@@ -70,13 +69,30 @@ def mine_genome_clusters(
     t_start = time.perf_counter()
     dist_parts: list[list[np.ndarray]] = [[] for _ in range(m)]
 
-    genome_pos = 0
-    for record in as_records(genome):
+    # cluster-mode state (prev_range, per-cluster minima) resets per
+    # record, so resuming from the next unfinished record is exact
+    ckpt = None
+    if checkpoint_path is not None:
+        genome_id = (
+            f"{genome if isinstance(genome, str) else 'records'}|cluster"
+            f"|k={k}|ws={windowsizes}|thr={list(thr_vec)}"
+        )
+        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
+        res.hits.extend(ckpt.restore_hits())
+        res.hit_loci.extend(ckpt.hit_loci)
+
+    genome_pos = ckpt.genome_pos if ckpt else 0
+    for record_idx, record in enumerate(as_records(genome)):
+        if ckpt and record_idx < ckpt.next_record:
+            continue
+        hits_before, loci_before = len(res.hits), len(res.hit_loci)
         seq_len = len(record)
         imax = seq_len - maxws - k + 2
         if imax < 1:
             stats.records_skipped += 1
             genome_pos += seq_len
+            if ckpt:
+                ckpt.record_done(record_idx, genome_pos, [], [])
             continue
         stats.records_scanned += 1
         stats.bp_scanned += seq_len
@@ -138,7 +154,11 @@ def mine_genome_clusters(
 
         replay_omn(streams, dist0s, thr_vec, k, windowsizes, seq_len, process)
         genome_pos += seq_len
+        if ckpt:
+            ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
 
+    if ckpt:
+        ckpt.done()
     stats.hits = len(res.hits)
     stats.wall_seconds = time.perf_counter() - t_start
     if do_return_dists:

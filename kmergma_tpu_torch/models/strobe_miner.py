@@ -32,6 +32,7 @@ from ..ops.align import align_hits_batch, cigar_to_unitrange
 from ..ops.consensus import Profile
 from ..ops.scan import ScanEngine, resolve_device
 from ..ops.strobemers import strobe_2_mer_codes, strobe_2_mer_codes_torch, ungapped_strobe_2_mer_count_into
+from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .miner import MineResult, ScanStats, fmt_dist
 
@@ -146,16 +147,12 @@ def strobe_mine_genome(
     builds the span engine of one x* (by default ``StrobeSpanEngine``); any
     object with its ``record_stream(codes, thr, collect_dists)`` may take
     its place, such as an exact int64 host oracle (with
-    ``device_extract=False``).  ``checkpoint_path`` (ROADMAP.md Queue 1
-    item 4) is not ported yet and raises."""
+    ``device_extract=False``).  ``checkpoint_path`` checkpoints and
+    resumes per record, as ``mine_genome``'s does (a record too short to
+    scan does not advance ``GenomePos``)."""
     from ..ops.scan_strobe import strobe_scan_from_codes
     from .state_machine import candidate_stream_from_dists, replay_single
 
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path= (per-record checkpoint/resume) is not ported yet: "
-            "ROADMAP.md Queue 1 item 4"
-        )
     dev = resolve_device(device)
     if engine_factory is None:
         def engine_factory(p, xstar):
@@ -176,12 +173,27 @@ def strobe_mine_genome(
     # one span engine per x* (usually one)
     engines: dict[int, object] = engine_cache if engine_cache is not None else {}
 
-    genome_pos = 0
+    ckpt = None
+    if checkpoint_path is not None:
+        genome_id = (
+            f"strobe|{genome if isinstance(genome, str) else 'records'}"
+            f"|s={s}|wmin={w_min}|wmax={w_max}|q={q}|ws={ws}|thr={thr}"
+        )
+        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
+        res.hits.extend(ckpt.restore_hits())
+        res.hit_loci.extend(ckpt.hit_loci)
+
+    genome_pos = ckpt.genome_pos if ckpt else 0
     for record_idx, record in enumerate(as_records(genome)):
+        if ckpt and record_idx < ckpt.next_record:
+            continue
+        hits_before, loci_before = len(res.hits), len(res.hit_loci)
         seq_len = len(record)
         if seq_len < ws:
             # ref StrobeGenomeMiner.jl:36: `continue` skips genome_pos too
             stats.records_skipped += 1
+            if ckpt:
+                ckpt.record_done(record_idx, genome_pos, [], [])
             continue
         n_steps = seq_len - ws - 1
         if n_steps < 1:
@@ -252,7 +264,11 @@ def strobe_mine_genome(
             if get_hit_loci:
                 res.hit_loci.append(rng[0] + genome_pos)
         genome_pos += seq_len
+        if ckpt:
+            ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
 
+    if ckpt:
+        ckpt.done()
     stats.hits = len(res.hits)
     stats.wall_seconds = time.perf_counter() - t_start
     if do_return_dists:

@@ -7,8 +7,11 @@ the port's API, plus ``--device {cuda,cpu}`` (default ``cuda``):
     python -m kmergma_tpu_torch strobe-find-genes --genome g.fasta --refs refs.fasta
     python -m kmergma_tpu_torch exact-match --query ACGT... --subject g.fasta
 
-``--devices`` and ``--checkpoint`` reach the API, which does not support
-them yet: the CLI prints its message and exits with status 2.
+``--checkpoint FILE`` checkpoints each scan per record and resumes an
+interrupted one from the same file (a file written by the JAX package's
+CLI resumes here, and the other way round).  ``--devices`` reaches the
+API, which does not support it yet: the CLI prints its message and exits
+with status 2.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--checkpoint", default=None,
-        help="checkpoint file for per-record resume of interrupted scans (not ported yet)",
+        help="checkpoint file for per-record resume of interrupted scans",
     )
     p.add_argument(
         "--stats", action="store_true",

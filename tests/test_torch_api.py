@@ -96,10 +96,10 @@ def test_record_kmergma_golden(mini_genome, ref_fasta):
     assert [h.description for h in hits] == [d.replace(" | GenomePos = 0", "") for d in GOLDEN_LOCUS]
 
 
-@pytest.mark.parametrize("kwarg", ["devices", "checkpoint_path"])
+@pytest.mark.parametrize("kwarg", ["devices"])
 def test_unported_options_raise(mini_genome, ref_fasta, kwarg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kt.find_genes(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2 if kwarg == "devices" else "x.ckpt"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
+        kt.find_genes(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2})
 
 
 def test_overflow_falls_back_to_host_engine(ref_fasta, mini_genome):
@@ -253,7 +253,8 @@ def test_other_devices_refused():
 
 def test_chip_smoke_phases_on_cpu(capsys):
     """chip_smoke.run drives every phase of every path (single profile,
-    cluster mode, strobemers, the mixed-depth cluster set, the bench), the
+    cluster mode, strobemers, checkpoint/resume of the three miners, the
+    paired spectrum, the mixed-depth cluster set, the bench), the
     stage breakdowns and the busy shares included, on CPU tensors at a
     small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
@@ -263,7 +264,7 @@ def test_chip_smoke_phases_on_cpu(capsys):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     bench_sizes = dict(n_mbp=0.5, dense_mbp=0.5, k10_mbp=0.2, strobe_mbp=0.1, g3_mbp=1.0, g3_rec_mbp=0.5)
-    report = cs.run("cpu", contig_bp=150_000, n_contigs=2, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
+    report = cs.run("cpu", contig_bp=100_000, n_contigs=3, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
                     bench_sizes=bench_sizes, fragments=8)
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
@@ -309,6 +310,13 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert "strobe hits equal the host oracle's" in out
     assert out.count("mixed-depth streams equal the int64 host oracle's") == 2
     assert out.count("idle share") == 6
+    # each miner killed on its third record and resumed to the uninterrupted hits, then find_genes resumed
+    for name, scanned in (("single", "1 records scanned of 3"), ("cluster", "2 records scanned of 4"),
+                          ("strobe", "1 records scanned of 3")):
+        line = next(ln for ln in out.splitlines() if ln.startswith(f"checkpoint {name}: killed on record 2 after "))
+        assert scanned in line and " bytes; resumed in " in line and line.endswith("[cpu]")
+    assert "checkpoint api: find_genes resumed a run killed on record 2" in out
+    assert "max_abs_err 0.0 against the CPU; 4000 bp slice max_abs_err 0.0 against the host loop" in out
 
 
 def test_chip_smoke_pair_kernels_on_cpu(capsys):

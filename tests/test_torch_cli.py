@@ -1,7 +1,8 @@
 """The port's command line (``python -m kmergma_tpu_torch``) against the
 JAX package's (``python -m kmergma_tpu``): each subcommand with
 ``--device cpu`` prints what the JAX CLI prints on Alp_V_locus, and the
-options not ported yet exit with status 2 and the API's message."""
+option not ported yet (``--devices``) exits with status 2 and the API's
+message.  ``--checkpoint`` is in tests/test_torch_checkpoint.py."""
 
 import json
 import os
@@ -53,7 +54,7 @@ def test_output_file_and_hit_loci(tmp_path, capsys, mini_genome, ref_fasta):
     assert json.loads(capsys.readouterr().err.strip().splitlines()[-1]) == {"hit_loci": [6852, 23907, 33845]}
 
 
-@pytest.mark.parametrize("flag,item", [(["--devices", "2"], "item 10"), (["--checkpoint", "x.ckpt"], "item 4")])
+@pytest.mark.parametrize("flag,item", [(["--devices", "2"], "Queue 1 item 2")])
 @pytest.mark.parametrize("cmd", ["find-genes", "find-genes-cluster"])
 def test_unported_options_exit_2(cmd, flag, item, capsys, mini_genome, ref_fasta):
     rc = main([cmd, "--genome", mini_genome, "--refs", ref_fasta, "--quiet", "--device", "cpu", *flag])

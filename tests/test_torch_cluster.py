@@ -448,10 +448,10 @@ def test_return_dists_and_outputs_match_jax_miner(clusters, mini_genome):
 # --- what raises -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("kwarg", ["devices", "checkpoint_path"])
+@pytest.mark.parametrize("kwarg", ["devices"])
 def test_unported_options_raise(mini_genome, ref_fasta, kwarg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2 if kwarg == "devices" else "x.ckpt"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
+        kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2})
 
 
 def test_threshold_count_mismatch_raises(clusters, mini_genome):

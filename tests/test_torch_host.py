@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's host modules (FASTA parsing
 and its native library, reference profiles and clusters, thresholds, the
-exact replays, the aligner, the int64 host engine) against the JAX
-originals, with the same inputs through both.  Zero tolerance: the copies
+exact replays, the aligner, the int64 host engine, the checkpoint, paired
+k-mers, the RSS filter, ``mutation_plot``) against the JAX originals, with the same inputs through both.  Zero tolerance: the copies
 differ from their originals only in imports and in the JAX paths they
 drop."""
 
@@ -13,17 +13,25 @@ import pytest
 
 from kmergma_tpu.models import state_machine as jsm
 from kmergma_tpu.ops import align as jalign
+from kmergma_tpu.ops import paired_kmers as jpk
 from kmergma_tpu.ops import reference as jref
+from kmergma_tpu.ops import rss as jrss
 from kmergma_tpu.ops import scan_host as jhost
 from kmergma_tpu.ops import thresholds as jthr
+from kmergma_tpu.utils import checkpoint as jckpt
 from kmergma_tpu.utils import fasta as jfasta
+from kmergma_tpu.utils import plots as jplots
 from kmergma_tpu_torch.models import state_machine as tsm
 from kmergma_tpu_torch.ops import align as talign
+from kmergma_tpu_torch.ops import paired_kmers as tpk
 from kmergma_tpu_torch.ops import reference as tref
+from kmergma_tpu_torch.ops import rss as trss
 from kmergma_tpu_torch.ops import scan_host as thost
 from kmergma_tpu_torch.ops import thresholds as tthr
+from kmergma_tpu_torch.utils import checkpoint as tckpt
 from kmergma_tpu_torch.utils import fasta as tfasta
 from kmergma_tpu_torch.utils import native as tnative
+from kmergma_tpu_torch.utils import plots as tplots
 
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
@@ -168,3 +176,82 @@ def test_host_scan_engine_streams_match_jax(fixture):
         )
         n += len(got[1])
     assert n > 0
+
+
+def test_checkpoint_matches_jax():
+    """The port's ScanCheckpoint and SegmentTracker write the JAX writer's
+    bytes, each reads the other's file, and ``done`` removes it."""
+    hits = [tfasta.FastaRecord("a | dist = 1.0 | MatchPos = 3:9", b"ACGTACG"),
+            tfasta.FastaRecord("b | dist = 2.5 | MatchPos = 1:4", b"TTGA")]
+    words = [np.arange(7, dtype=np.uint32), np.array([0, 2**32 - 1], dtype=np.uint32)]
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = {}
+        for name, mod in (("port", tckpt), ("jax", jckpt)):
+            path = os.path.join(tmp, f"{name}.ckpt")
+            c = mod.ScanCheckpoint.load_or_create(path, "g|k=6")
+            c.record_done(0, 100, hits, [3, 101])
+            tracker = c.segment_tracker(1)
+            for i, w in enumerate(words):
+                tracker.done_segment(i, w, "fp")
+            with open(path, "rb") as fh:
+                raw[name] = fh.read()
+        assert raw["port"] == raw["jax"]
+        for mod, name in ((tckpt, "jax"), (jckpt, "port")):
+            path = os.path.join(tmp, f"{name}.ckpt")
+            c = mod.ScanCheckpoint.load_or_create(path, "g|k=6")
+            assert (c.next_record, c.genome_pos, c.hit_loci) == (1, 100, [3, 101])
+            assert [(h.description, h.seq) for h in c.restore_hits()] == [(h.description, h.seq) for h in hits]
+            n, back = c.segment_tracker(1).resume("fp")
+            assert n == 2 and [b.tolist() for b in back] == [w.tolist() for w in words]
+            assert c.segment_tracker(1).resume("other") == (0, []) == c.segment_tracker(2).resume("fp")
+            assert mod.ScanCheckpoint.load_or_create(path, "another").next_record == 0
+            c.done()
+            assert not os.path.exists(path)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+def test_paired_kmers_match_jax(k):
+    rng = np.random.default_rng(11 + k)
+    codes = rng.integers(0, 4, 97, dtype=np.int8)
+    seq = "".join("ACGT"[c] for c in codes)
+    assert tpk.initialize_kmers(codes, k) == jpk.initialize_kmers(codes, k) == tpk.initialize_kmers(seq, k)
+    assert tpk.kmer_pair_count(codes, k).tolist() == jpk.kmer_pair_count(codes, k).tolist()
+    assert tpk.kmer_pair_count(seq, k).tolist() == jpk.kmer_pair_count(seq, k).tolist()
+    bins, jbins = np.ones(4 ** (2 * k)), np.ones(4 ** (2 * k))
+    tpk.kmer_pair_count_into(codes, k, bins)
+    jpk.kmer_pair_count_into(codes, k, jbins)
+    assert bins.tolist() == jbins.tolist()
+    for a, b in rng.integers(0, 4**k, (5, 2)).tolist():
+        assert tpk.as_index(a, b, k) == jpk.as_index(a, b, k)
+
+
+def test_rss_matches_jax():
+    assert (trss.HUMAN_RSSV, trss.HUMAN_RSSD) == (jrss.HUMAN_RSSV, jrss.HUMAN_RSSD)
+    rng = np.random.default_rng(12)
+    for i, rss in enumerate([trss.HUMAN_RSSV] * 6 + [trss.HUMAN_RSSD] * 3):
+        flank = "".join("ACGT"[c] for c in rng.integers(0, 4, 10 + i))
+        motif = list(rss.replace("N", "A"))
+        for j in rng.integers(0, len(motif), i).tolist():
+            motif[j] = "ACGT"[int(rng.integers(0, 4))]
+        window = flank + "".join(motif) + flank
+        got, want = trss.align_rss(window, rss), jrss.align_rss(window, rss)
+        assert (got.score, got.cigar) == (want.score, want.cigar)
+        assert trss.rss_dist(window, rss) == jrss.rss_dist(window, rss)
+        for thr in (1, i):
+            assert trss.is_rss(window, rss, thr) == jrss.is_rss(window, rss, thr)
+
+
+def test_mutation_plot_matches_jax(tmp_path):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    sweep = np.random.default_rng(13).uniform(0.0, 40.0, (4, 9))
+    figs = [mod.mutation_plot(sweep, 0.05, title="t", ylabel="y", save_path=str(tmp_path / f"{i}.png"))
+            for i, mod in enumerate((tplots, jplots))]
+    got, want = (f.axes[0] for f in figs)
+    assert (got.get_title(), got.get_xlabel(), got.get_ylabel()) == (want.get_title(), want.get_xlabel(), want.get_ylabel())
+    assert [c.get_offsets().tolist() for c in got.collections] == [c.get_offsets().tolist() for c in want.collections]
+    assert [ln.get_xydata().tolist() for ln in got.lines] == [ln.get_xydata().tolist() for ln in want.lines]
+    assert (tmp_path / "0.png").stat().st_size > 1000

@@ -227,11 +227,6 @@ def test_strobe_miner_edge_records_match_jax(profile):
     assert got.hits == []
 
 
-def test_strobe_unported_options_raise(profile, mini_genome):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        kt.strobemer_find_genes(mini_genome, REF, verbose=False, device="cpu", checkpoint_path="x.ckpt")
-
-
 def test_strobe_genome_dev_and_engine_cache_match_jax(profile):
     """Records already on the device (``genome_dev=``, as the bench hands
     them over, here longer than the records) and the caller's engine cache
