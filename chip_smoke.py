@@ -49,6 +49,21 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   genes' 20 bp prefixes, ws 20, pair depth 14): K4 and K6 against their
   twins, each at both of its depths with its device time, then ``ClusterScanEngine`` on one 16 Mbp contig and the short
   contig, its streams equal to an int64 host cluster oracle's;
+* long records and shards: one 512 Mbp record of host codes (hashed
+  background, the genes planted every 6 Mbp and one across the first
+  segment boundary) on the segmented path (8 segments at the default
+  ``chunk_windows``) against the one-pass path on the same codes as a
+  device tensor and against the int64 host engine over the whole record,
+  each path's peak device memory, wall and K1 and K2 launches;
+  ``mine_genome`` on it killed after 3 segments and resumed (only the 5
+  remaining scanned, the uninterrupted hits, the file removed); the
+  sharded engines over 1 and 4 logical shards of the first card on the
+  genome's contigs and the short contig, equal to the one-device engines
+  (K1, K2, K3, K5, K8); ``find_genes(devices=1)`` and
+  ``find_genes_cluster_mode(devices=1)`` equal to the API phases' hits; a
+  one-rank NCCL group through ``initialize_distributed`` around one
+  sharded pass; ``devices=2`` where a second card is present; and the
+  checkpoint's cost on 256 fragments of the fragmented assembly;
 * the port's throughput harness (``kmergma_tpu_torch.bench.run``) at its
   default sizes, every genome made on the card by K7 (a 512 Mbp headline,
   64 Mbp hit-dense, k = 10 and strobe genomes, 6 x 512 Mbp records), each
@@ -129,6 +144,11 @@ PREFIX_BP = 20
 KILL_AT = 2
 #: the paired spectrum's slice held against the O(n^2) host loop
 PAIRED_SLICE_BP = 4_000
+#: the long-record phase's record: 512 Mbp of host codes, 8 segments at the
+#: engine's default chunk_windows
+LONG_BP = 512_000_000
+#: the reference gene planted across its first segment boundary
+STRADDLE_GENE = 33
 #: the bench phase's row sizes, the harness's defaults: a 512 Mbp headline,
 #: 64 Mbp hit-dense, k = 10 and strobe genomes, and 6 x 512 Mbp records
 BENCH_SIZES = {"n_mbp": 512.0, "dense_mbp": 64.0, "k10_mbp": 64.0, "strobe_mbp": 64.0, "g3_mbp": 3200.0}
@@ -212,7 +232,7 @@ class HostClusterOracle:
         self.k = k
         self.engines = [HostScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records) for p in profiles]
 
-    def record_streams(self, codes, thrs):
+    def record_streams(self, codes, thrs, codes_dev=None, seg_tracker=None):
         return [e.record_stream(codes, thr)[:2] for e, thr in zip(self.engines, thrs)]
 
     def minimal_streams(self, codes, thrs, max_ws: int) -> list:
@@ -404,7 +424,7 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, devic
 
     names = [
         "FASTA parse (as_records)", "reference profile (gen_ref_ws_cons)", "threshold estimate",
-        "ScanEngine set-up (S to the device)", "H2D incl. host zero-padding (prepare_codes)",
+        "ScanEngine set-up (S to the device)", "H2D from pinned staging, tail zeroed on the device (prepare_codes)",
         "planned pass: K1 + plan + K2 + run reduce + D2H", "  of which K1 bitmap alone (incl. l0, bases)",
         "replay (replay_single)", "alignment (semiglobal_align_batch)",
     ]
@@ -452,12 +472,12 @@ def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device
         def __init__(self, streams):
             self.streams = iter(streams)
 
-        def record_streams(self, codes, thrs):
+        def record_streams(self, codes, thrs, codes_dev=None, seg_tracker=None):
             return next(self.streams)
 
     names = [
         "FASTA parse (as_records)", "clustering (cluster_ref_api)", "threshold estimates",
-        "ClusterScanEngine set-up (S to the device)", "H2D incl. host zero-padding (prepare_codes)",
+        "ClusterScanEngine set-up (S to the device)", "H2D from pinned staging, tail zeroed on the device (prepare_codes)",
         "bitmap pass: K3 (K8 on the first record), or K5's split pass", "planned passes of all clusters + one D2H",
         "replay (replay_omn)", "alignment, one candidate at a time",
     ]
@@ -1839,6 +1859,330 @@ def bench_phase(ctx) -> list:
     ]
 
 
+def long_record(n_bp: int, seg_windows: int, ws: int, genes) -> "np.ndarray":
+    """``n_bp`` codes of splitmix background (seed 2, ``hash_codes``, made in
+    32 Mbp pieces) with the reference genes planted every 6 Mbp, cycling
+    through them, and one gene straddling the first segment boundary
+    (window ``seg_windows``): gene ``STRADDLE_GENE``, which lies well below
+    the threshold (distance 5.63 alone on a hashed background)."""
+    import numpy as np
+
+    codes = np.empty(n_bp, dtype=np.int8)
+    piece = 32_000_000
+    for off in range(0, n_bp, piece):
+        codes[off : off + piece] = hash_codes(min(piece, n_bp - off), off, seed=2)
+    every = max(n_bp // 80, 6_000_000) if n_bp > 60_000_000 else max(n_bp // 8, 2 * ws)
+    for j, pos in enumerate(range(every // 2, n_bp - every // 2, every)):
+        gene = genes[j % len(genes)]
+        codes[pos : pos + gene.shape[0]] = gene
+    gene = genes[STRADDLE_GENE]
+    straddle = seg_windows - gene.shape[0] // 2
+    codes[straddle : straddle + gene.shape[0]] = gene
+    return codes
+
+
+def long_record_phase(ctx) -> dict:
+    """Long records and shards.  One long record of host codes (512 Mbp at
+    size) on the segmented path against the one-pass path on the same codes
+    as a device tensor and against the int64 host engine over the whole
+    record, each path's peak device memory, wall and K1 and K2 launches;
+    ``mine_genome`` on it killed after 3 segments and resumed: only the
+    remaining segments scanned, the uninterrupted hits, the file removed.
+    Then the sharded engines over 1 and 4 logical shards of the first card
+    on the phase's genome and short contig, equal to the one-device
+    engines, ``find_genes(devices=1)`` and ``find_genes_cluster_mode
+    (devices=1)`` equal to the API phases' hits, a one-rank process group
+    (NCCL on the card) through ``initialize_distributed``, ``devices=2``
+    where a second card is present, and the checkpoint's cost on the first
+    256 fragments of the fragmented assembly.  Returns the launches of
+    every kernel over the phase's runs."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.models.miner import mine_genome
+    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
+    from kmergma_tpu_torch.models.state_machine import replay_single
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.scan_host import HostScanEngine
+    from kmergma_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
+    from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    profile, thr, launches = ctx["profile"], ctx["thr"], ctx["launches"]
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+    total = dict.fromkeys(launches.read(), 0)
+
+    def counted(fn):
+        """Run ``fn`` with the launch counts set to 0; add them to the
+        phase's total and return (counts, result)."""
+        launches.reset()
+        out = fn()
+        got = launches.read()
+        for name, n in got.items():
+            total[name] += n
+        return got, out
+
+    def peak_and_wall(fn):
+        """(peak device bytes or None, wall s, launch counts, result)."""
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        got, (ms, out) = counted(lambda: clock(fn, sync))
+        return (torch.cuda.max_memory_allocated() if on_card else None), ms / 1e3, got, out
+
+    def mem(x):
+        return f"{x} bytes" if x is not None else "not measured (CPU)"
+
+    # --- one long record: segmented against one pass and the host engine ----
+    engine = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device, chunk_windows=ctx["long_chunk"])
+    seg = 2 * engine.chunk
+    genes = [rec.codes for rec in as_records(REF)]
+    codes = long_record(ctx["long_bp"], seg, ws, genes)
+    n, nw = codes.shape[0], codes.shape[0] - ws + 1
+    n_segs = -(-nw // seg)
+    require(n_segs >= 4, f"the long record has {n_segs} segments; the kill needs at least 4")
+    engine.record_stream(codes[: 2 * seg + ws], thr)  # warm-ups: three segments, then one pass
+    engine.record_stream(torch.from_numpy(codes[: seg + ws]).to(device), thr)
+    seg_peak, seg_s, seg_launch, seg_out = peak_and_wall(lambda: engine.record_stream(codes, thr))
+    codes_dev = torch.from_numpy(codes).to(device)
+    one_peak, one_s, one_launch, one_out = peak_and_wall(lambda: engine.record_stream(codes_dev, thr))
+    del codes_dev
+    require(seg_out[:2] == one_out[:2], "the segmented (dist0, stream) differs from the one-pass path's")
+    # the route such a record took before it segmented: host codes in one pass,
+    # on an engine whose segments hold the whole record
+    whole = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device,
+                       chunk_windows=-(-nw // (2 * engine.rspan)) * engine.rspan)
+    cold_peak, cold_s, _, _ = peak_and_wall(lambda: whole.record_stream(codes, thr))
+    pass_peak, pass_s, pass_launch, pass_out = peak_and_wall(lambda: whole.record_stream(codes, thr))
+    _, pass2_s, _, _ = peak_and_wall(lambda: whole.record_stream(codes, thr))
+
+    def parent_route():
+        """The copy before pinned staging: zero-padded on the host, then a
+        pageable copy of the padded codes (the pass pads a device tensor
+        again, on the card)."""
+        padded = np.zeros(whole._padded_len(n), dtype=np.int8)
+        padded[:n] = codes
+        return whole.record_stream(torch.from_numpy(padded).to(device)[:n], thr)
+
+    page_peak, page_s, _, page_out = peak_and_wall(parent_route)
+    _, page2_s, _, _ = peak_and_wall(parent_route)
+    require(pass_out[:2] == one_out[:2] == page_out[:2], "the unsegmented host-codes pass differs from the one-pass path")
+    del whole
+    hits = replay_single(seg_out[1], seg_out[0], thr, k, ws, n, 50)
+    t0 = time.perf_counter()
+    host = HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r)
+    n_host = host_record_check(host, torch.from_numpy(codes), thr, seg_out[0], seg_out[1], hits, "the long record")
+    require(len(hits) > 0 and any(abs(h.cmi - (seg - genes[STRADDLE_GENE].shape[0] // 2)) < ws for h in hits),
+            "no hit on the gene straddling the first segment boundary")
+    print(f"long record {n} bp, chunk_windows {engine.chunk}, {n_segs} segments of {seg} windows: segmented (host codes) "
+          f"{seg_s:.3f} s, peak device memory {mem(seg_peak)}, K1 {seg_launch['fused_record_bitmaps']} launches, "
+          f"K2 {seg_launch['match_counts']}; one pass (device tensor) {one_s:.3f} s, peak {mem(one_peak)}, "
+          f"K1 {one_launch['fused_record_bitmaps']}, K2 {one_launch['match_counts']} [{label}]")
+    print(f"long record unsegmented (chunk_windows {-(-nw // (2 * engine.rspan)) * engine.rspan}): host codes in one "
+          f"pass {pass_s:.3f} s, then {pass2_s:.3f} s, peak {mem(pass_peak)}, K1 {pass_launch['fused_record_bitmaps']}, "
+          f"K2 {pass_launch['match_counts']} (first call, pinned buffers grown: {cold_s:.3f} s, peak {mem(cold_peak)}); "
+          f"host zero-pad and pageable copy, then one pass (the route before pinned staging) {page_s:.3f} s, then "
+          f"{page2_s:.3f} s, peak {mem(page_peak)} [{label}]")
+    print(f"long record: (dist0, {len(seg_out[1])} stream entries) equal on all paths; {len(hits)} hits equal the int64 "
+          f"host engine's over the whole record ({n_host} host stream entries, {time.perf_counter() - t0:.3f} s), one "
+          f"straddling the segment boundary [{label}]")
+    if on_card:
+        require(seg_launch["fused_record_bitmaps"] == 2 * n_segs and seg_launch["match_counts"] > 0,
+                f"the segmented path did not run K1 once a segment and K2: {seg_launch}")
+
+    # --- mine_genome on the segmented path: killed after 3 segments, resumed --
+    rec = FastaRecord("long", np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes(), _codes=codes)
+    full = mine_genome([rec], profile, thr=thr, engine=engine, get_hit_loci=True)
+    require(len(full.hits) == len(hits), f"mine_genome found {len(full.hits)} hits, the replay {len(hits)}")
+    ckpt = str(ctx["tmp"] / "long.ckpt")
+    dying = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device, chunk_windows=ctx["long_chunk"])
+    real = dying._segmented_bitmaps
+
+    def killer(codes_, nw_, thr_int, tracker=None):
+        orig = tracker.done_segment
+
+        def done(si, words, fp):
+            orig(si, words, fp)
+            if si + 1 >= 3:
+                raise KeyboardInterrupt("killed by chip_smoke")
+
+        tracker.done_segment = done
+        return real(codes_, nw_, thr_int, tracker)
+
+    dying._segmented_bitmaps = killer
+    sync()
+    t0 = time.perf_counter()
+    try:
+        mine_genome([rec], profile, thr=thr, engine=dying, get_hit_loci=True, checkpoint_path=ckpt)
+    except KeyboardInterrupt:
+        pass
+    else:
+        raise SmokeFailure("the long record's run was not killed")
+    kill_s = time.perf_counter() - t0
+    with open(ckpt) as fh:
+        saved = json.load(fh)
+    require(saved["seg_record"] == 0 and saved["seg_next"] == 3, f"the killed run saved segment {saved['seg_next']}")
+    n_bytes = os.path.getsize(ckpt)
+    got, (resume_ms, res) = counted(lambda: clock(
+        lambda: mine_genome([rec], profile, thr=thr, engine=engine, get_hit_loci=True, checkpoint_path=ckpt), sync))
+    require([(h.description, h.seq) for h in res.hits] == [(h.description, h.seq) for h in full.hits]
+            and res.hit_loci == full.hit_loci, "the resumed long record's hits differ from the uninterrupted run's")
+    require(not os.path.exists(ckpt), "the resumed long record left its checkpoint behind")
+    if on_card:
+        require(got["fused_record_bitmaps"] == 2 * (n_segs - 3),
+                f"the resumed run did not scan only the {n_segs - 3} remaining segments: {got}")
+    print(f"long record checkpoint: killed after 3 of {n_segs} segments in {kill_s:.3f} s, checkpoint {n_bytes} bytes; "
+          f"resumed in {resume_ms / 1e3:.3f} s, K1 {got['fused_record_bitmaps']} launches (2 a segment), "
+          f"{len(res.hits)} hits equal the uninterrupted run's, file removed [{label}]")
+    del rec, codes, host
+
+    # --- the sharded engines over 1 and 4 logical shards of one device -----------
+    # at the default chunk_windows, as devices=N builds them: a record is cut
+    # into n_dev shards of equal span whatever its length
+    clusters, cthrs = ctx["clusters"], list(map(float, ctx["cthrs"]))
+    one = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
+    cone = ClusterScanEngine(clusters.profiles, k=6, device=device)
+    first = device if device.type == "cpu" else torch.device("cuda", 0)
+    meshes = {n_dev: make_mesh(devices=[first] * n_dev) for n_dev in (1, 4)}
+    records = [*ctx["contigs"], ctx["short_contig"]]
+
+    def shards_of(eng, name):
+        """Run ``eng`` over ``records`` with its per-shard bitmap pass
+        (method ``name``) counted: (results, shards launched per record)."""
+        real, seen = getattr(eng, name), []
+
+        def shard(*a, **kw):
+            seen[-1] += 1
+            return real(*a, **kw)
+
+        setattr(eng, name, shard)
+        try:
+            out = []
+            for c in records:
+                seen.append(0)
+                out.append(eng.record_streams(c, cthrs) if name == "_bitmaps" else eng.record_stream(c, thr)[:2])
+            return out, seen
+        finally:
+            delattr(eng, name)
+
+    for n_dev, mesh in meshes.items():
+        sh = ShardedScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, mesh=mesh)
+        got, (ms, (streams, shards)) = counted(lambda: clock(lambda: shards_of(sh, "_record_bitmap"), sync))
+        one_ms, want = clock(lambda: [one.record_stream(c, thr)[:2] for c in records], sync)
+        require(streams == want, f"ShardedScanEngine over {n_dev} shards differs from the one-device engine")
+        require(shards == [n_dev] * len(records), f"ShardedScanEngine over {n_dev} shards launched {shards} a record")
+        line = f"ShardedScanEngine over {n_dev} logical shards of {first}, chunk_windows {sh.chunk}: {len(records)} " \
+               f"records ({sum(c.shape[0] for c in records)} bp) in {ms / 1e3:.3f} s (one-device engine " \
+               f"{one_ms / 1e3:.3f} s), shards launched a record {shards}, streams equal the one-device engine's; " \
+               f"K1 {got['fused_record_bitmaps']}, K2 {got['match_counts']}"
+        if n_dev == 4:
+            csh = ShardedClusterScanEngine(clusters.profiles, k=6, mesh=mesh)
+            cgot, (cms, (cstreams, cshards)) = counted(lambda: clock(lambda: shards_of(csh, "_bitmaps"), sync))
+            cone_ms, cwant = clock(lambda: [cone.record_streams(c, cthrs) for c in records], sync)
+            require(cstreams == cwant, "ShardedClusterScanEngine over 4 shards differs from the one-device engine")
+            require(cshards == [n_dev] * len(records), f"ShardedClusterScanEngine launched {cshards} shards a record")
+            line += (f"; ShardedClusterScanEngine {cms / 1e3:.3f} s (one-device {cone_ms / 1e3:.3f} s), shards "
+                     f"{cshards}, streams equal, K3 {cgot['fused_cluster_record_bitmaps']}, K5 "
+                     f"{cgot['codes_pair_multi']}, K8 {cgot['lookup_roundtrip']}, K2 {cgot['match_counts']}")
+            if on_card:
+                require(cgot["fused_cluster_record_bitmaps"] > 0 and cgot["codes_pair_multi"] > 0
+                        and cgot["lookup_roundtrip"] > 0, f"a kernel of the sharded cluster path never launched: {cgot}")
+        print(line + f" [{label}]")
+        if on_card:
+            require(got["fused_record_bitmaps"] > 0 and got["match_counts"] > 0,
+                    f"a kernel of the sharded single-profile path never launched: {got}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got, (ms, out) = counted(lambda: clock(
+            lambda: kt.find_genes(str(ctx["fasta"]), REF, verbose=False, do_return_hit_loci=True, devices=1,
+                                  device=device), sync))
+        want_hits, want_loci = ctx["uninterrupted"]["single"]
+        require([(h.description, h.seq) for h in out[0]] == [(h.description, h.seq) for h in want_hits]
+                and out[1] == want_loci, "find_genes(devices=1) differs from find_genes")
+        cgot, (cms, cout) = counted(lambda: clock(
+            lambda: kt.find_genes_cluster_mode(str(ctx["cluster_fasta"]), REF, verbose=False, do_return_hit_loci=True,
+                                               devices=1, device=device), sync))
+        want_hits, want_loci = ctx["uninterrupted"]["cluster"]
+        require([(h.description, h.seq) for h in cout[0]] == [(h.description, h.seq) for h in want_hits]
+                and cout[1] == want_loci, "find_genes_cluster_mode(devices=1) differs from find_genes_cluster_mode")
+    print(f"find_genes(devices=1) {ms / 1e3:.3f} s, {len(out[0])} hits, and find_genes_cluster_mode(devices=1) "
+          f"{cms / 1e3:.3f} s, {len(cout[0])} hits, equal the API phases' [{label}]")
+
+    # --- a one-rank process group: the all-gather path ------------------------------
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", num_processes=1, process_id=0, device=device)
+    try:
+        mesh = make_mesh(device=device, devices=[first])
+        require(mesh.distributed, "the mesh after initialize_distributed spans no process group")
+        sh = ShardedScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, mesh=mesh)
+        require(sh.record_stream(records[0], thr)[:2] == one.record_stream(records[0], thr)[:2],
+                "the sharded pass over a one-rank process group differs from the one-device engine")
+        print(f"one-rank process group ({dist.get_backend()}): the sharded pass's all-gather ran, stream equal [{label}]")
+    finally:
+        dist.destroy_process_group()
+
+    # --- more than one card ---------------------------------------------------------------
+    if on_card and torch.cuda.device_count() > 1:
+        got, (ms, out) = counted(lambda: clock(
+            lambda: kt.find_genes(str(ctx["fasta"]), REF, verbose=False, do_return_hit_loci=True, devices=2), sync))
+        want_hits, want_loci = ctx["uninterrupted"]["single"]
+        require([h.description for h in out[0]] == [h.description for h in want_hits] and out[1] == want_loci,
+                "find_genes(devices=2) differs from find_genes")
+        print(f"find_genes(devices=2) over two cards {ms / 1e3:.3f} s, hits equal [{label}]")
+    else:
+        print(f"real multi-card sharding not exercised: {torch.cuda.device_count() if on_card else 0} card(s) "
+              f"present [{label}]")
+
+    # --- the checkpoint's cost on many records -------------------------------------
+    n_rec = min(256, ctx["fragments"])
+    frags = np.concatenate(ctx["contigs"])[: n_rec * FRAGMENT_BP].reshape(n_rec, FRAGMENT_BP)
+    frecs = [FastaRecord(f"frag{i}", np.frombuffer(b"ACGT", dtype=np.uint8)[f].tobytes(), _codes=f)
+             for i, f in enumerate(frags)]
+
+    def mine(ckpt=None):
+        return mine_genome_clusters(frecs, clusters.profiles, thr_vec=cthrs, buff=100, get_hit_loci=True,
+                                    engine=cone, checkpoint_path=ckpt)
+
+    mine()  # warm-up
+    from kmergma_tpu_torch.utils.checkpoint import ScanCheckpoint
+
+    writes: list = []
+    real_write = ScanCheckpoint._write
+
+    def timed_write(self):
+        t0 = time.perf_counter()
+        real_write(self)
+        writes.append(time.perf_counter() - t0)
+
+    ckpt = str(ctx["tmp"] / "frag.ckpt")
+    walls, hits = [], []
+    ScanCheckpoint._write = timed_write
+    try:
+        for path in (None, ckpt, ckpt, None):  # in turns: the host's drift falls on both
+            ms, res = clock(lambda: mine(path), sync)
+            walls.append(ms / 1e3)
+            hits.append([h.description for h in res.hits])
+    finally:
+        ScanCheckpoint._write = real_write
+    require(all(h == hits[0] for h in hits), "the checkpointed fragment run's hits differ")
+    print(f"checkpoint cost: mine_genome_clusters over {n_rec} fragments of {FRAGMENT_BP} bp, {len(hits[0])} hits, "
+          f"in turns without / with / with / without checkpoint_path: {' / '.join(f'{w:.3f}' for w in walls)} s; "
+          f"{len(writes)} file writes of {sum(writes) / len(writes) * 1e3:.3f} ms each on average, "
+          f"{sum(writes) / 2:.3f} s a run [{label}]")
+    return total
+
+
 def build_kernels(label: str) -> None:
     """Build (or load) the kernel library, printing the build time and
     ptxas's registers and spills per kernel."""
@@ -1905,12 +2249,14 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     return out
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS) -> dict:
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS, long_bp: int = LONG_BP, long_chunk: int | None = None) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     ``runs`` timed runs follow one warm-up at size, and each stage of the
     breakdowns is the median of ``runs``; ``bench_sizes`` are the bench
     phase's row sizes (``BENCH_SIZES`` by default), ``fragments`` the
-    fragmented assembly's record count.  Returns the kernels' report."""
+    fragmented assembly's record count; ``long_bp`` the long record's
+    length and ``long_chunk`` its engine's ``chunk_windows`` (the default
+    when None).  Returns the kernels' report."""
     import torch
 
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
@@ -1938,6 +2284,7 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
         launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
+        long_bp=long_bp, long_chunk=long_chunk,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx.update(tmp=Path(tmp), fasta=Path(tmp) / "genome.fasta", cluster_fasta=Path(tmp) / "cluster_genome.fasta",
@@ -1945,9 +2292,12 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         write_fasta(ctx["fasta"], contigs)
         kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx)
         checkpoint_phase(ctx)
+        long_launches = long_record_phase(ctx)
     paired_spectrum_check(ctx)
     kernels += mixed_depth_phase(ctx)
     kernels += bench_phase(ctx)
+    for row in kernels:  # each kernel's launches on the long-record and sharded path
+        row["long_path_launches"] = long_launches[row["name"].split("[")[0]]
     return {"kernels": kernels}
 
 

@@ -7,7 +7,9 @@ those of the JAX package: the return value is a list whose first element
 is the hit-record list, with hit loci, alignments and distances appended
 in that order when requested.  Each search runs on ``device``: the card
 (``"cuda"``, the default; raises without CUDA) unless the caller asks for
-the CPU (``device="cpu"``).
+the CPU (``device="cpu"``).  ``devices=N`` (single profile and cluster
+mode) shards the scan over the first N cards, as the JAX package's does
+over its first N devices.
 """
 
 from __future__ import annotations
@@ -30,12 +32,17 @@ from .utils.fasta import FastaRecord, write_fasta
 logger = logging.getLogger("kmergma_tpu_torch")
 
 
-def _refuse_unported(devices) -> None:
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= (the sharded multi-GPU scan) is not ported yet: "
-            "ROADMAP.md Queue 1 item 2"
-        )
+def _mesh_or_device(devices: int | None, device):
+    """(mesh, device): with ``devices`` the mesh of the first ``devices``
+    cards (``parallel.mesh.make_mesh``; raises when fewer are present, and
+    on ``device="cpu"`` gives that many logical shards of the CPU) and its
+    first device; else (None, the resolved ``device``)."""
+    if devices is None:
+        return None, resolve_device(device)
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices, device=device)
+    return mesh, mesh.first
 
 
 def _warn_helper(k: int, do_return_dists: bool) -> None:
@@ -69,10 +76,10 @@ def find_genes(
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
     alignments and per-window distances.  ``checkpoint_path`` enables
     per-record checkpoint/resume (utils/checkpoint.py; a file written by
-    either package resumes in the other).  ``devices`` is not ported yet
-    and raises."""
-    _refuse_unported(devices)
-    device = resolve_device(device)
+    either package resumes in the other).  ``devices=N`` shards the scan
+    over the first N cards (``parallel.sharded_scan.ShardedScanEngine``)
+    and raises when fewer are present."""
+    mesh, device = _mesh_or_device(devices, device)
     if verbose:
         logger.info("pre-processing references and parameters...")
     _warn_helper(k, do_return_dists)
@@ -97,6 +104,11 @@ def find_genes(
 
     if verbose:
         logger.info("initializing iteration...")
+    engine = None
+    if mesh is not None:
+        from .parallel.sharded_scan import ShardedScanEngine
+
+        engine = ShardedScanEngine(profile.sum_kfv, k=k, ws=profile.windowsize, r=profile.n_records, mesh=mesh)
     res = mine_genome(
         genome_path,
         profile,
@@ -108,6 +120,7 @@ def find_genes(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        engine=engine,
         checkpoint_path=checkpoint_path,
         device=device,
     )
@@ -141,12 +154,12 @@ def find_genes_cluster_mode(
 
     Returns ``[hits]`` plus, in priority order when requested, hit loci,
     alignments and per-cluster per-window distances.  ``checkpoint_path``
-    enables per-record checkpoint/resume.  ``devices`` is not ported yet
-    and raises."""
+    enables per-record checkpoint/resume.  ``devices=N`` shards the scan
+    over the first N cards (``parallel.sharded_scan.
+    ShardedClusterScanEngine``) and raises when fewer are present."""
     from .models.omn_miner import mine_genome_clusters
 
-    _refuse_unported(devices)
-    device = resolve_device(device)
+    mesh, device = _mesh_or_device(devices, device)
     if cluster_cutoffs is None:
         cluster_cutoffs = [7, 12, 20, 25]
     if verbose:
@@ -178,6 +191,11 @@ def find_genes_cluster_mode(
 
     if verbose:
         logger.info("initializing iteration...")
+    engine = None
+    if mesh is not None:
+        from .parallel.sharded_scan import ShardedClusterScanEngine
+
+        engine = ShardedClusterScanEngine(clusters.profiles, k=k, mesh=mesh)
     res = mine_genome_clusters(
         genome_path,
         clusters.profiles,
@@ -189,6 +207,7 @@ def find_genes_cluster_mode(
         do_return_dists=do_return_dists,
         do_return_align=do_return_align,
         get_hit_loci=do_return_hit_loci,
+        engine=engine,
         checkpoint_path=checkpoint_path,
         device=device,
     )

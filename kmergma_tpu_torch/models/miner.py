@@ -3,7 +3,9 @@
 
 Per contig (records shorter than the windowsize are skipped):
   1. device: the planned scan (ops/scan.ScanEngine) emits the sparse
-     candidate stream,
+     candidate stream; the next eligible record's copy to the device is
+     queued first (cross-record prefetch), and a long record resumes
+     from its last finished segment when a checkpoint holds one,
   2. host: exact replay of the minima state machine (``replay_single``),
   3. host: optional semi-global alignment trim of every hit of the record
      in one native batch (``semiglobal_align_batch``),
@@ -130,7 +132,9 @@ def mine_genome(
     With ``checkpoint_path`` the run records its progress after each record
     (utils/checkpoint.py) and, started again on the same file, resumes from
     the first record it had not finished, with the hits and loci of the
-    records before it; the file is removed when the run completes.  The
+    records before it; the file is removed when the run completes.  A
+    segmented record (longer than 2 x ``engine.chunk`` windows) also
+    records each finished segment, and resumes after the last one.  The
     checkpoint is the JAX package's, identity string included, so either
     package resumes the other's.  ``dists`` and ``stats`` cover only the
     records this call scanned."""
@@ -150,8 +154,28 @@ def mine_genome(
         res.hits.extend(ckpt.restore_hits())
         res.hit_loci.extend(ckpt.hit_loci)
 
+    records = as_records(genome)
+
+    # cross-record prefetch: the next eligible record's copy to the device
+    # is queued before the current record is scanned, so it overlaps the
+    # scan; records long enough to be segmented manage their own copies,
+    # and engines that copy per shard (sharded) opt out
+    prefetched: dict[int, object] = {}
+
+    def _prefetch_after(idx: int) -> None:
+        if not getattr(engine, "prefetch_h2d", False):
+            return
+        for j in range(idx + 1, len(records)):
+            if ckpt and j < ckpt.next_record:
+                continue
+            n_j = len(records[j])
+            if n_j >= ws and (n_j - ws + 1) <= 2 * engine.chunk:
+                if j not in prefetched:
+                    prefetched[j] = engine.prepare_codes(records[j].codes)
+                return
+
     genome_pos = ckpt.genome_pos if ckpt else 0
-    for record_idx, record in enumerate(as_records(genome)):
+    for record_idx, record in enumerate(records):
         if ckpt and record_idx < ckpt.next_record:
             continue
         hits_before, loci_before = len(res.hits), len(res.hit_loci)
@@ -162,7 +186,12 @@ def mine_genome(
             if ckpt:
                 ckpt.record_done(record_idx, genome_pos, [], [])
             continue
-        dist0, stream, dists = engine.record_stream(record.codes, thr, collect_dists=do_return_dists)
+        codes_dev = prefetched.pop(record_idx, None)
+        _prefetch_after(record_idx)
+        dist0, stream, dists = engine.record_stream(
+            record.codes, thr, collect_dists=do_return_dists, codes_dev=codes_dev,
+            seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
+        )
         stats.records_scanned += 1
         stats.bp_scanned += seq_len
         stats.windows_scanned += seq_len - ws + 1

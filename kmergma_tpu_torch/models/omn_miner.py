@@ -3,7 +3,9 @@
 
 Per contig (records too short for the widest cluster are skipped):
   1. device: one cluster pass (ops/scan_cluster.ClusterScanEngine) emits
-     the m per-cluster candidate streams,
+     the m per-cluster candidate streams; the next eligible record's copy
+     to the device is queued first (cross-record prefetch), and the sharded
+     engine resumes a long record from its last finished segment batch,
   2. host: exact replay of the cluster minima state machine
      (``replay_omn``), streams merged in (window, cluster) order, with the
      reference's two overlap checks (KmerGMA.jl OmnGenomeMiner.jl:126 and
@@ -49,13 +51,16 @@ def mine_genome_clusters(
     device: "str | torch.device" = "cuda",
 ) -> MineResult:
     """``engine`` may be any object with the cluster engine's
-    ``record_streams(codes, thrs)`` and per-cluster ``engines[c].
-    record_stream(codes, thr, collect_dists=True)``, such as an exact int64
-    host oracle; by default the device ``ClusterScanEngine`` on ``device``
-    (the card unless the caller asks for the CPU).  ``checkpoint_path``
-    checkpoints and resumes per record, as ``mine_genome``'s does; a
-    record too short to scan advances ``GenomePos`` before it is recorded
-    as done, as the JAX miner's does."""
+    ``record_streams(codes, thrs, codes_dev=, seg_tracker=)`` and
+    per-cluster ``engines[c].record_stream(codes, thr, collect_dists=True)``,
+    such as an exact int64 host oracle; by default the device
+    ``ClusterScanEngine`` on ``device`` (the card unless the caller asks
+    for the CPU).  An engine with ``prefetch_h2d`` set also needs
+    ``prepare_codes`` and ``chunk``.  ``checkpoint_path`` checkpoints and
+    resumes per record, as ``mine_genome``'s does, and mid-record where
+    the engine segments (the sharded one); a record too short to scan
+    advances ``GenomePos`` before it is recorded as done, as the JAX
+    miner's does."""
     m = len(profiles)
     if len(thr_vec) != m:
         raise ValueError(f"{m} cluster profiles but {len(thr_vec)} thresholds")
@@ -81,8 +86,26 @@ def mine_genome_clusters(
         res.hits.extend(ckpt.restore_hits())
         res.hit_loci.extend(ckpt.hit_loci)
 
+    records = as_records(genome)
+
+    # cross-record prefetch (as models/miner.py): the next eligible record's
+    # copy to the device is queued before the current record is scanned
+    prefetched: dict[int, object] = {}
+
+    def _prefetch_after(idx: int) -> None:
+        if not getattr(cluster_engine, "prefetch_h2d", False):
+            return
+        for j in range(idx + 1, len(records)):
+            if ckpt and j < ckpt.next_record:
+                continue
+            n_j = len(records[j])
+            if n_j - maxws - k + 2 >= 1:
+                if n_j <= 2 * cluster_engine.chunk and j not in prefetched:
+                    prefetched[j] = cluster_engine.prepare_codes(records[j].codes)
+                return
+
     genome_pos = ckpt.genome_pos if ckpt else 0
-    for record_idx, record in enumerate(as_records(genome)):
+    for record_idx, record in enumerate(records):
         if ckpt and record_idx < ckpt.next_record:
             continue
         hits_before, loci_before = len(res.hits), len(res.hit_loci)
@@ -98,19 +121,24 @@ def mine_genome_clusters(
         stats.bp_scanned += seq_len
         stats.windows_scanned += m * imax
 
+        codes_dev = prefetched.pop(record_idx, None)
+        _prefetch_after(record_idx)
         if do_return_dists:
             # every window of every cluster, through each cluster's
             # whole-record distance scan
             dist0s, streams = [], []
             for ind in range(m):
                 d0, stream, dists = cluster_engine.engines[ind].record_stream(
-                    record.codes, thr_vec[ind], collect_dists=True,
+                    record.codes, thr_vec[ind], collect_dists=True, codes_dev=codes_dev,
                 )
                 dist0s.append(d0)
                 streams.append(stream)
                 dist_parts[ind].append(dists[1 : imax + 1])
         else:
-            pairs = cluster_engine.record_streams(record.codes, thr_vec)
+            pairs = cluster_engine.record_streams(
+                record.codes, thr_vec, codes_dev=codes_dev,
+                seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
+            )
             dist0s = [p[0] for p in pairs]
             streams = [p[1] for p in pairs]
         stats.candidate_windows += sum(len(s) for s in streams)

@@ -14,7 +14,11 @@ hand-written kernels (ops/scan_fused.py: K1, ops/scan_kernels.py: K2 and
 K4).  ``ScanEngine.record_stream`` runs one planned pass per record: the
 block bitmap (K1's lower bounds at pair depth 16, or in exact mode K4's
 full-depth distances) -> device region plan -> K2 exact region recompute ->
-device run reduce -> one device-to-host copy.
+device run reduce -> one device-to-host copy.  A long record of host codes
+builds its bitmap a segment at a time, and the planned pass then cuts its
+region rows from the host codes (``_region_rows``), as the sharded engines
+do (parallel/sharded_scan.py).  Copies to the card go through pinned
+staging buffers (``PinnedStaging``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from .reference import RefProfile
 MAX_BITMAP_DEPTH = 255
 
 _INT32_MAX = 2**31 - 1
+
+#: ``ScanEngine``'s default ``chunk_windows``
+DEFAULT_CHUNK_WINDOWS = 1 << 25
 
 
 def resolve_device(device) -> torch.device:
@@ -234,20 +241,165 @@ def _check_record_len(n: int) -> None:
         )
 
 
+class PinnedStaging:
+    """Page-locked host buffers that stage copies to one CUDA device, so
+    each copy runs asynchronously (``non_blocking=True``) behind the host's
+    next piece of work.
+
+    The buffers are used in turn.  A copy may still be reading a buffer
+    when the host comes back to it, so ``to_device`` records an event
+    after each copy, and a buffer is refilled - or grown, which frees it -
+    only after that event has completed.  With two buffers the host fills
+    one while the card reads the other.  ``pin=False`` (unpinned buffers)
+    lets the CPU tests run the bookkeeping."""
+
+    def __init__(self, pin: bool = True):
+        self.pin = pin
+        self.buffers: list = [None, None]
+        self.events: list = [None, None]
+        self.turn = 0
+
+    def _copy(self, dst: torch.Tensor, src: torch.Tensor):
+        """Queue the copy; return the event behind it.  ``copy_`` runs on
+        the current stream of ``dst``'s device, which need not be the
+        current device, so the event is recorded on that stream."""
+        with torch.cuda.device(dst.device):
+            dst.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dst.device))
+        return event
+
+    def _buffer(self, nbytes: int) -> tuple[int, torch.Tensor]:
+        """The next buffer in turn, at least ``nbytes`` long, once no copy
+        reads it any more."""
+        i = self.turn
+        self.turn = (i + 1) % len(self.buffers)
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+            self.events[i] = None
+        if self.buffers[i] is None or self.buffers[i].numel() < nbytes:
+            self.buffers[i] = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=self.pin)
+        return i, self.buffers[i][:nbytes]
+
+    def to_device(self, dst: torch.Tensor, fill, shape: tuple, dtype) -> None:
+        """Copy an array of ``shape`` and numpy ``dtype`` into ``dst``:
+        ``fill(view)`` writes it into a staging buffer's numpy view."""
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        i, buf = self._buffer(nbytes)
+        fill(buf.numpy().view(dtype).reshape(shape))
+        self.events[i] = self._copy(dst, buf.view(dst.dtype).view(dst.shape))
+
+
+_STAGING: dict = {}
+
+
+def staging(device: torch.device) -> PinnedStaging:
+    """The staging buffers of one CUDA device."""
+    if device not in _STAGING:
+        _STAGING[device] = PinnedStaging()
+    return _STAGING[device]
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
 def pad_to_device(codes: "np.ndarray | torch.Tensor", total: int, dtype, device: torch.device) -> torch.Tensor:
     """Record codes zero-padded to ``total`` on ``device`` as numpy
-    ``dtype``: one host-to-device copy of a numpy array, or a tensor
-    already on ``device`` padded there (a tensor elsewhere is refused)."""
+    ``dtype``.  A numpy array crosses to a CUDA device unpadded, through
+    a pinned staging buffer (``PinnedStaging``) and without blocking, into
+    a tensor whose tail is zeroed on the device; on the CPU it is padded on
+    the host.  A tensor already on ``device`` is padded there (a tensor
+    elsewhere is refused)."""
     n = codes.shape[0]
     if torch.is_tensor(codes):
         if codes.device != device:
             raise ValueError(f"record codes on {codes.device}, engine on {device}")
-        padded = torch.zeros(total, dtype=torch.from_numpy(np.zeros(0, dtype=dtype)).dtype, device=device)
+        padded = torch.zeros(total, dtype=_torch_dtype(dtype), device=device)
         padded[:n] = codes
         return padded
-    padded = np.zeros(total, dtype=dtype)
-    padded[:n] = codes
-    return torch.from_numpy(padded).to(device)
+    if device.type != "cuda":
+        padded = np.zeros(total, dtype=dtype)
+        padded[:n] = codes
+        return torch.from_numpy(padded).to(device)
+    out = torch.empty(total, dtype=_torch_dtype(dtype), device=device)
+    out[n:].zero_()
+
+    def fill(view):
+        view[:] = codes
+
+    staging(device).to_device(out[:n], fill, (n,), dtype)
+    return out
+
+
+def host_region_rows(codes: np.ndarray, starts: np.ndarray, width: int, device: torch.device) -> torch.Tensor:
+    """Rows ``codes[s : s + width]`` for each start ``s``, zero past the
+    record's end (as the same slice of a zero-padded device copy of the
+    record), on ``device``: gathered on the host - into a pinned staging
+    buffer for a CUDA device - and sent in one copy."""
+    n = codes.shape[0]
+    idx = starts.astype(np.int64)[:, None] + np.arange(width, dtype=np.int64)[None, :]
+
+    def fill(view):
+        np.take(codes, idx, out=view, mode="clip")
+        view[idx >= n] = 0
+
+    if device.type != "cuda":
+        rows = np.empty(idx.shape, dtype=codes.dtype)
+        fill(rows)
+        return torch.from_numpy(rows).to(device)
+    out = torch.empty(idx.shape, dtype=_torch_dtype(codes.dtype), device=device)
+    staging(device).to_device(out, fill, idx.shape, codes.dtype)
+    return out
+
+
+def _region_rows(source: "torch.Tensor | np.ndarray", starts: torch.Tensor, width: int) -> torch.Tensor:
+    """The planned pass's region rows, ``width`` codes from each start, from
+    a row source: the whole record's zero-padded codes on the device, or the
+    record's host codes (``host_region_rows``; the starts, at most the
+    region bucket of int64, are copied to the host first)."""
+    if torch.is_tensor(source):
+        offs = torch.arange(width, device=source.device)
+        return source[starts[:, None] + offs[None, :]]
+    return host_region_rows(source, starts.cpu().numpy(), width, starts.device)
+
+
+def pack_bitmap_words(flat: np.ndarray) -> np.ndarray:
+    """bool[nb] -> uint32[ceil(nb / 32)], word w bit i = block 32 w + i
+    (the JAX package's ``_pack_bitmap_words``, the checkpoint's segment
+    format)."""
+    pad = -flat.shape[0] % 32
+    return np.packbits(np.pad(flat.astype(bool), (0, pad)), bitorder="little").view("<u4")
+
+
+def unpack_bitmap_words(words: np.ndarray, n_blocks: int) -> np.ndarray:
+    """The inverse of ``pack_bitmap_words``: bool[<= n_blocks] (fewer where
+    the words hold fewer blocks)."""
+    bits = np.unpackbits(np.ascontiguousarray(words, dtype="<u4").view(np.uint8), bitorder="little")
+    return bits[:n_blocks].astype(bool)
+
+
+def resume_segments(tracker, fingerprints: list[str], n_blocks: int) -> tuple[int, list, str]:
+    """(first segment to scan, the restored bool bitmaps of ``n_blocks``
+    blocks each, the fingerprint to write) from a checkpoint's
+    ``SegmentTracker``.  The fingerprints are the JAX engines', once for
+    each value of their ``fused`` field: that field records whether the
+    JAX words came from its TPU kernel, and both kinds lie on the same
+    segment and block grid as the port's, so a resume takes either.  The
+    first is written, the JAX engines' value on the CPU, so either package
+    resumes the other's file."""
+    for fp in fingerprints:
+        start, restored = tracker.resume(fp)
+        if start:
+            return start, [unpack_bitmap_words(w, n_blocks) for w in restored], fp
+    return 0, [], fingerprints[0]
+
+
+def fit_blocks(flat: np.ndarray, n_blocks: int) -> np.ndarray:
+    """A block bitmap cut or zero-padded to exactly ``n_blocks``."""
+    if flat.shape[0] >= n_blocks:
+        return flat[:n_blocks]
+    return np.concatenate([flat, np.zeros(n_blocks - flat.shape[0], dtype=bool)])
 
 
 def _window_count_sq(k0: torch.Tensor) -> torch.Tensor:
@@ -399,12 +551,16 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _planned_streams(engines: list, prep: torch.Tensor, flats: list, nws: list, thrs: list, mis: list) -> list:
+def _planned_streams(engines: list, source: "torch.Tensor | np.ndarray", flats: list, nws: list, thrs: list, mis: list) -> list:
     """The planned pass after the bitmap, for one or more profiles of one
-    record (the cluster engine passes one ``ScanEngine`` per cluster).
+    record (the cluster engines pass one ``ScanEngine`` per cluster).
 
-    Per profile i: the device region plan from ``flats[i]`` (a flat bool
-    block bitmap), the K2 exact recompute of the planned regions, the
+    ``source`` gives the region rows (``_region_rows``): the record's
+    zero-padded codes on the device, or its host codes (the segmented
+    records and the sharded engines, where no device holds the whole
+    record).  Per profile i: the device region plan from ``flats[i]`` (a
+    flat bool block bitmap on the device), the K2 exact recompute of the
+    planned regions, the
     below mask at the exact threshold of ``thrs[i]`` and the device run
     reduce up to stream index ``mis[i]``; then ONE device-to-host copy for
     all profiles.  A profile whose region bucket overflows reruns its plan
@@ -423,7 +579,7 @@ def _planned_streams(engines: list, prep: torch.Tensor, flats: list, nws: list, 
     while todo:
         parts = []
         for i in todo:
-            starts, nvr_t, d, below = engines[i]._regions(prep, flats[i], nws[i], thr_exact[i], n_regions[i])
+            starts, nvr_t, d, below = engines[i]._regions(source, flats[i], nws[i], thr_exact[i], n_regions[i])
             red = _device_run_reduce(d, below, starts, rspan, mis[i], buckets[i])
             kept[i] = (starts, d, below)
             parts.append(torch.cat([nvr_t.view(1), d[0, :1], red]))
@@ -452,7 +608,7 @@ def _planned_streams(engines: list, prep: torch.Tensor, flats: list, nws: list, 
 
 
 class ScanEngine:
-    """Runs the device scan of whole records for one reference profile.
+    """Runs the device scan of records for one reference profile.
 
     Every record goes through one planned pass on ``device`` (the card
     unless the caller asks for the CPU); the output is the sparse candidate
@@ -463,14 +619,26 @@ class ScanEngine:
     exact distances of K4's full-depth pair counts.  A ``bound_depth``
     above K1's ``MAX_BITMAP_DEPTH`` that reaches the window's full depth
     ws - k takes exact mode; one that stops short of it raises.
+
+    A record of host codes with more than 2 x ``chunk_windows`` windows is
+    segmented (``_segmented_bitmaps``): its bitmap is built a segment at a
+    time, so device memory does not grow with the record, and the planned
+    pass then takes its region rows from the host codes.  Exact mode never
+    segments, as in the JAX package, whose strobemer miner scans whole
+    records.
     """
+
+    #: miners may copy the next record to the device before scanning the
+    #: current one (cross-record prefetch); engines that manage their own
+    #: copies (the sharded ones) opt out
+    prefetch_h2d = True
 
     #: host dtype of the record codes that cross to the device: 2-bit
     #: genome codes (int8); the strobemer span engine ships its strobe
     #: codes as uint8 (256 codes at s = 2) or int32 (s = 3)
     codes_dtype = np.int8
 
-    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, device: "str | torch.device" = "cuda", bound_depth: int | None = 16):
+    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, device: "str | torch.device" = "cuda", bound_depth: int | None = 16, chunk_windows: int | None = None):
         self.device = resolve_device(device)
         check_int32_headroom(s_profile, ws, k, r)
         self.s_dev = torch.as_tensor(np.asarray(s_profile, dtype=np.int32), device=self.device)
@@ -499,8 +667,15 @@ class ScanEngine:
         #: first run-slot bucket of the device run reduce; overflow reruns
         #: the reduce alone at the next power of two that fits
         self.run_bucket = 4096
+        #: a record of host codes with more than 2 x chunk windows is
+        #: scanned in segments of 2 x chunk windows, as in the JAX package:
+        #: 2^25 (its TPU default) keeps contigs up to 64 M windows on the
+        #: one-pass path and cuts a 512 Mbp record into 8 segments
+        self.chunk = DEFAULT_CHUNK_WINDOWS if chunk_windows is None else int(chunk_windows)
+        if self.chunk <= 0 or self.chunk % self.rspan:
+            raise ValueError(f"chunk_windows must be a positive multiple of {self.rspan}, got {self.chunk}")
         #: windows per call of the whole-record distance scan (collect_dists)
-        self.chunk = 1 << 22
+        self.dists_chunk = 1 << 22
 
     def _thr_int(self, thr: float) -> np.int32:
         # Conservative device-side threshold: superset of the exact host
@@ -540,23 +715,92 @@ class ScanEngine:
         _check_record_len(n)
         return pad_to_device(codes, self._padded_len(n), self.codes_dtype, self.device)
 
-    def record_stream(self, codes: "np.ndarray | torch.Tensor", thr: float, collect_dists: bool = False):
+    def record_stream(self, codes: "np.ndarray | torch.Tensor", thr: float, collect_dists: bool = False, codes_dev: "torch.Tensor | None" = None, seg_tracker=None):
         """Scan one record; return (dist0, stream, dists_or_None).
 
         ``codes`` is a numpy array or a tensor on the engine's device.
         ``dist0`` is the first-window distance, ``stream`` a sorted list of
         (window index >= 1, exact float64 distance) covering every window
-        that can influence the minima state machine at threshold ``thr``."""
+        that can influence the minima state machine at threshold ``thr``.
+        ``codes_dev`` may pass the record already on the device, as
+        ``prepare_codes`` gives it (the miners' prefetch).
+        ``seg_tracker`` (``utils.checkpoint.SegmentTracker``) persists and
+        restores each segment's bitmap on the segmented path: a record
+        killed half-way resumes after its last finished segment."""
         n = codes.shape[0]
         _check_record_len(n)
         nw = n - self.ws + 1
         if nw < 1:
             raise ValueError(f"record of {n} bp is shorter than the windowsize {self.ws}")
-        prep = self.prepare_codes(codes)
+        if (codes_dev is None and not collect_dists and self.bound_depth is not None
+                and not torch.is_tensor(codes) and nw > 2 * self.chunk):
+            codes = np.asarray(codes, dtype=self.codes_dtype)
+            flat = self._segmented_bitmaps(codes, nw, int(self._thr_int(thr)), seg_tracker)
+            dist0, stream = _planned_streams([self], codes, [flat], [nw], [thr], [nw - 1])[0]
+            return dist0, stream, None
+        prep = self.prepare_codes(codes) if codes_dev is None else codes_dev
         if collect_dists:
             return self._full_record(prep, nw, thr)
         dist0, stream = self._planned_record(prep, nw, thr)
         return dist0, stream, None
+
+    def _segmented_bitmaps(self, codes: np.ndarray, nw: int, thr_int: int, tracker=None) -> torch.Tensor:
+        """The block bitmap of a long record of host codes, a segment of
+        2 x chunk windows at a time (the JAX engine's
+        ``_segmented_bitmaps``).
+
+        Segment i owns windows [off, off + 2 chunk), off = 2 chunk i: its
+        codes ``codes[off : off + 2 chunk + ws - 1]`` cross through
+        ``prepare_codes`` (pinned, without blocking) and K1 runs on them
+        with its carry seeded from the segment's own first window, so each
+        segment's bitmap is a certified superset on its own.  K1 returns
+        whole tiles; each bitmap is cut (or, the last, zero-padded) to the
+        segment's 2 chunk / block blocks before they are joined, else the
+        region plan would shift by whole blocks.  Results are fetched two
+        segments behind the launches, so about three segments are live on
+        the device and the next segment's copy overlaps this one's K1.
+
+        ``tracker`` persists each fetched segment's packed words (the
+        JAX format) and restores them on a resumed run, which scans only
+        the segments after them.  Returns the bool bitmap on the device,
+        cut to the record's rspan grid."""
+        from .scan_cluster_fused import check_fits
+        from .scan_fused import fused_record_bitmaps
+
+        seg = 2 * self.chunk
+        blocks_per_seg = seg // self.block
+        start_seg, out, fp = 0, [], None
+        if tracker is not None:
+            # the JAX engine's fingerprint, field for field
+            fps = [
+                f"{self.k}|{self.ws}|{self.r}|{self.chunk}|{self.block}|{thr_int}|{self.bound_depth}|{fused}|{nw}"
+                for fused in (False, True)
+            ]
+            start_seg, out, fp = resume_segments(tracker, fps, blocks_per_seg)
+        pending: list = []  # (segment index, bitmap on the device, fits or None)
+
+        def fetch_one():
+            si, bm, fits = pending.pop(0)
+            if fits:
+                check_fits(fits[0], fused_record_bitmaps.__name__)
+            host = fit_blocks(bm.cpu().numpy(), blocks_per_seg)
+            out.append(host)
+            if tracker is not None:
+                tracker.done_segment(si, pack_bitmap_words(host), fp)
+
+        for si, off in enumerate(range(0, nw, seg)):
+            if si < start_seg:
+                continue  # restored from the checkpoint
+            prep = self.prepare_codes(codes[off : off + seg + self.ws - 1])
+            fits: list = []
+            bm = self._record_bitmap(prep, min(nw - off, seg), thr_int, fits_out=fits)
+            pending.append((si, bm, fits))
+            if len(pending) > 2:
+                fetch_one()
+        while pending:
+            fetch_one()
+        n_blocks = -(-nw // self.rspan) * (self.rspan // self.block)
+        return torch.from_numpy(fit_blocks(np.concatenate(out), n_blocks)).to(self.device)
 
     def _full_record(self, prep: torch.Tensor, nw: int, thr: float):
         """Every window's distance through the K2 whole-record scan, in
@@ -567,8 +811,8 @@ class ScanEngine:
         full_dists = np.empty(nw, dtype=np.float64)
         stream: list[tuple[int, float]] = []
         prev_below = False
-        for start in range(0, nw, self.chunk):
-            t = min(self.chunk, nw - start)
+        for start in range(0, nw, self.dists_chunk):
+            t = min(self.dists_chunk, nw - start)
             d = scan_window_distances_kernel(
                 prep[start : start + t + self.ws - 1], self.s_dev, self.k, self.ws, self.r,
             ).cpu().numpy()
@@ -588,19 +832,22 @@ class ScanEngine:
         vals = d[idx[keep]].astype(np.float64) / self.scale
         stream.extend(zip(gidx[keep].tolist(), vals.tolist()))
 
-    def _record_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int) -> torch.Tensor:
+    def _record_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int, s_dev: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
         """The record's block bitmap: K1 over the whole record (flat
-        bool[n_tiles * t / block]), or in exact mode ``_exact_bitmap``."""
+        bool[n_tiles * t / block]), or in exact mode ``_exact_bitmap``.
+        ``s_dev`` is the profile on ``prep``'s device (the engine's by
+        default); ``fits_out`` defers K1's int32 check to the caller."""
         if self.bound_depth is None:
             return self._exact_bitmap(prep, nw, thr_int)
         from .scan_fused import fused_record_bitmaps
 
+        s_dev = self.s_dev if s_dev is None else s_dev
         depth = self.bound_depth
-        l0 = _first_window_l0(prep, self.s_dev, k=self.k, ws=self.ws, r=self.r, depth=depth)
+        l0 = _first_window_l0(prep, s_dev, k=self.k, ws=self.ws, r=self.r, depth=depth)
         bm = fused_record_bitmaps(
-            prep, self.s_dev, thr_int, l0, nw,
+            prep, s_dev, thr_int, l0, nw,
             k=self.k, ws=self.ws, r=self.r, depth=depth,
-            t=self.fused_t, block=self.block, n_tiles=-(-nw // self.fused_t),
+            t=self.fused_t, block=self.block, n_tiles=-(-nw // self.fused_t), fits_out=fits_out,
         )
         return bm.reshape(-1).bool()
 
@@ -619,12 +866,12 @@ class ScanEngine:
         below[:nw] = d < thr_int
         return below.view(-1, self.block).any(dim=1)
 
-    def _regions(self, prep: torch.Tensor, flat: torch.Tensor, nw: int, thr_exact: int, n_regions: int):
-        """Plan the active regions and recompute them exactly (K2)."""
+    def _regions(self, source: "torch.Tensor | np.ndarray", flat: torch.Tensor, nw: int, thr_exact: int, n_regions: int):
+        """Plan the active regions and recompute them exactly (K2), with
+        the rows from ``source`` (``_region_rows``)."""
         rspan = self.rspan
         starts, nvr = _plan_regions(flat, nw, rspan, self.block, n_regions)
-        offs = torch.arange(rspan + self.ws - 1, device=prep.device)
-        rows = prep[starts[:, None] + offs[None, :]]
+        rows = _region_rows(source, starts, rspan + self.ws - 1)
         d = _scan_rows_d(rows, self.s_dev, self.k, self.ws, self.r)
         below = _below_mask(d, starts, thr_exact, nw, nvr)
         return starts, nvr, d, below

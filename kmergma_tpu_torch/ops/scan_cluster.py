@@ -121,17 +121,24 @@ class ClusterScanEngine:
     distances; the cluster engine replaces their m bitmap passes with one
     (``record_streams``).  A cluster whose window is shorter than k + 16
     clamps its pair depth to ws - k; a set that mixes depths takes the
-    split pass on every record."""
+    split pass on every record.  This engine scans every record in one
+    pass, as the JAX one does: ``chunk_windows`` only sets the miner's
+    prefetch limit and the sharded engine's span."""
 
-    def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda"):
+    #: the miner may copy the next record to the device before scanning the
+    #: current one (``prepare_codes``)
+    prefetch_h2d = True
+
+    def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda", chunk_windows: int | None = None):
         if not 1 <= len(profiles) <= MAX_CLUSTERS:
             raise ValueError(f"cluster mode takes 1..{MAX_CLUSTERS} profiles, got {len(profiles)}")
         self.k = k
         self.engines = [
-            ScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records, device=device) for p in profiles
+            ScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records, device=device, chunk_windows=chunk_windows)
+            for p in profiles
         ]
         e0 = self.engines[0]
-        self.device = e0.device
+        self.device, self.chunk = e0.device, e0.chunk
         self.block, self.fused_t = e0.block, e0.fused_t
         self.max_ws = max(e.ws for e in self.engines)
         self.s_stack, self.specs = profiles_to_torch(profiles, self.device)
@@ -163,10 +170,14 @@ class ClusterScanEngine:
         cluster: for K3's tiles and halo, the split pass's span and its pair
         kernel's tiles (K5's, or K4's for mixed depths), and region rows
         near the record end (``scan.pad_to_device``)."""
-        from .scan_kernels import _pair_depth_need, _pair_multi_need
-
         n = codes.shape[0]
         _check_record_len(n)
+        return pad_to_device(codes, self._padded_len(n), np.int8, self.device)
+
+    def _padded_len(self, n: int) -> int:
+        """Codes the passes read for a record of ``n`` bp (``prepare_codes``)."""
+        from .scan_kernels import _pair_depth_need, _pair_multi_need
+
         nw_max = max(1, n - min(e.ws for e in self.engines) + 1)
         max_w = self.max_ws - self.k + 1
         n_tiles = -(-nw_max // self.fused_t)
@@ -176,13 +187,16 @@ class ClusterScanEngine:
         else:
             w0 = self.groups[0][0] - self.k + 1
             split_need = _pair_depth_need(self.k, w0, span - 1, span + max_w - 1)[1]
-        total = max(n + self.engines[0].rspan + 1, n_tiles * self.fused_t + _k1_halo(max_w), split_need)
-        return pad_to_device(codes, total, np.int8, self.device)
+        return max(n + self.engines[0].rspan + 1, n_tiles * self.fused_t + _k1_halo(max_w), split_need)
 
-    def record_streams(self, codes: "np.ndarray | torch.Tensor", thrs: list[float]) -> list[tuple[float, list[tuple[int, float]]]]:
+    def record_streams(self, codes: "np.ndarray | torch.Tensor", thrs: list[float], codes_dev: "torch.Tensor | None" = None, seg_tracker=None) -> list[tuple[float, list[tuple[int, float]]]]:
         """Scan one record against every cluster; return one (dist0, stream)
         per cluster, the contract ``replay_omn`` consumes.  ``codes`` is a
-        numpy array or an int8 tensor on the engine's device.
+        numpy array or an int8 tensor on the engine's device; ``codes_dev``
+        the record as ``prepare_codes`` gave it, when the miner prefetched
+        it.  ``seg_tracker`` is taken and not used: this engine does not
+        segment a record, as the JAX one does not (the sharded engine
+        does).
 
         Each stream is the single-profile engine's minimal stream cut at the
         cluster loop's bound: the loop scans windows i <= imax = n - max(ws)
@@ -195,31 +209,39 @@ class ClusterScanEngine:
         nws = [n - e.ws + 1 for e in self.engines]
         if min(nws) < 1:
             raise ValueError("record shorter than a cluster windowsize")
-        prep = self.prepare_codes(codes)
+        prep = self.prepare_codes(codes) if codes_dev is None else codes_dev
         thr_ints = [int(e._thr_int(t)) for e, t in zip(self.engines, thrs)]
-        if self.one_depth and max(nws) >= self.fused_min_windows:
-            bitmaps = self._fused_bitmaps(prep, nws, thr_ints)
-        else:
-            bitmaps = self._split_bitmaps(prep, nws, thr_ints)
+        bitmaps = self._bitmaps(prep, nws, thr_ints)
         imax = n - self.max_ws - self.k + 2
         mis = [min(nw - 1, imax) for nw in nws]
         return _planned_streams(self.engines, prep, list(bitmaps), nws, list(thrs), mis)
 
-    def _split_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int]) -> torch.Tensor:
+    def _bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
+        """The m bitmaps of the record in ``prep``, by its route: K3 when
+        the set has one pair depth and the largest cluster has at least
+        ``fused_min_windows`` windows, else the split pass.  ``s_stack`` is
+        the profile stack on ``prep``'s device (the engine's by default);
+        ``fits_out`` defers K3's int32 check to the caller."""
+        if self.one_depth and max(nws) >= self.fused_min_windows:
+            return self._fused_bitmaps(prep, nws, thr_ints, s_stack, fits_out)
+        return self._split_bitmaps(prep, nws, thr_ints, s_stack)
+
+    def _split_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None) -> torch.Tensor:
         """The split pass (K5, or K4 and K6): bool[m, n_blocks]."""
         span = self._split_span(max(nws))
-        nws_t = torch.tensor(nws, dtype=torch.int32, device=self.device)
-        thr_t = torch.tensor(thr_ints, dtype=torch.int32, device=self.device)
+        nws_t = torch.tensor(nws, dtype=torch.int32, device=prep.device)
+        thr_t = torch.tensor(thr_ints, dtype=torch.int32, device=prep.device)
         return _cluster_record_bitmaps(
-            prep, nws_t, self.s_stack, thr_t,
+            prep, nws_t, self.s_stack if s_stack is None else s_stack, thr_t,
             k=self.k, span=span, block=self.block, groups=self.groups,
         )
 
-    def _fused_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int]) -> torch.Tensor:
+    def _fused_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
         """K3 over the whole record: bool[m, n_tiles * t // block].  The
         engine's first K3 record runs K8 first and raises on a mismatch."""
         from .scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
 
+        s_stack = self.s_stack if s_stack is None else s_stack
         t = self.fused_t
         if not self._lookup_checked:
             widths = [ws - self.k + 1 for ws, _r in self.specs]
@@ -228,11 +250,11 @@ class ClusterScanEngine:
                 raise RuntimeError("K8: a profile table entry came back wrong through K3's lookup")
             self._lookup_checked = True
         head = rolling_kmer_codes(prep[: self.max_ws], self.k)
-        s2 = (self.s_stack.to(torch.int64) ** 2).sum(dim=1)
-        l0s = _first_bounds(head, profile_lookup_multi(head, self.s_stack), s2, self.groups, self.k)
+        s2 = (s_stack.to(torch.int64) ** 2).sum(dim=1)
+        l0s = _first_bounds(head, profile_lookup_multi(head, s_stack), s2, self.groups, self.k)
         bm = fused_cluster_record_bitmaps(
-            prep, self.s_stack, thr_ints, l0s, nws,
+            prep, s_stack, thr_ints, l0s, nws,
             k=self.k, specs=self.specs, depth=self.groups[0][1], t=t, block=self.block,
-            n_tiles=-(-max(nws) // t),
+            n_tiles=-(-max(nws) // t), fits_out=fits_out,
         )
         return bm.bool()

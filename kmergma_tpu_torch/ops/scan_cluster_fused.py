@@ -55,14 +55,17 @@ def fused_cluster_record_bitmaps_plain(codes: torch.Tensor, s_stack: torch.Tenso
     ])
 
 
-def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thrs, l0s: torch.Tensor, nws, *, k: int, specs, depth: int, t: int = 4096, block: int = 512, n_tiles: int) -> torch.Tensor:
+def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thrs, l0s: torch.Tensor, nws, *, k: int, specs, depth: int, t: int = 4096, block: int = 512, n_tiles: int, fits_out: list | None = None) -> torch.Tensor:
     """Whole-record fused bitmap pass for m cluster profiles.
 
     codes: int8[>= n_tiles * t + halo] record codes (0..3), zero-padded;
     s_stack: int32[m, 4^k]; specs: (ws_c, r_c) per cluster; thrs: the
     conservative integer thresholds; l0s: int32[m], each cluster's
     first-window lower bound at ``depth``; nws: the window counts.
-    Returns int32[m, n_tiles * t // block] activity flags."""
+    Returns int32[m, n_tiles * t // block] activity flags.  With
+    ``fits_out`` the call does not wait for the card: it appends the 0-dim
+    bool that says whether every tile base fitted int32, and the caller
+    must check it before using the bitmap (``check_fits``)."""
     m = len(specs)
     widths = [ws - k + 1 for ws, _r in specs]
     if codes.dim() != 1 or codes.dtype != torch.int8 or codes.shape[0] < n_tiles * t + _k1_halo(max(widths)):
@@ -89,7 +92,7 @@ def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thr
         raise ValueError(f"fused_cluster_record_bitmaps: unsupported device {codes.device}")
     if not (codes.is_contiguous() and s_stack.is_contiguous() and s_stack.device == codes.device):
         raise ValueError("fused_cluster_record_bitmaps: codes and S must be contiguous on one device")
-    return _k3_run(_k3_args(codes, s_stack, thrs, nws, **kw), l0s)
+    return _k3_run(_k3_args(codes, s_stack, thrs, nws, **kw), l0s, fits_out)
 
 
 #: K3 launches (two per call: totals, then bitmap) since the count was
@@ -148,18 +151,28 @@ def _k3_launch(args: dict, bases, totals, bitmap, counts: torch.Tensor, emit: bo
     wrapper.launches += 1
 
 
-def _k3_run(args: dict, l0s: torch.Tensor) -> torch.Tensor:
+def _k3_run(args: dict, l0s: torch.Tensor, fits_out: list | None = None) -> torch.Tensor:
     """K3's two launches and the tile bases between them, from the
     int32[m] first-window bounds: the int32[m, n_tiles * t // block]
-    bitmap."""
+    bitmap.  The bases' int32 check waits for the card, unless
+    ``fits_out`` takes it for the caller to make later."""
     totals, counts = _k3_totals(args)
     bases, fits = _k3_tile_bases(totals, l0s)
     bitmap = _k3_bitmap(args, bases, counts)
     # checked after pass 2 is queued, so the host waits once, not between
     # the passes; a bitmap from wrapped bases is never returned
-    if not bool(fits):
-        raise OverflowError(f"{args['wrapper'].__name__}: a tile base overflows int32")
+    if fits_out is not None:
+        fits_out.append(fits)
+    else:
+        check_fits(fits, args["wrapper"].__name__)
     return bitmap
+
+
+def check_fits(fits: torch.Tensor, what: str) -> None:
+    """Raise unless K1's or K3's tile bases all fitted int32 (``fits``, a
+    0-dim bool on the card, read here)."""
+    if not bool(fits):
+        raise OverflowError(f"{what}: a tile base overflows int32")
 
 
 def _k3_totals(args: dict) -> tuple[torch.Tensor, torch.Tensor]:

@@ -55,14 +55,16 @@ def _k1_args(codes: torch.Tensor, s_profile: torch.Tensor, thr: int, nw: int, *,
     )
 
 
-def fused_record_bitmaps(codes: torch.Tensor, s_profile: torch.Tensor, thr: int, l0: torch.Tensor, nw: int, *, k: int, ws: int, r: int, depth: int, t: int = 4096, block: int = 512, n_tiles: int) -> torch.Tensor:
+def fused_record_bitmaps(codes: torch.Tensor, s_profile: torch.Tensor, thr: int, l0: torch.Tensor, nw: int, *, k: int, ws: int, r: int, depth: int, t: int = 4096, block: int = 512, n_tiles: int, fits_out: list | None = None) -> torch.Tensor:
     """Whole-record fused bitmap pass.
 
     codes: int8[>= n_tiles * t + halo] record codes (0..3), zero-padded;
     s_profile: int32[4^k]; thr: the conservative integer threshold;
     l0: 0-dim int32, the record's first-window lower bound at ``depth``
     (``scan._first_window_l0``); nw: the record's window count.
-    Returns int32[n_tiles, t // block] activity flags."""
+    Returns int32[n_tiles, t // block] activity flags.  ``fits_out``
+    defers the int32 check of the tile bases to the caller, as K3's does
+    (``scan_cluster_fused.check_fits``)."""
     w = ws - k + 1
     if codes.dim() != 1 or codes.dtype != torch.int8 or codes.shape[0] < n_tiles * t + _k1_halo(w):
         raise ValueError(
@@ -85,7 +87,7 @@ def fused_record_bitmaps(codes: torch.Tensor, s_profile: torch.Tensor, thr: int,
         raise ValueError("fused_record_bitmaps: codes and S must be contiguous on one device")
     from .scan_cluster_fused import _k3_run
 
-    return _k3_run(_k1_args(codes, s_profile, thr, nw, **kw), l0.view(1)).view(n_tiles, t // block)
+    return _k3_run(_k1_args(codes, s_profile, thr, nw, **kw), l0.view(1), fits_out).view(n_tiles, t // block)
 
 
 #: K1 launches (two per call: totals, then bitmap) since the count was

@@ -13,12 +13,16 @@ included (``seg_record``, ``seg_next``, ``seg_words``,
 ``seg_fingerprint``), and the miners build the same identity strings, so a
 checkpoint written by either package resumes in the other.
 
-``SegmentTracker`` (mid-record progress: each finished segment's packed
-bitmap words) is copied whole, but no engine of the port calls it yet: the
-port scans each record in one planned pass and has no segmented path.  A
-checkpoint with mid-record progress on record i therefore resumes here from
-the start of record i: the hits are the same, only that record's work is
-repeated.
+``SegmentTracker`` holds mid-record progress: each finished segment's
+packed bitmap words.  The miners hand one to the engine for each record,
+and three engines call it: ``ScanEngine`` on a segmented record (more than
+2 x chunk windows of host codes), ``ShardedScanEngine`` and
+``ShardedClusterScanEngine`` on a record of more than one segment batch
+(parallel/sharded_scan.py).  The engines' fingerprints are the JAX
+engines', so a record killed half-way by either package resumes after its
+last finished segment in the other.  The one-device cluster engine, the
+strobemer engine and the int64 host engine take whole records and ignore
+it, as in the JAX package.
 """
 
 from __future__ import annotations

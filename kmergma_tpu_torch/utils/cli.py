@@ -9,9 +9,11 @@ the port's API, plus ``--device {cuda,cpu}`` (default ``cuda``):
 
 ``--checkpoint FILE`` checkpoints each scan per record and resumes an
 interrupted one from the same file (a file written by the JAX package's
-CLI resumes here, and the other way round).  ``--devices`` reaches the
-API, which does not support it yet: the CLI prints its message and exits
-with status 2.
+CLI resumes here, and the other way round).  ``--devices N`` shards the
+two scan subcommands over the first N cards (with ``--device cpu``, N
+logical shards of the CPU); asking for more cards than are present prints
+the API's message and exits with status 2, and the strobemer subcommand
+refuses it, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument(
         "--devices", type=int, default=None,
-        help="run the scan over the first N devices (not ported yet)",
+        help="run the scan sharded over the first N devices (default: one device)",
     )
     p.add_argument(
         "--checkpoint", default=None,
@@ -112,6 +114,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     from .. import api
+    from ..parallel.mesh import NotEnoughDevices
 
     common = {"device": args.device}
     if args.buffer is not None:
@@ -153,7 +156,7 @@ def main(argv: list[str] | None = None) -> int:
                 verbose=verbose, checkpoint_path=args.checkpoint, device=args.device,
                 **({"buffer": args.buffer} if args.buffer is not None else {}),
             )
-    except NotImplementedError as e:
+    except NotEnoughDevices as e:
         print(f"kmergma_tpu_torch: {e}", file=sys.stderr)
         return 2
 

@@ -1,0 +1,112 @@
+"""Worker of the two-process sharded scan tests (tests/test_torch_parallel.py
+on the CPU, tests/test_torch_multicard.py on the cards).
+
+    python tests/_torch_multihost_worker.py <port> <process id> <processes> [cpu|cuda]
+
+Joins a process group on localhost (gloo for ``cpu``, the default; NCCL
+for ``cuda``), builds the mesh over every process (two logical CPU shards
+each, or each process's own card, ``LOCAL_RANK``; processes outermost on
+the data axis), and holds the sharded single-profile and cluster engines'
+streams, one pass and segment batches, bit-identical to the one-device
+engines' on the same record.  Imports only the port.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+REF = str(Path(__file__).resolve().parent / "data" / "Alp_V_ref.fasta")
+
+
+def run_workers(kind: str, nproc: int = 2, timeout: float = 240) -> None:
+    """Run ``nproc`` workers of ``kind`` on a free localhost port, each
+    with its ``LOCAL_RANK``; fail unless every one of them passes."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [
+        subprocess.Popen([sys.executable, __file__, str(port), str(pid), str(nproc), kind],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1", "LOCAL_RANK": str(pid)})
+        for pid in range(nproc)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, f"worker failed:\n{out}"
+        assert "two-process sharded streams bit-identical OK" in out
+
+
+def main() -> None:
+    port, pid, nproc = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+    kind = sys.argv[4] if len(sys.argv) > 4 else "cpu"
+    torch.set_num_threads(1)
+
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.scan_host import scan_window_distances_np_i64
+    from kmergma_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
+    from kmergma_tpu_torch.utils.checkpoint import ScanCheckpoint
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    initialize_distributed(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid, device=kind)
+    if kind == "cuda":
+        mesh = make_mesh()
+        assert mesh.local_data == [torch.device("cuda", pid)] == [torch.device("cuda", torch.cuda.current_device())]
+    else:
+        mesh = make_mesh(devices=["cpu", "cpu"])
+    dev = mesh.first
+    assert mesh.distributed and mesh.shape["data"] == len(mesh.local_data) * nproc, mesh.shape
+    assert mesh.process_index == pid
+
+    rng = np.random.default_rng(3)
+    n, k, ws, r = 30_000, 6, 289, 9
+    codes = rng.integers(0, 4, n, dtype=np.int8)
+    s = rng.integers(0, 10, 4**k).astype(np.int32)
+    single = ScanEngine(s, k=k, ws=ws, r=r, device=dev)
+    d = scan_window_distances_np_i64(codes, s, k, ws, r)
+    thr = float(np.percentile(d / single.scale, 5))
+    want = single.record_stream(codes, thr)
+    sharded = ShardedScanEngine(s, k=k, ws=ws, r=r, mesh=mesh, chunk_windows=2048)
+    assert sharded.record_stream(codes, thr)[:2] == want[:2] and len(want[1]) > 0
+    with tempfile.TemporaryDirectory() as tmp:  # segment batches: the shards x 4 spans x 1024 windows
+        small = ShardedScanEngine(s, k=k, ws=ws, r=r, mesh=mesh, chunk_windows=1024)
+        ckpt = ScanCheckpoint.load_or_create(str(Path(tmp) / f"p{pid}.ckpt"), "g")
+        assert small.record_stream(codes, thr, seg_tracker=ckpt.segment_tracker(0))[:2] == want[:2]
+        assert ckpt.seg_next >= 2
+
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6, cutoffs=[7, 12, 20, 25]))
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+    genes = [rec.codes for rec in as_records(REF)]
+    ccodes = codes.copy()
+    for j, pos in enumerate(range(1_000, n - 1_000, 4_000)):
+        ccodes[pos : pos + genes[j].shape[0]] = genes[j]
+    cwant = ClusterScanEngine(clusters.profiles, k=6, device=dev).record_streams(ccodes, thrs)
+    cgot = ShardedClusterScanEngine(clusters.profiles, k=6, mesh=mesh, chunk_windows=2048).record_streams(ccodes, thrs)
+    assert cgot == cwant and any(len(st) for _, st in cwant)
+
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    print(f"proc {pid} ({dev}): two-process sharded streams bit-identical OK", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -97,9 +97,16 @@ def test_record_kmergma_golden(mini_genome, ref_fasta):
 
 
 @pytest.mark.parametrize("kwarg", ["devices"])
-def test_unported_options_raise(mini_genome, ref_fasta, kwarg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        kt.find_genes(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2})
+def test_unported_options_raise(mini_genome, ref_fasta, kwarg, monkeypatch):
+    """``devices=N`` shards over N cards and raises when fewer are present
+    (here one, as the card's count says), never falling back to fewer
+    cards or to the CPU."""
+    from kmergma_tpu_torch.parallel.mesh import NotEnoughDevices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(NotEnoughDevices, match="2 CUDA devices requested, 1 present"):
+        kt.find_genes(mini_genome, ref_fasta, verbose=False, **{kwarg: 2})
 
 
 def test_overflow_falls_back_to_host_engine(ref_fasta, mini_genome):
@@ -127,6 +134,10 @@ def test_port_never_imports_jax(mini_genome, ref_fasta):
         f"hits = kt.find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
         "assert len(hits) == 3, hits\n"
         f"hits = kt.find_genes_cluster_mode({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
+        "assert len(hits) > 0, hits\n"
+        f"hits = kt.find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu', devices=2)[0]\n"
+        "assert len(hits) == 3, hits\n"
+        f"hits = kt.find_genes_cluster_mode({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu', devices=2)[0]\n"
         "assert len(hits) > 0, hits\n"
         f"hits = kt.strobemer_find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
         "assert len(hits) == 3, hits\n"
@@ -169,7 +180,9 @@ def _imported_modules(path: Path) -> set[str]:
 
 _ROOT = Path(__file__).resolve().parent.parent
 _PORT_FILES = sorted(
-    str(p.relative_to(_ROOT)) for p in [_ROOT / "chip_smoke.py", *(_ROOT / "kmergma_tpu_torch").rglob("*.py")]
+    str(p.relative_to(_ROOT))
+    for p in [_ROOT / "chip_smoke.py", _ROOT / "tests" / "_torch_multihost_worker.py",
+              *(_ROOT / "kmergma_tpu_torch").rglob("*.py")]
 )
 
 
@@ -204,6 +217,7 @@ def _entry_points(mini_genome, ref_fasta):
     from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons as port_gen_ref_ws_cons
     from kmergma_tpu_torch import bench as tbench
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
     from kmergma_tpu_torch.utils.cli import main as cli_main
 
     profile = port_gen_ref_ws_cons(ref_fasta, 6)
@@ -219,6 +233,8 @@ def _entry_points(mini_genome, ref_fasta):
         "strobe_mine_genome": lambda: strobe_mine_genome(mini_genome, strobe, thr=30),
         "ScanEngine": lambda: ScanEngine(profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records),
         "ClusterScanEngine": lambda: ClusterScanEngine(clusters, k=6),
+        "ShardedScanEngine": lambda: ShardedScanEngine(profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records),
+        "ShardedClusterScanEngine": lambda: ShardedClusterScanEngine(clusters, k=6),
         "StrobeSpanEngine": lambda: StrobeSpanEngine(strobe, 0),
         "bench.run": lambda: tbench.run(n_mbp=0.01, skip_extras=True),
         "exact_match": lambda: kt.exact_match("ACGTACGTAC", b"ACGT" * (1 << 18)),
@@ -228,7 +244,8 @@ def _entry_points(mini_genome, ref_fasta):
 
 ENTRY_POINTS = [
     "find_genes", "find_genes_cluster_mode", "strobemer_find_genes", "record_kmergma", "mine_genome",
-    "mine_genome_clusters", "strobe_mine_genome", "ScanEngine", "ClusterScanEngine", "StrobeSpanEngine",
+    "mine_genome_clusters", "strobe_mine_genome", "ScanEngine", "ClusterScanEngine", "ShardedScanEngine",
+    "ShardedClusterScanEngine", "StrobeSpanEngine",
     "bench.run", "exact_match", "cli",
 ]
 
@@ -253,8 +270,9 @@ def test_other_devices_refused():
 
 def test_chip_smoke_phases_on_cpu(capsys):
     """chip_smoke.run drives every phase of every path (single profile,
-    cluster mode, strobemers, checkpoint/resume of the three miners, the
-    paired spectrum, the mixed-depth cluster set, the bench), the
+    cluster mode, strobemers, checkpoint/resume of the three miners, long
+    records and shards, the paired spectrum, the mixed-depth cluster set,
+    the bench), the
     stage breakdowns and the busy shares included, on CPU tensors at a
     small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
@@ -265,13 +283,14 @@ def test_chip_smoke_phases_on_cpu(capsys):
     spec.loader.exec_module(cs)
     bench_sizes = dict(n_mbp=0.5, dense_mbp=0.5, k10_mbp=0.2, strobe_mbp=0.1, g3_mbp=1.0, g3_rec_mbp=0.5)
     report = cs.run("cpu", contig_bp=100_000, n_contigs=3, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
-                    bench_sizes=bench_sizes, fragments=8)
+                    bench_sizes=bench_sizes, fragments=8, long_bp=200_000, long_chunk=8192)
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
         "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome",
     ]
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "long_path_launches"}
     # each median time with its fastest window beside it; K1's and K3's stages on the card; device
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
     extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
@@ -317,6 +336,17 @@ def test_chip_smoke_phases_on_cpu(capsys):
         assert scanned in line and " bytes; resumed in " in line and line.endswith("[cpu]")
     assert "checkpoint api: find_genes resumed a run killed on record 2" in out
     assert "max_abs_err 0.0 against the CPU; 4000 bp slice max_abs_err 0.0 against the host loop" in out
+    # long records and shards: the segmented record against one pass and the host engine, killed and resumed
+    assert "long record 200000 bp, chunk_windows 8192, 13 segments of 16384 windows: segmented (host codes) " in out
+    assert "equal on all paths; " in out and "one straddling the segment boundary [cpu]" in out
+    assert "long record unsegmented (chunk_windows 100352): host codes in one pass " in out
+    assert "host zero-pad and pageable copy, then one pass (the route before pinned staging) " in out
+    assert "long record checkpoint: killed after 3 of 13 segments in " in out
+    assert out.count("streams equal the one-device engine's") == 2 and "ShardedClusterScanEngine " in out
+    assert "chunk_windows 33554432: 4 records" in out and "shards launched a record [4, 4, 4, 4]" in out
+    assert "find_genes(devices=1) " in out and "one-rank process group (gloo): the sharded pass's all-gather ran" in out
+    assert "real multi-card sharding not exercised" in out
+    assert "checkpoint cost: mine_genome_clusters over 8 fragments of 16000 bp" in out and " file writes of " in out
 
 
 def test_chip_smoke_pair_kernels_on_cpu(capsys):

@@ -1,8 +1,10 @@
 """The port's command line (``python -m kmergma_tpu_torch``) against the
 JAX package's (``python -m kmergma_tpu``): each subcommand with
-``--device cpu`` prints what the JAX CLI prints on Alp_V_locus, and the
-option not ported yet (``--devices``) exits with status 2 and the API's
-message.  ``--checkpoint`` is in tests/test_torch_checkpoint.py."""
+``--device cpu`` prints what the JAX CLI prints on Alp_V_locus;
+``--devices N`` shards the two scan subcommands (N logical shards with
+``--device cpu``) and exits with status 2 and the API's message when fewer
+than N cards are present; the strobemer subcommand refuses it, as the JAX
+CLI does.  ``--checkpoint`` is in tests/test_torch_checkpoint.py."""
 
 import json
 import os
@@ -54,12 +56,36 @@ def test_output_file_and_hit_loci(tmp_path, capsys, mini_genome, ref_fasta):
     assert json.loads(capsys.readouterr().err.strip().splitlines()[-1]) == {"hit_loci": [6852, 23907, 33845]}
 
 
-@pytest.mark.parametrize("flag,item", [(["--devices", "2"], "Queue 1 item 2")])
+@pytest.mark.parametrize("flag,item", [(["--devices", "2"], "2 CUDA devices requested, 1 present")])
 @pytest.mark.parametrize("cmd", ["find-genes", "find-genes-cluster"])
-def test_unported_options_exit_2(cmd, flag, item, capsys, mini_genome, ref_fasta):
-    rc = main([cmd, "--genome", mini_genome, "--refs", ref_fasta, "--quiet", "--device", "cpu", *flag])
+def test_unported_options_exit_2(cmd, flag, item, capsys, mini_genome, ref_fasta, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)  # one card, two asked for
+    rc = main([cmd, "--genome", mini_genome, "--refs", ref_fasta, "--quiet", *flag])
     assert rc == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["find-genes", "find-genes-cluster"])
+def test_devices_shards_on_cpu(cmd, capsys, mini_genome, ref_fasta):
+    """``--devices 3 --device cpu``: three logical CPU shards print the
+    one-device hits and loci."""
+    args = [cmd, "--genome", mini_genome, "--refs", ref_fasta, "--quiet", "--hit-loci", "--device", "cpu"]
+    assert main(args) == 0
+    want = capsys.readouterr()
+    assert main([*args, "--devices", "3"]) == 0
+    got = capsys.readouterr()
+    assert got.out == want.out and got.out.count(">") == 3
+    assert got.err.strip().splitlines()[-1] == want.err.strip().splitlines()[-1]
+
+
+def test_strobe_refuses_devices(capsys, mini_genome, ref_fasta):
+    rc = main(["strobe-find-genes", "--genome", mini_genome, "--refs", ref_fasta, "--quiet", "--device", "cpu",
+               "--devices", "2"])
+    assert rc == 2
+    assert "--devices is not supported for the strobemer scan" in capsys.readouterr().err
 
 
 def test_module_entry_point_refuses_without_cuda(mini_genome, ref_fasta):

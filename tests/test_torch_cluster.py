@@ -449,9 +449,15 @@ def test_return_dists_and_outputs_match_jax_miner(clusters, mini_genome):
 
 
 @pytest.mark.parametrize("kwarg", ["devices"])
-def test_unported_options_raise(mini_genome, ref_fasta, kwarg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False, device="cpu", **{kwarg: 2})
+def test_unported_options_raise(mini_genome, ref_fasta, kwarg, monkeypatch):
+    """``devices=N`` raises when fewer than N cards are present (one here,
+    as the card's count says); it never falls back."""
+    from kmergma_tpu_torch.parallel.mesh import NotEnoughDevices
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(NotEnoughDevices, match="2 CUDA devices requested, 1 present"):
+        kt.find_genes_cluster_mode(mini_genome, ref_fasta, verbose=False, **{kwarg: 2})
 
 
 def test_threshold_count_mismatch_raises(clusters, mini_genome):

@@ -120,7 +120,7 @@ def test_collect_dists_matches_jax():
     s, codes = _planted(3, n=30_000)
     k, ws, r = 6, 240, 5
     port = tscan.ScanEngine(s, k=k, ws=ws, r=r, device="cpu")
-    port.chunk = 7_000  # several chunks: the stream stitches across them
+    port.dists_chunk = 7_000  # several chunks: the stream stitches across them
     ref = _jax_engine(s, k, ws, r)
     d = scan_window_distances_np_i64(codes, s, k, ws, r)
     thr = float(np.percentile(d / port.scale, 4.0))
