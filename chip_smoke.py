@@ -35,6 +35,14 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   on int32 strobe codes at s = 3, the strobe goldens through ``strobemer_find_genes``,
   then the same genome mined against an int64 host oracle of the strobe
   recurrence, and where one call's wall goes;
+* the device aligner: A1 (``align_dp``) against its plain twins on the
+  card (scores, runs, run counts, endpoints) on the windows the
+  single-profile and strobe API calls hand their aligner and on 1,024
+  windows cut around the planted genes, its AlignResults against the
+  native DP's, ``find_genes`` and ``strobemer_find_genes`` under
+  ``KMERGMA_ALIGN_DEVICE=1`` against their default runs, and the native
+  DP's time for one window and on 1-8 threads, the host decode's and the
+  hits A1 ran again for a run count past ``RLE_CAP``;
 * checkpoint/resume: each of the three miners, with ``checkpoint_path=``,
   killed on its third record of the genome its phase mined (an engine
   that raises ``KeyboardInterrupt``), then resumed on the card with its
@@ -64,6 +72,12 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   one-rank NCCL group through ``initialize_distributed`` around one
   sharded pass; ``devices=2`` where a second card is present; and the
   checkpoint's cost on 256 fragments of the fragmented assembly;
+* the profile-sharded engine: ``TPScanEngine`` over 1 and 4 logical
+  shards of the first card at k = 10 and 12 on one 16 Mbp contig against
+  the one-device ``ScanEngine`` and the int64 host engine (K6 and K2
+  launched, K1 not; walls and table bytes a device), over four cards
+  with the miners' own route to it where four are present, and
+  ``ScanEngine`` at k = 15 against it;
 * the port's throughput harness (``kmergma_tpu_torch.bench.run``) at its
   default sizes, every genome made on the card by K7 (a 512 Mbp headline,
   64 Mbp hit-dense, k = 10 and strobe genomes, 6 x 512 Mbp records), each
@@ -85,8 +99,9 @@ median of five windows with the fastest beside it.
 ``python3 chip_smoke.py --pair-kernels`` times K2, K4, K6 and K5 alone
 at those shapes (one JSON line); a copy of this file placed in the root of
 an earlier checkout times that checkout's kernels the same way.  It is
-the parent-against-change tool of the pair kernels' redesigns and takes
-no other option.
+the parent-against-change tool of the pair kernels' redesigns.
+``python3 chip_smoke.py --tp-cards`` runs the profile-sharded engine's
+phase alone, on a host with four cards.  No other option is taken.
 
 It imports only the port (``kmergma_tpu_torch``), never jax or the JAX
 package.  Exits non-zero, printing no result, without a CUDA device or
@@ -152,6 +167,21 @@ STRADDLE_GENE = 33
 #: the bench phase's row sizes, the harness's defaults: a 512 Mbp headline,
 #: 64 Mbp hit-dense, k = 10 and strobe genomes, and 6 x 512 Mbp records
 BENCH_SIZES = {"n_mbp": 512.0, "dense_mbp": 64.0, "k10_mbp": 64.0, "strobe_mbp": 64.0, "g3_mbp": 3200.0}
+
+#: the aligner phase's large batch: windows cut around every planted gene
+#: at these shifts (bp), cluster mode's per-record superset size at size
+ALIGN_SHIFTS = tuple(range(-100, 100, 25))
+#: integer operations of one DP cell of A1: E (two adds, a max), the
+#: diagonal (an add, a shuffle), G, base, the running maximum, F, H, the
+#: three decisions, C, EL, FL's break and its scan, and the packed TL
+DP_OPS_PER_CELL = 30
+#: the TP phase's k and threshold: the API's own estimate for the
+#: reference set's profile (``estimate_optimal_threshold``, buffer 8: 11.53
+#: and 7.77, seconds to compute at k = 12), rounded; most planted genes sit
+#: near 4-8, the background near 19.5 at k = 10 and 15.8 at k = 12
+TP_CASES = ((10, 11.5), (12, 7.75))
+#: the largest k of ScanEngine's K codes (int32), probed on one card
+MAX_K = 15
 
 #: one H100 SXM's published peaks (NVIDIA's data sheet): device memory
 #: bytes per second,
@@ -621,6 +651,7 @@ class Launches:
         from kmergma_tpu_torch.ops.scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
         from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps
         from kmergma_tpu_torch.bench import hash_genome
+        from kmergma_tpu_torch.ops.align_device import align_dp
         from kmergma_tpu_torch.ops.scan_kernels import (
             codes_pair_ab_kcodes, codes_pair_multi, match_counts, pair_ab_from_kcodes,
         )
@@ -630,7 +661,7 @@ class Launches:
             "fused_cluster_record_bitmaps": fused_cluster_record_bitmaps,
             "codes_pair_multi": codes_pair_multi, "lookup_roundtrip": lookup_roundtrip,
             "codes_pair_ab_kcodes": codes_pair_ab_kcodes, "pair_ab_from_kcodes": pair_ab_from_kcodes,
-            "hash_genome": hash_genome,
+            "hash_genome": hash_genome, "align_dp": align_dp,
         }
 
     def reset(self) -> None:
@@ -2183,6 +2214,300 @@ def long_record_phase(ctx) -> dict:
     return total
 
 
+def captured_alignments(call):
+    """(``call()``, [(query, windows, gap_open, gap_extend)]): every batch
+    the single-profile and strobemer miners hand their aligner in the call,
+    taken at the router they call, which then runs as it would."""
+    import kmergma_tpu_torch.models.miner as miner
+    import kmergma_tpu_torch.models.strobe_miner as strobe_miner
+
+    batches = []
+    real = miner.align_hits_batch
+
+    def spy(query, subjects, gap_open=-69, gap_extend=-1, device="cuda"):
+        batches.append((query, list(subjects), gap_open, gap_extend))
+        return real(query, subjects, gap_open, gap_extend, device=device)
+
+    miner.align_hits_batch = strobe_miner.align_hits_batch = spy
+    try:
+        return call(), batches
+    finally:
+        miner.align_hits_batch = strobe_miner.align_hits_batch = real
+
+
+def a1_io(m: int, lengths: list, cap: int) -> dict:
+    """A1's work on one batch: the bytes its function must move (query rows
+    and subject letters in, scores, runs, run counts and endpoints out),
+    the DP's integer operations, and the TL bytes it writes."""
+    cells = sum(m * n for n in lengths)
+    io = 60 * m + sum(lengths) + 8 * len(lengths) + 4 * (3 + cap) * len(lengths)
+    return {"bytes": io, "ops": DP_OPS_PER_CELL * cells, "tl_bytes": 4 * sum(m * (n + 1) for n in lengths)}
+
+
+def aligner_phase(ctx) -> dict:
+    """The device aligner: A1 against its twins on the card (scores, runs,
+    run counts, endpoints) and its AlignResults against the native DP's on
+    the single-profile and strobe API cells' hit windows (as the miners
+    batch them) and on a batch of windows cut around every planted gene;
+    ``find_genes`` and ``strobemer_find_genes`` under
+    ``KMERGMA_ALIGN_DEVICE=1`` against their default runs; A1's, the
+    twins', the native DP's (one window, and the thread scaling) and the
+    host decode's times.  Returns A1's kernel row."""
+    import os
+    import statistics as st
+
+    import numpy as np
+    import torch
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.bench import _env_set
+    from kmergma_tpu_torch.ops import align_device as tad
+    from kmergma_tpu_torch.ops.align import _NUC44, _seq_to_idx, semiglobal_align_batch
+    from kmergma_tpu_torch.utils import native
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    tad.semiglobal_align_device.overflowed = 0
+
+    def api(forced: bool):
+        """((hits, loci, alignments), batches) of find_genes and of
+        strobemer_find_genes."""
+        kwargs = dict(verbose=False, do_return_hit_loci=True, do_return_align=True, device=device)
+        with warnings.catch_warnings(), _env_set("KMERGMA_ALIGN_DEVICE", "1" if forced else ""):
+            warnings.simplefilter("ignore")
+            return (captured_alignments(lambda: kt.find_genes(str(ctx["fasta"]), REF, **kwargs)),
+                    captured_alignments(lambda: kt.strobemer_find_genes(str(ctx["fasta"]), REF, **kwargs)))
+
+    def same(a, b) -> bool:
+        return ([(h.description, h.seq) for h in a[0]] == [(h.description, h.seq) for h in b[0]] and a[1] == b[1]
+                and [(x.score, x.cigar) for x in a[2]] == [(x.score, x.cigar) for x in b[2]])
+
+    (want_single, single_b), (want_strobe, strobe_b) = api(False)
+    ctx["launches"].reset()
+    t0 = time.perf_counter()
+    (got_single, _), (got_strobe, _) = api(True)
+    forced_s = time.perf_counter() - t0
+    launches = ctx["launches"].read()["align_dp"]
+    require(same(got_single, want_single) and same(got_strobe, want_strobe),
+            "find_genes or strobemer_find_genes under KMERGMA_ALIGN_DEVICE=1 differs from the default run")
+    if on_card:
+        require(launches > 0, "A1 never launched under KMERGMA_ALIGN_DEVICE=1")
+    print(f"aligner: find_genes and strobemer_find_genes under KMERGMA_ALIGN_DEVICE=1 in {forced_s:.3f} s: hits, loci "
+          f"and alignments equal the default runs' ({len(want_single[0])} and {len(want_strobe[0])} hits), A1 "
+          f"{launches} launches [{label}]")
+
+    # the API cells' windows (every record's batch of one call), and a batch
+    # cut around every planted gene
+    def joined(bs):
+        return (bs[0][0], [w for b in bs for w in b[1]], bs[0][2], bs[0][3])
+
+    query = single_b[0][0]
+    width = len(query) + 100
+    plant_every = ctx["plant_every"]
+    cut = []
+    for codes in ctx["contigs"]:
+        for pos in range(plant_every // 2, codes.shape[0] - plant_every // 2 + 1, plant_every):
+            for sh in ALIGN_SHIFTS:
+                lo = min(max(pos - 50 + sh, 0), codes.shape[0] - width)
+                cut.append(np.frombuffer(b"ACGT", np.uint8)[codes[lo : lo + width]].tobytes().decode())
+    cases = {"single": joined(single_b), "strobe": joined(strobe_b), "cut": (query, cut, -69, -1)}
+    if on_card:
+        require(len(cut) >= 1_000, f"the cut batch has {len(cut)} windows")
+
+    shapes, err = {}, 0
+    for name, (q, wins, go, ge) in cases.items():
+        a = _seq_to_idx(q)
+        bs = [_seq_to_idx(w) for w in wins]
+        lengths = [b.shape[0] for b in bs]
+        a_sub = torch.as_tensor(_NUC44[a].astype(np.int32), device=device)
+        b_flat = torch.as_tensor(np.concatenate(bs).astype(np.int8), device=device)
+        ms, out = kernel_ms(lambda: tad.align_dp(a_sub, b_flat, lengths, go, ge), on_card)
+        plain_ms, twin = kernel_ms(lambda: tad._align_dp_plain(a_sub, b_flat, lengths, go, ge, tad.RLE_CAP), on_card,
+                                   reps=1, windows=3)
+        e = max_err(*zip(out, twin))
+        err = max(err, e)
+        dev_s, res = clock(lambda: tad.semiglobal_align_device(q, wins, go, ge, device=device), sync)
+        nat = [clock(lambda: semiglobal_align_batch(q, wins, go, ge), sync) for _ in range(3)]
+        host = nat[-1][1]
+        scores, rle, n_runs, _ = (x.cpu().numpy() for x in out)
+        t0 = time.perf_counter()
+        for i, b in enumerate(bs):
+            if n_runs[i] <= tad.RLE_CAP:
+                tad._decode_rle(rle[i, : n_runs[i]], a.shape[0], b.shape[0], a.astype(np.int32), b.astype(np.int32))
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        require(e == 0, f"A1 differs from its twins on the {name} windows (max_abs_err {e})")
+        if name == "cut":
+            cut_ms, cut_plain_ms = ms, plain_ms
+        require([(x.score, x.cigar) for x in res] == [(x.score, x.cigar) for x in host],
+                f"the device aligner's AlignResults differ from the native DP's on the {name} windows")
+        io = a1_io(a.shape[0], lengths, tad.RLE_CAP)
+        b_ms, b_by = bound(io["bytes"], io["ops"])
+        shapes[name] = {"windows": len(wins), "query": a.shape[0], "window_bp": [min(lengths), max(lengths)],
+                        "gap": [go, ge], "ms": float(ms), "ms_min": ms.min, "plain_ms": float(plain_ms),
+                        "bound_ms": b_ms, "bound_by": b_by, "tl_ms": io["tl_bytes"] / HBM_BYTES_PER_S * 1e3,
+                        "device_wall_ms": dev_s, "native_ms": st.median(t for t, _ in nat), "decode_ms": decode_ms,
+                        "max_runs": int(n_runs.max()), "io": io}
+        print(f"A1 on the {name} windows: {len(wins)} of {min(lengths)}-{max(lengths)} bp against a {a.shape[0]} bp "
+              f"query ({go}/{ge}), max {int(n_runs.max())} runs: {ms:.4f} ms a call (fastest window {ms.min:.4f}), twins "
+              f"{plain_ms:.3f} ms, max_abs_err {e}; bound {b_ms:.4f} ms ({b_by}), TL {io['tl_bytes']} B = "
+              f"{shapes[name]['tl_ms']:.4f} ms at 3.35 TB/s; semiglobal_align_device {dev_s:.3f} ms (decode "
+              f"{decode_ms:.3f} ms on the host); native DP {shapes[name]['native_ms']:.3f} ms; AlignResults equal "
+              f"[{label}]")
+
+    # the native DP: one window a call, and the large batch by its threads
+    # (it runs min(8, os.cpu_count()) of them)
+    q, wins, go, ge = cases["cut"]
+    real_cpu_count = os.cpu_count
+    one = [clock(lambda: semiglobal_align_batch(q, wins[:1], go, ge), sync)[0] for _ in range(10)]
+    threads = {}
+    with_lib = native.get_lib() is not None
+    cores = os.cpu_count()
+    for n_threads in (1, 2, 4, 8):
+        os.cpu_count = lambda n=n_threads: n
+        try:
+            threads[n_threads] = st.median(clock(lambda: semiglobal_align_batch(q, wins, go, ge), sync)[0]
+                                           for _ in range(2))
+        finally:
+            os.cpu_count = real_cpu_count
+    print(f"native DP ({'the native library' if with_lib else 'no native library: the NumPy batch'}): one window a "
+          f"call {st.median(one):.3f} ms (median of 10); {len(wins)} windows on 1 / 2 / 4 / 8 threads "
+          f"{' / '.join(f'{threads[t]:.2f}' for t in (1, 2, 4, 8))} ms; {cores} cores; overflowed hits "
+          f"{tad.semiglobal_align_device.overflowed} [{label}]")
+    big = shapes["cut"]
+    return entry("align_dp", "align_dp.cu", "kmergma_tpu/ops/align_device.py:167", launches, err,
+                 cut_ms, cut_plain_ms, big["io"]["bytes"], big["io"]["ops"],
+                 shapes={k: {kk: vv for kk, vv in v.items() if kk != "io"} for k, v in shapes.items()},
+                 native_one_window_ms=st.median(one), native_threads_ms=threads,
+                 overflowed=tad.semiglobal_align_device.overflowed)
+
+
+def tp_phase(ctx) -> None:
+    """The profile-sharded engine: ``TPScanEngine`` over 1 and 4 logical
+    shards of the first device on the genome's first contig, with the
+    reference set's profile and the API's threshold at each k of
+    ``TP_CASES``: its streams against
+    the one-device ``ScanEngine``'s, its dist0 and replayed hits against the
+    int64 host engine's over the whole record, K6 and K2 launched and K1
+    not, each wall beside the one-device engine's and the table bytes a
+    device holds.  Over four cards where they are present, with the
+    miner's own route to it.  Then ScanEngine at ``ctx["max_k"]`` (15, its
+    K codes' limit) on one device, against TPScanEngine."""
+    import numpy as np
+    import torch
+
+    from kmergma_tpu_torch.models.miner import _default_engine, mine_genome
+    from kmergma_tpu_torch.models.state_machine import replay_single
+    from kmergma_tpu_torch.ops.kmers import rolling_kmer_codes as host_kmer_codes
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_host import HostScanEngine
+    from kmergma_tpu_torch.parallel.mesh import make_mesh
+    from kmergma_tpu_torch.parallel.tp_lookup import TPScanEngine
+    from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    record = ctx["contigs"][0]
+    n = record.shape[0]
+    first = device if device.type == "cpu" else torch.device("cuda", 0)
+    four = on_card and torch.cuda.device_count() >= 4
+
+    def walls(eng, thr):
+        times, out = timed_calls(lambda: eng.record_stream(record, thr)[:2], sync, ctx["runs"])
+        return statistics.median(times), out
+
+    for k, thr in TP_CASES:
+        p = gen_ref_ws_cons(REF, k)
+        ws, r = p.windowsize, p.n_records
+        one_s, want = walls(ScanEngine(p.sum_kfv, k=k, ws=ws, r=r, device=device), thr)
+        host_ms, (d0_h, stream_h, _) = clock(lambda: HostScanEngine(p.sum_kfv, k=k, ws=ws, r=r).record_stream(record, thr),
+                                             sync)
+        hits_h = replay_single(stream_h, d0_h, thr, k, ws, n, 50)
+        if on_card:  # the rehearsal's short contig holds two genes far from the mean profile
+            require(len(hits_h) > 0, f"no hits at k = {k} on the planted contig")
+        meshes = {f"{n_dev} logical shards of {first}": make_mesh(devices=[first] * n_dev) for n_dev in (1, 4)}
+        if four:
+            meshes["4 cards"] = make_mesh(4)
+        line = []
+        for what, mesh in meshes.items():
+            tp = TPScanEngine(p.sum_kfv, k=k, ws=ws, r=r, mesh=mesh)
+            ctx["launches"].reset()
+            tp_s, got = walls(tp, thr)
+            launches = ctx["launches"].read()
+            require(got == want, f"TPScanEngine over {what} at k = {k} differs from the one-device engine")
+            require(got[0] == d0_h and replay_single(got[1], got[0], thr, k, ws, n, 50) == hits_h,
+                    f"TPScanEngine over {what} at k = {k} differs from the int64 host engine")
+            if on_card:
+                require(launches["pair_ab_from_kcodes"] > 0 and launches["match_counts"] > 0
+                        and launches["fused_record_bitmaps"] == 0,
+                        f"TPScanEngine over {what} at k = {k} launched {launches}")
+            line.append(f"over {what} {tp_s:.4f} s, {tp.shard_bytes} table bytes a device, K6 "
+                        f"{launches['pair_ab_from_kcodes']}, K2 {launches['match_counts']}, K1 "
+                        f"{launches['fused_record_bitmaps']}")
+        print(f"TPScanEngine k = {k} (4^{k} bins, ws {ws}, threshold {thr}), {n} bp contig, median of {ctx['runs']}: "
+              f"{'; '.join(line)}; one-device ScanEngine {one_s:.4f} s ({4 * 4**k} table bytes); int64 host engine "
+              f"{host_ms / 1e3:.3f} s; {len(want[1])} stream entries and {len(hits_h)} hits equal on every engine "
+              f"[{label}]")
+        if four:  # the miner takes the sharded engine on its own
+            rec = FastaRecord("contig0", np.frombuffer(b"ACGT", np.uint8)[record].tobytes(), _codes=record)
+            routed = _default_engine(p, "cuda")
+            require(isinstance(routed, TPScanEngine) and len(routed.mesh.devices) == 4,
+                    f"the miner did not route k = {k} to TPScanEngine over 4 cards: {type(routed).__name__}")
+            got = mine_genome([rec], p, thr=thr, device="cuda")
+            want_hits = mine_genome([rec], p, thr=thr, engine=ScanEngine(p.sum_kfv, k=k, ws=ws, r=r), device="cuda")
+            require([h.description for h in got.hits] == [h.description for h in want_hits.hits],
+                    f"mine_genome's own route at k = {k} differs from one card")
+            print(f"mine_genome k = {k} routed to TPScanEngine over 4 cards on its own: {len(got.hits)} hits equal one "
+                  f"card's [{label}]")
+    if not four:
+        print(f"TPScanEngine over four cards not exercised: {torch.cuda.device_count() if on_card else 0} card(s) "
+              f"present [{label}]")
+
+    # the largest k of ScanEngine's int32 K codes, on one device: the
+    # reference set's summed profile, built sparse on the host
+    k = ctx["max_k"]
+    p6 = ctx["profile"]
+    ws, r = p6.windowsize, p6.n_records
+    s = np.zeros(4**k, dtype=np.int32)
+    for rec in as_records(REF):
+        np.add.at(s, host_kmer_codes(rec.codes, k), 1)
+    thr = 10.0  # the planted genes near 4, the background near 13 at k = 15
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    one_ms, want = clock(lambda: ScanEngine(s, k=k, ws=ws, r=r, device=device).record_stream(record, thr)[:2], sync)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tp_ms, got = clock(lambda: TPScanEngine(s, k=k, ws=ws, r=r, mesh=make_mesh(devices=[first] * 4))
+                       .record_stream(record, thr)[:2], sync)
+    tp_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    require(got == want and (len(want[1]) > 0 or not on_card), f"TPScanEngine at k = {k} differs from ScanEngine")
+    print(f"largest k of ScanEngine (int32 K codes): k = {k}, {4 * 4**k} table bytes on one device; set-up and "
+          f"{n} bp in {one_ms / 1e3:.3f} s, peak {peak} B; TPScanEngine over 4 logical shards "
+          f"{tp_ms / 1e3:.3f} s, peak {tp_peak} B; {len(want[1])} stream entries equal [{label}]")
+
+
+def tp_cards(device, label: str = "", contig_bp: int = 16_000_000, runs: int = 3, max_k: int = MAX_K) -> None:
+    """The TP phase alone on a host with four cards (``python3 chip_smoke.py
+    --tp-cards``): ``TPScanEngine`` over logical shards of the first card
+    and over the four cards, and the miner's own route to it, each against
+    the one-device and the int64 host engines, on the first contig of the
+    synthetic genome."""
+    import torch
+
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        require(torch.cuda.device_count() >= 4, f"--tp-cards needs four cards, {torch.cuda.device_count()} present")
+        build_kernels(label)
+    contigs = synthetic_genome(1, contig_bp, 500_000, [rec.codes for rec in as_records(REF)])
+    tp_phase(dict(device=device, on_card=on_card, sync=torch.cuda.synchronize if on_card else (lambda: None),
+                  label=label, runs=runs, contigs=contigs, launches=Launches(), max_k=max_k,
+                  profile=gen_ref_ws_cons(REF, 6)))
+
+
 def build_kernels(label: str) -> None:
     """Build (or load) the kernel library, printing the build time and
     ptxas's registers and spills per kernel."""
@@ -2249,14 +2574,15 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     return out
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS, long_bp: int = LONG_BP, long_chunk: int | None = None) -> dict:
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS, long_bp: int = LONG_BP, long_chunk: int | None = None, max_k: int = MAX_K) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     ``runs`` timed runs follow one warm-up at size, and each stage of the
     breakdowns is the median of ``runs``; ``bench_sizes`` are the bench
     phase's row sizes (``BENCH_SIZES`` by default), ``fragments`` the
     fragmented assembly's record count; ``long_bp`` the long record's
     length and ``long_chunk`` its engine's ``chunk_windows`` (the default
-    when None).  Returns the kernels' report."""
+    when None); ``max_k`` the k of ScanEngine's largest table (``MAX_K``).
+    Returns the kernels' report."""
     import torch
 
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
@@ -2284,18 +2610,20 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
         launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
-        long_bp=long_bp, long_chunk=long_chunk,
+        long_bp=long_bp, long_chunk=long_chunk, plant_every=plant_every, max_k=max_k,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx.update(tmp=Path(tmp), fasta=Path(tmp) / "genome.fasta", cluster_fasta=Path(tmp) / "cluster_genome.fasta",
                    uninterrupted={})
         write_fasta(ctx["fasta"], contigs)
         kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx)
+        a1 = aligner_phase(ctx)
         checkpoint_phase(ctx)
         long_launches = long_record_phase(ctx)
+        tp_phase(ctx)
     paired_spectrum_check(ctx)
     kernels += mixed_depth_phase(ctx)
-    kernels += bench_phase(ctx)
+    kernels += bench_phase(ctx) + [a1]
     for row in kernels:  # each kernel's launches on the long-record and sharded path
         row["long_path_launches"] = long_launches[row["name"].split("[")[0]]
     return {"kernels": kernels}
@@ -2323,6 +2651,10 @@ def main() -> int:
     try:
         if sys.argv[1:] == ["--pair-kernels"]:
             print(json.dumps({"pair_kernels": pair_kernels("cuda", label=label)}))
+            print(f"card: {label}")
+            return 0
+        if sys.argv[1:] == ["--tp-cards"]:
+            tp_cards("cuda", label=label)
             print(f"card: {label}")
             return 0
         report = run("cuda", label=label)

@@ -304,7 +304,7 @@ def run(
             return semiglobal_align_batch(profile.consensus_ws, windows)
 
     def run_align():  # the production router (the threaded native DP)
-        return align_hits_batch(profile.consensus_ws, windows)
+        return align_hits_batch(profile.consensus_ws, windows, device=dev)
 
     host_aln = run_align_host()
     ahost = _repeat(run_align_host, 3, sync)
@@ -323,7 +323,7 @@ def run(
         d0, strm, _ = engine.record_stream(dgenome, thr)
         hh = replay_single(strm, d0, thr, k, ws, dense_bp, 50)
         wins = [gseq[h.start - 1 : h.stop].decode("ascii").upper() for h in hh]
-        aligned_hits = align_hits_batch(profile.consensus_ws, wins)
+        aligned_hits = align_hits_batch(profile.consensus_ws, wins, device=dev)
 
     run_aligned_e2e()
     _check([a.cigar for a in aligned_hits] == [a.cigar for a in host_aln], "the aligned row's cigars differ")

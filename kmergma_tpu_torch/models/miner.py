@@ -7,8 +7,9 @@ Per contig (records shorter than the windowsize are skipped):
      queued first (cross-record prefetch), and a long record resumes
      from its last finished segment when a checkpoint holds one,
   2. host: exact replay of the minima state machine (``replay_single``),
-  3. host: optional semi-global alignment trim of every hit of the record
-     in one native batch (``semiglobal_align_batch``),
+  3. optional semi-global alignment trim of every hit of the record in
+     one batch (``align_hits_batch``: the native host DP, or the device
+     aligner under ``KMERGMA_ALIGN_DEVICE=1``),
   4. hit records formatted exactly like the reference.
 """
 
@@ -20,10 +21,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops.align import AlignResult, cigar_to_unitrange, semiglobal_align, semiglobal_align_batch
+from ..ops.align import AlignResult, align_hits_batch, cigar_to_unitrange, semiglobal_align
 from ..ops.reference import RefProfile
 from ..ops.scan import ScanEngine
 from ..ops.scan_host import HostScanEngine
+from ..parallel.mesh import joined, make_mesh
+from ..parallel.tp_lookup import TPScanEngine
 from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .state_machine import replay_single
@@ -61,11 +64,42 @@ class MineResult:
     stats: ScanStats | None = None
 
 
+#: profiles with more bins than this shard their table over the devices
+#: of a mesh when there is more than one (``TPScanEngine``), as the JAX
+#: miner routes them
+TP_MIN_BINS = 2**18
+
+
+def _tp_mesh(k: int, device: "str | torch.device"):
+    """The mesh a big-k profile shards over, or None.  For 4^k >
+    ``TP_MIN_BINS``: over the processes when this one joined a group of
+    more than one rank through ``initialize_distributed``; else over every
+    visible card, the current one first, when ``device`` is ``"cuda"``
+    with no index and more than one card is present.  A caller that names
+    one card (``"cuda:1"``) scans on that card alone."""
+    import torch.distributed as dist
+
+    if 4**k <= TP_MIN_BINS:
+        return None
+    if joined() and dist.get_world_size() > 1:
+        return make_mesh(device=device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        n, first = torch.cuda.device_count(), torch.cuda.current_device()
+        return make_mesh(devices=[torch.device("cuda", (first + i) % n) for i in range(n)])
+    return None
+
+
 def _default_engine(profile: RefProfile, device: "str | torch.device" = "cuda"):
-    """The device engine on ``device``, or the exact int64 host engine
+    """The engine the miners build: the profile-sharded ``TPScanEngine``
+    for a big-k profile where several devices are present (``_tp_mesh``),
+    else the device engine on ``device``; the exact int64 host engine
     where the scaled distances would overflow int32."""
     k, ws, r = profile.k, profile.windowsize, profile.n_records
     try:
+        mesh = _tp_mesh(k, device)
+        if mesh is not None:
+            return TPScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, mesh=mesh)
         return ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
     except OverflowError:
         return HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r)
@@ -206,7 +240,7 @@ def mine_genome(
                 record.seq[h.start - 1 : h.stop].decode("ascii").upper()
                 for h in raw_hits
             ]
-            alns = semiglobal_align_batch(consensus_ws, windows, gap_open, gap_extend)
+            alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=device)
         for hit_i, hit in enumerate(raw_hits):
             start, stop = hit.start, hit.stop
             if do_align:

@@ -242,7 +242,7 @@ def strobe_mine_genome(
                 record.seq[h.start - 1 : h.stop].decode("ascii").upper()
                 for h in raw_hits
             ]
-            alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend)
+            alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=dev)
         for hit_i, hit in enumerate(raw_hits):
             lo, hi = hit.start, hit.stop
             rng = (lo, hi)

@@ -15,8 +15,9 @@ not documented API, so the pinned outcomes are the spec.
 
 Hits are rare (~10 per half-megabase), so this path is correctness-critical,
 not throughput-critical (SURVEY.md section 7 item 5); the DP is a NumPy
-row-vectorised wavefront on host.  A batched JAX anti-diagonal kernel can
-take over if alignment ever dominates.
+row-vectorised wavefront on host, or the threaded native library's.  The
+device aligner (``ops/align_device.py``, kernel A1 on the card) takes a
+batch through ``align_hits_batch``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 # ---------------------------------------------------------------------------
 # EDNAFULL / NUC.4.4 over the 15 IUPAC letters (order as in the EMBOSS file).
@@ -250,13 +252,33 @@ def align_hits_batch(
     subjects: "list[str | bytes]",
     gap_open: int = -69,
     gap_extend: int = -1,
+    device: "str | torch.device" = "cuda",
 ) -> "list[AlignResult]":
-    """Batch-align a record's hits: the threaded native host DP, or the
-    NumPy batch wavefront without the native library (bit-identical).  The
-    device aligner of the JAX package (``KMERGMA_ALIGN_DEVICE``) is not
-    ported."""
+    """Batch-align a record's hits, bit-identical on every route (the JAX
+    package's router, with "TPU" read as "CUDA").
+
+    ``KMERGMA_ALIGN_DEVICE=1`` forces the device aligner
+    (``ops/align_device.semiglobal_align_device``) on ``device``, the
+    caller's (on the CPU its plain twins); ``=0`` forbids it.  Unset, the
+    threaded native host DP runs when its library is present; otherwise
+    the device aligner when ``device`` is a CUDA device, CUDA is present
+    and there are at least 16 subjects, else the NumPy batch wavefront."""
     if not subjects:
         return []
+    import os
+
+    force = os.environ.get("KMERGMA_ALIGN_DEVICE", "")
+    use_device = force == "1"
+    if force == "":
+        from ..utils.native import get_lib
+
+        native_ok = os.environ.get("KMERGMA_ALIGN_NATIVE", "") != "0" and get_lib() is not None
+        on_card = torch.device(device).type == "cuda" and torch.cuda.is_available()
+        use_device = not native_ok and on_card and len(subjects) >= 16
+    if use_device:
+        from .align_device import semiglobal_align_device
+
+        return semiglobal_align_device(query, subjects, gap_open, gap_extend, device=device)
     return semiglobal_align_batch(query, subjects, gap_open, gap_extend)
 
 

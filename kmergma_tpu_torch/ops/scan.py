@@ -157,9 +157,14 @@ def _lower_bound_base(kcodes, g, s_profile, w: int, r: int, depth: int) -> torch
     """L[0] = r^2 (w + 2 P̂_0) - 2 r G_0 + ||S||^2 as a 0-dim int32 tensor:
     P̂_0 counts the first window's equal-k-mer pairs at partner distance
     <= depth, G_0 is the window's profile-projection sum."""
+    return _lower_bound_base_from(kcodes, g, _sq_norm(s_profile), w, r, depth)
+
+
+def _lower_bound_base_from(kcodes, g, s2: torch.Tensor, w: int, r: int, depth: int) -> torch.Tensor:
+    """``_lower_bound_base`` with s2 = ||S||^2 given (0-dim int64)."""
     p0 = _window_pairs(kcodes, w, depth)
     g0 = g[:w].to(torch.int64).sum()
-    return (r * r * (w + 2 * p0) - 2 * r * g0 + _sq_norm(s_profile)).to(torch.int32)
+    return (r * r * (w + 2 * p0) - 2 * r * g0 + s2).to(torch.int32)
 
 
 def _pair_ab(kcodes: torch.Tensor, w: int, nt: int, depth: int) -> torch.Tensor:
@@ -178,12 +183,14 @@ def _pair_ab(kcodes: torch.Tensor, w: int, nt: int, depth: int) -> torch.Tensor:
     return a - b
 
 
-def _lower_bounds_from(kcodes, g, l0, w: int, r: int, depth: int, nw: int) -> torch.Tensor:
+def _lower_bounds_from(kcodes, g, l0, w: int, r: int, depth: int, nw: int, ab: "torch.Tensor | None" = None) -> torch.Tensor:
     """L[0..nw) from the first-window bound ``l0`` (the cumulative sum of
-    scaled lower-bound deltas)."""
+    scaled lower-bound deltas); ``ab`` passes the pair deltas of the nw - 1
+    transitions when a kernel gave them (``_pair_ab`` by default)."""
     if nw <= 1:
         return l0.view(1)
-    ab = _pair_ab(kcodes, w, nw - 1, depth)
+    if ab is None:
+        ab = _pair_ab(kcodes, w, nw - 1, depth)
     delta = (2 * r * r) * ab + (2 * r) * (g[: nw - 1] - g[w : w + nw - 1])
     return torch.cat([l0.view(1), l0 + _cumsum32(delta)])
 
@@ -418,21 +425,29 @@ def _scan_rows_d(rows: torch.Tensor, s_profile: torch.Tensor, k: int, ws: int, r
 
     rows: int8[n, rspan + ws - 1] codes, one region per row; returns
     int32[n, rspan] with row i's d[p] = D[start_i + p], bit-identical to
-    ``scan_window_distances`` on each row.  The depth-W match counts go
-    through K2 (``scan_kernels.match_counts``), one region per row."""
+    ``scan_window_distances`` on each row (``_rows_d_from`` after the
+    profile lookup)."""
+    kc = rolling_kmer_codes(rows, k)
+    return _rows_d_from(kc, profile_lookup(kc, s_profile), _sq_norm(s_profile), k, ws, r)
+
+
+def _rows_d_from(kc: torch.Tensor, g: torch.Tensor, s2: torch.Tensor, k: int, ws: int, r: int) -> torch.Tensor:
+    """``_scan_rows_d`` from the rows' K codes ``kc`` (int32[n, rspan + w
+    - 1]), their profile lookups g = S[K] and s2 = ||S||^2 (0-dim int64),
+    the profile's only two reductions: the one-device engine looks them up
+    in its table, the profile-sharded ``TPScanEngine`` reduces them over
+    its shards.  The depth-W match counts go through K2
+    (``scan_kernels.match_counts``), one region per row."""
     from .scan_kernels import match_counts
 
-    n, total = rows.shape
+    n, m = kc.shape  # m = K codes per row
     w = ws - k + 1
-    rspan = total - ws + 1
-    m = total - k + 1  # K codes per row
-    kc = rolling_kmer_codes(rows, k)
-    g = profile_lookup(kc, s_profile)
+    rspan = m - w + 1
     # D0 = r^2 ||c0||^2 - 2 r (c0 . S) + ||S||^2, c0 . S = sum of g over
     # the first window
     c0_sq = _window_count_sq(kc[:, :w])
     g0 = g[:, :w].to(torch.int64).sum(dim=1)
-    d0 = (r * r * c0_sq - 2 * r * g0 + _sq_norm(s_profile)).to(torch.int32)
+    d0 = (r * r * c0_sq - 2 * r * g0 + s2).to(torch.int32)
     if rspan == 1:
         return d0[:, None]
     nt = rspan - 1
@@ -641,8 +656,8 @@ class ScanEngine:
     def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, device: "str | torch.device" = "cuda", bound_depth: int | None = 16, chunk_windows: int | None = None):
         self.device = resolve_device(device)
         check_int32_headroom(s_profile, ws, k, r)
-        self.s_dev = torch.as_tensor(np.asarray(s_profile, dtype=np.int32), device=self.device)
         self.k, self.ws, self.r = k, ws, r
+        self.s_dev = self._place_profile(np.asarray(s_profile, dtype=np.int32))
         # K1 flags blocks from certified lower bounds at this pair depth,
         # 16 by default as in the JAX engine (equality at depth = W - 1, so
         # clamping keeps short windows exact); None = exact mode
@@ -676,6 +691,11 @@ class ScanEngine:
             raise ValueError(f"chunk_windows must be a positive multiple of {self.rspan}, got {self.chunk}")
         #: windows per call of the whole-record distance scan (collect_dists)
         self.dists_chunk = 1 << 22
+
+    def _place_profile(self, s32: np.ndarray) -> "torch.Tensor | None":
+        """The int32 profile on the engine's device (``s_dev``); the
+        profile-sharded engine keeps its shards instead."""
+        return torch.as_tensor(s32, device=self.device)
 
     def _thr_int(self, thr: float) -> np.int32:
         # Conservative device-side threshold: superset of the exact host
@@ -802,20 +822,23 @@ class ScanEngine:
         n_blocks = -(-nw // self.rspan) * (self.rspan // self.block)
         return torch.from_numpy(fit_blocks(np.concatenate(out), n_blocks)).to(self.device)
 
-    def _full_record(self, prep: torch.Tensor, nw: int, thr: float):
-        """Every window's distance through the K2 whole-record scan, in
-        chunks; the stream holds every below window and the one after."""
+    def _chunk_distances(self, codes: torch.Tensor) -> torch.Tensor:
+        """Every window's exact distance over ``codes`` (the K2
+        whole-record scan)."""
         from .scan_kernels import scan_window_distances_kernel
 
+        return scan_window_distances_kernel(codes, self.s_dev, self.k, self.ws, self.r)
+
+    def _full_record(self, prep: torch.Tensor, nw: int, thr: float):
+        """Every window's distance (``_chunk_distances``), in chunks; the
+        stream holds every below window and the one after."""
         thr_int = int(self._thr_int(thr))
         full_dists = np.empty(nw, dtype=np.float64)
         stream: list[tuple[int, float]] = []
         prev_below = False
         for start in range(0, nw, self.dists_chunk):
             t = min(self.dists_chunk, nw - start)
-            d = scan_window_distances_kernel(
-                prep[start : start + t + self.ws - 1], self.s_dev, self.k, self.ws, self.r,
-            ).cpu().numpy()
+            d = self._chunk_distances(prep[start : start + t + self.ws - 1]).cpu().numpy()
             full_dists[start : start + t] = d / self.scale
             self._stream_from_full(d, start, prev_below, thr_int, stream)
             prev_below = bool(d[t - 1] < thr_int)
@@ -871,10 +894,13 @@ class ScanEngine:
         the rows from ``source`` (``_region_rows``)."""
         rspan = self.rspan
         starts, nvr = _plan_regions(flat, nw, rspan, self.block, n_regions)
-        rows = _region_rows(source, starts, rspan + self.ws - 1)
-        d = _scan_rows_d(rows, self.s_dev, self.k, self.ws, self.r)
+        d = self._rows_d(_region_rows(source, starts, rspan + self.ws - 1))
         below = _below_mask(d, starts, thr_exact, nw, nvr)
         return starts, nvr, d, below
+
+    def _rows_d(self, rows: torch.Tensor) -> torch.Tensor:
+        """Exact distances of region rows (``_scan_rows_d``)."""
+        return _scan_rows_d(rows, self.s_dev, self.k, self.ws, self.r)
 
     def _planned_record(self, prep: torch.Tensor, nw: int, thr: float):
         """One planned pass: the block bitmap (K1, or K4 in exact mode),

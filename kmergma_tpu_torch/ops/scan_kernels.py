@@ -64,7 +64,7 @@ import functools
 
 import torch
 
-from .scan import _cumsum32, _first_window_d0, _lower_bound_base, _pair_ab, profile_lookup, rolling_kmer_codes
+from .scan import _cumsum32, _first_window_d0, _lower_bound_base, _lower_bounds_from, _pair_ab, profile_lookup, rolling_kmer_codes
 
 
 def _match_counts_plain(tiles_k: torch.Tensor, w: int, t: int) -> torch.Tensor:
@@ -383,7 +383,4 @@ def scan_window_lower_bounds_codes(codes: torch.Tensor, s_profile: torch.Tensor,
     ab, kc = codes_pair_ab_kcodes(codes, k, w, nt, nw + w - 1, depth)
     g = profile_lookup(kc, s_profile)
     l0 = _lower_bound_base(kc, g, s_profile, w, r, depth)
-    if nw <= 1:
-        return l0.view(1)
-    delta = (2 * r * r) * ab + (2 * r) * (g[:nt] - g[w : w + nt])
-    return torch.cat([l0.view(1), l0 + _cumsum32(delta)])
+    return _lower_bounds_from(kc, g, l0, w, r, depth, nw, ab=ab)

@@ -73,6 +73,20 @@ def _local_card() -> torch.device:
     return resolve_device(torch.device("cuda", index))
 
 
+#: set by ``initialize_distributed``: the process group is this package's
+_JOINED = False
+
+
+def joined() -> bool:
+    """Whether this process joined its process group through
+    ``initialize_distributed``, and so runs the package's scans in step
+    with the group's other processes (a group made for other work, such as
+    data-parallel ranks each scanning their own records, is not read)."""
+    import torch.distributed as dist
+
+    return _JOINED and dist.is_available() and dist.is_initialized()
+
+
 def initialize_distributed(coordinator_address: str | None = None, num_processes: int | None = None, process_id: int | None = None, device: "str | torch.device" = "cuda") -> None:
     """Join a process group for meshes across processes (idempotent).
 
@@ -84,6 +98,8 @@ def initialize_distributed(coordinator_address: str | None = None, num_processes
     device."""
     import torch.distributed as dist
 
+    global _JOINED
+    _JOINED = True
     if dist.is_initialized():
         return
     backend = "nccl" if torch.device(device).type == "cuda" else "gloo"

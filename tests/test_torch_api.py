@@ -218,6 +218,7 @@ def _entry_points(mini_genome, ref_fasta):
     from kmergma_tpu_torch import bench as tbench
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
     from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
+    from kmergma_tpu_torch.parallel.tp_lookup import TPScanEngine
     from kmergma_tpu_torch.utils.cli import main as cli_main
 
     profile = port_gen_ref_ws_cons(ref_fasta, 6)
@@ -235,6 +236,7 @@ def _entry_points(mini_genome, ref_fasta):
         "ClusterScanEngine": lambda: ClusterScanEngine(clusters, k=6),
         "ShardedScanEngine": lambda: ShardedScanEngine(profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records),
         "ShardedClusterScanEngine": lambda: ShardedClusterScanEngine(clusters, k=6),
+        "TPScanEngine": lambda: TPScanEngine(profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records),
         "StrobeSpanEngine": lambda: StrobeSpanEngine(strobe, 0),
         "bench.run": lambda: tbench.run(n_mbp=0.01, skip_extras=True),
         "exact_match": lambda: kt.exact_match("ACGTACGTAC", b"ACGT" * (1 << 18)),
@@ -245,7 +247,7 @@ def _entry_points(mini_genome, ref_fasta):
 ENTRY_POINTS = [
     "find_genes", "find_genes_cluster_mode", "strobemer_find_genes", "record_kmergma", "mine_genome",
     "mine_genome_clusters", "strobe_mine_genome", "ScanEngine", "ClusterScanEngine", "ShardedScanEngine",
-    "ShardedClusterScanEngine", "StrobeSpanEngine",
+    "ShardedClusterScanEngine", "TPScanEngine", "StrobeSpanEngine",
     "bench.run", "exact_match", "cli",
 ]
 
@@ -270,9 +272,9 @@ def test_other_devices_refused():
 
 def test_chip_smoke_phases_on_cpu(capsys):
     """chip_smoke.run drives every phase of every path (single profile,
-    cluster mode, strobemers, checkpoint/resume of the three miners, long
-    records and shards, the paired spectrum, the mixed-depth cluster set,
-    the bench), the
+    cluster mode, strobemers, the device aligner, checkpoint/resume of the
+    three miners, long records and shards, the profile-sharded engine, the
+    paired spectrum, the mixed-depth cluster set, the bench), the
     stage breakdowns and the busy shares included, on CPU tensors at a
     small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
@@ -283,18 +285,18 @@ def test_chip_smoke_phases_on_cpu(capsys):
     spec.loader.exec_module(cs)
     bench_sizes = dict(n_mbp=0.5, dense_mbp=0.5, k10_mbp=0.2, strobe_mbp=0.1, g3_mbp=1.0, g3_rec_mbp=0.5)
     report = cs.run("cpu", contig_bp=100_000, n_contigs=3, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
-                    bench_sizes=bench_sizes, fragments=8, long_bp=200_000, long_chunk=8192)
+                    bench_sizes=bench_sizes, fragments=8, long_bp=200_000, long_chunk=8192, max_k=11)
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
-        "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome",
+        "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome", "align_dp",
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "long_path_launches"}
     # each median time with its fastest window beside it; K1's and K3's stages on the card; device
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
     extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
-             "shapes", "fragmented"}
+             "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
@@ -315,7 +317,18 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
     assert all(k["replaces"].startswith(("kmergma_tpu/", "bench.py:")) and (_ROOT / k["source"]).exists() for k in report["kernels"])
     assert all(k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations") for k in report["kernels"])
-    assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False, False]
+    assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False, False,
+                                                                        False]
+    # A1 on the two API cells' hit windows and the batch cut around the planted genes, against its twins and the
+    # native DP; the API calls under KMERGMA_ALIGN_DEVICE=1 equal the default ones
+    a1 = report["kernels"][-1]
+    assert sorted(a1["shapes"]) == ["cut", "single", "strobe"] and a1["shapes"]["cut"]["windows"] == 6 * len(cs.ALIGN_SHIFTS)
+    assert a1["shapes"]["strobe"]["gap"] == [-69, -5] and a1["overflowed"] == 0 and sorted(a1["native_threads_ms"]) == [1, 2, 4, 8]
+    assert "aligner: find_genes and strobemer_find_genes under KMERGMA_ALIGN_DEVICE=1 in " in out
+    assert out.count("AlignResults equal [cpu]") == 3
+    # the profile-sharded engine at k = 10 and 12 against the one-device and host engines, and the largest k
+    assert out.count("TPScanEngine k = ") == 2 and "over 4 logical shards of cpu " in out
+    assert "TPScanEngine over four cards not exercised" in out and "largest k of ScanEngine (int32 K codes): k = 11" in out
     assert out.count("bench # ") == 7
     assert "bench json: " in out and "bench hit-dense: " in out and "bench k=10: " in out
     assert "bench headline: K1 bit-identical to its twin" in out and "bench k=10 row: K1 (4^10 bins) bit-identical" in out
@@ -365,6 +378,22 @@ def test_chip_smoke_pair_kernels_on_cpu(capsys):
     ]
     assert all(v["ms"] > 0 and v["ms_min"] <= v["ms"] and v["device_ms"] is None for v in out.values())
     assert "bit-identical=False" not in capsys.readouterr().out
+
+
+def test_chip_smoke_tp_cards_on_cpu(capsys):
+    """``chip_smoke.py --tp-cards`` (the profile-sharded engine's phase
+    alone) on CPU tensors at a small size: every case equal to the
+    one-device and host engines, the four-card cases reported as not
+    exercised."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cs.tp_cards("cpu", label="cpu", contig_bp=100_000, runs=1, max_k=11)
+    out = capsys.readouterr().out
+    assert out.count("TPScanEngine k = ") == 2 and "TPScanEngine over four cards not exercised" in out
+    assert "largest k of ScanEngine (int32 K codes): k = 11" in out
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
