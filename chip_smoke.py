@@ -35,14 +35,17 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   on int32 strobe codes at s = 3, the strobe goldens through ``strobemer_find_genes``,
   then the same genome mined against an int64 host oracle of the strobe
   recurrence, and where one call's wall goes;
-* the device aligner: A1 (``align_dp``) against its plain twins on the
-  card (scores, runs, run counts, endpoints) on the windows the
-  single-profile and strobe API calls hand their aligner and on 1,024
-  windows cut around the planted genes, its AlignResults against the
-  native DP's, ``find_genes`` and ``strobemer_find_genes`` under
-  ``KMERGMA_ALIGN_DEVICE=1`` against their default runs, and the native
-  DP's time for one window and on 1-8 threads, the host decode's and the
-  hits A1 ran again for a run count past ``RLE_CAP``;
+* the device aligner: A1 (``align_dp``, ``align_cigar``) against its
+  plain twins on the card (scores, JAX runs, run counts, endpoints, CIGAR
+  runs, their counts) on the windows the single-profile and strobe API
+  calls hand their aligner and on 1,024 windows cut around the planted
+  genes, then on a subject past 511 letters, one past the shared-memory
+  budget (decisions in device memory), a query past one strip, m = 0 and
+  n = 0; its AlignResults against the native DP's, ``find_genes`` and
+  ``strobemer_find_genes`` under ``KMERGMA_ALIGN_DEVICE=1`` against their
+  default runs; A1's time beside PR 12's, its launch shape (registers,
+  shared memory, blocks an SM), the stages of ``semiglobal_align_device``
+  and the native DP's time for one window and on 1-8 threads;
 * checkpoint/resume: each of the three miners, with ``checkpoint_path=``,
   killed on its third record of the genome its phase mined (an engine
   that raises ``KeyboardInterrupt``), then resumed on the card with its
@@ -171,10 +174,12 @@ BENCH_SIZES = {"n_mbp": 512.0, "dense_mbp": 64.0, "k10_mbp": 64.0, "strobe_mbp":
 #: the aligner phase's large batch: windows cut around every planted gene
 #: at these shifts (bp), cluster mode's per-record superset size at size
 ALIGN_SHIFTS = tuple(range(-100, 100, 25))
-#: integer operations of one DP cell of A1: E (two adds, a max), the
-#: diagonal (an add, a shuffle), G, base, the running maximum, F, H, the
-#: three decisions, C, EL, FL's break and its scan, and the packed TL
-DP_OPS_PER_CELL = 30
+#: integer operations of one DP cell of the function A1 computes (its
+#: work, not the kernel's instructions): E (two adds, a max), the diagonal
+#: (the score's lookup, an add), G (a max), F (two adds, a max), H (a max)
+#: and the four decisions (compares); the traceback visits about m + n of
+#: the m x n cells and adds nothing a cell
+DP_OPS_PER_CELL = 15
 #: the TP phase's k and threshold: the API's own estimate for the
 #: reference set's profile (``estimate_optimal_threshold``, buffer 8: 11.53
 #: and 7.77, seconds to compute at k = 12), rounded; most planted genes sit
@@ -185,8 +190,11 @@ MAX_K = 15
 
 #: one H100 SXM's published peaks (NVIDIA's data sheet): device memory
 #: bytes per second,
-#: and the non-tensor 32-bit rate, taken as the ceiling of the kernels'
-#: 32-bit integer compares and adds
+#: and the non-tensor 32-bit rate, the FP32 one (the data sheet gives no
+#: INT32 rate), taken as the ceiling of the kernels' 32-bit integer
+#: compares and adds; an SM has half as many INT32 lanes as FP32 lanes and
+#: the FP32 rate counts a fused multiply-add as two, so the INT32 lanes
+#: alone do a quarter of it
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 #: integer operations a position of K4r's sliding histogram does: two bin
@@ -2236,23 +2244,79 @@ def captured_alignments(call):
 
 
 def a1_io(m: int, lengths: list, cap: int) -> dict:
-    """A1's work on one batch: the bytes its function must move (query rows
-    and subject letters in, scores, runs, run counts and endpoints out),
-    the DP's integer operations, and the TL bytes it writes."""
+    """A1's work on one batch, as the function needs it: the bytes it must
+    move (the query's NUC44 rows and letters, the subjects' letters and
+    offsets in; a row of score, count, endpoint and ``cap`` runs out a
+    subject) and the DP's integer operations (``DP_OPS_PER_CELL`` a cell)."""
     cells = sum(m * n for n in lengths)
-    io = 60 * m + sum(lengths) + 8 * len(lengths) + 4 * (3 + cap) * len(lengths)
-    return {"bytes": io, "ops": DP_OPS_PER_CELL * cells, "tl_bytes": 4 * sum(m * (n + 1) for n in lengths)}
+    io = 61 * m + sum(lengths) + 16 * len(lengths) + 8 + 4 * (3 + cap) * len(lengths)
+    return {"bytes": io, "ops": DP_OPS_PER_CELL * cells}
+
+
+#: A1's CUDA-event times in PR 12 (one warp a subject walking the query
+#: rows, TL in device memory), ms a call: the batch it was measured on
+A1_PR12_MS = {"single": 0.6253, "strobe": 0.7339, "cut": 1.5936}
+
+
+def a1_stages(q: str, wins: list, go: int, ge: int, device, sync, reps: int = 3) -> tuple[dict, list]:
+    """(median ms of each stage of ``semiglobal_align_device`` by host
+    clock, the AlignResults): the letters' translation, the copies to the
+    device, A1 (``align_cigar``), the one copy back and the AlignResults'
+    building; a hit past ``RLE_CAP`` would run A1 again, which these
+    batches never need (checked)."""
+    from kmergma_tpu_torch.ops import align_device as tad
+
+    names = ("letters", "h2d", "A1", "d2h", "results")
+    runs = []
+    for _ in range(reps):
+        ms = {}
+        t0 = time.perf_counter()
+        a, b_flat, lengths = tad._letters(q, wins)
+        ms["letters"] = (time.perf_counter() - t0) * 1e3
+        ms["h2d"], (a_sub, a_idx, b_dev) = clock(lambda: tad._to_device(a, b_flat, device), sync)
+        ms["A1"], out = clock(lambda: tad.align_cigar(a_sub, a_idx, b_dev, lengths, go, ge), sync)
+        ms["d2h"], rows = clock(lambda: tad._rows(out[0], out[1].shape[1]).cpu().numpy(), sync)
+        t0 = time.perf_counter()
+        res = tad._results(rows)
+        ms["results"] = (time.perf_counter() - t0) * 1e3
+        require(all(r is not None for r in res), "a hit of the aligner phase passed RLE_CAP")
+        runs.append(ms)
+    return {k: statistics.median(r[k] for r in runs) for k in names}, res
+
+
+def a1_launch_info(m: int, max_n: int, smem: bool, on_card: bool) -> dict:
+    """A1's launch shape for a query of m rows and subjects up to max_n
+    letters (rows a lane, strips, shared memory a block, resident blocks
+    an SM, registers and spill bytes a thread), from the kernel library;
+    the layout alone on the CPU."""
+    from kmergma_tpu_torch.ops import align_device as tad
+
+    r, strips, _stride, _pitch = tad._layout(m)
+    info = {"rows_per_lane": r, "strips": strips, "smem_bytes": tad._smem_bytes(m, max_n) if smem else None}
+    if on_card:
+        import ctypes
+
+        from kmergma_tpu_torch import _kernels
+
+        out = (ctypes.c_int * 6)()
+        _kernels.check(_kernels.load().kmg_align_launch_info(m, max_n, int(smem), out), "kmg_align_launch_info")
+        info.update(rows_per_lane=out[0], smem_bytes=out[1], blocks_per_sm=out[2], registers=out[3],
+                    spill_bytes=out[4], strips=out[5])
+    return info
 
 
 def aligner_phase(ctx) -> dict:
-    """The device aligner: A1 against its twins on the card (scores, runs,
-    run counts, endpoints) and its AlignResults against the native DP's on
-    the single-profile and strobe API cells' hit windows (as the miners
-    batch them) and on a batch of windows cut around every planted gene;
-    ``find_genes`` and ``strobemer_find_genes`` under
-    ``KMERGMA_ALIGN_DEVICE=1`` against their default runs; A1's, the
-    twins', the native DP's (one window, and the thread scaling) and the
-    host decode's times.  Returns A1's kernel row."""
+    """The device aligner: A1 against its twins on the card (scores, JAX
+    runs, run counts, endpoints, CIGAR runs and their counts) and its
+    AlignResults against the native DP's on the single-profile and strobe
+    API cells' hit windows (as the miners batch them) and on a batch of
+    windows cut around every planted gene, then on the edge shapes (a
+    subject past 511 letters, one whose decisions pass the shared-memory
+    budget, a query past one strip, m = 0 and n = 0); ``find_genes`` and
+    ``strobemer_find_genes`` under ``KMERGMA_ALIGN_DEVICE=1`` against their
+    default runs; A1's times (wrapper and device), its launch shape, the
+    stages of ``semiglobal_align_device`` and the native DP's times (one
+    window, the thread scaling).  Returns A1's kernel row."""
     import os
     import statistics as st
 
@@ -2262,7 +2326,7 @@ def aligner_phase(ctx) -> dict:
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch.bench import _env_set
     from kmergma_tpu_torch.ops import align_device as tad
-    from kmergma_tpu_torch.ops.align import _NUC44, _seq_to_idx, semiglobal_align_batch
+    from kmergma_tpu_torch.ops.align import semiglobal_align_batch
     from kmergma_tpu_torch.utils import native
 
     device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
@@ -2313,51 +2377,108 @@ def aligner_phase(ctx) -> dict:
     if on_card:
         require(len(cut) >= 1_000, f"the cut batch has {len(cut)} windows")
 
+    def a1_inputs(q, wins):
+        a, b_flat, lengths = tad._letters(q, wins)
+        return (*tad._to_device(a, b_flat, device), lengths)
+
+    def a1_err(a_sub, a_idx, b_flat, lengths, go, ge, cap=None) -> int:
+        """A1's two outputs against their twins on the same inputs."""
+        cap = tad.RLE_CAP if cap is None else cap
+        rle = tad.align_dp(a_sub, b_flat, lengths, go, ge, cap)
+        cig = tad._rows(tad.align_cigar(a_sub, a_idx, b_flat, lengths, go, ge, cap)[0], cap)
+        want = tad._align_dp_plain(a_sub, b_flat, lengths, go, ge, cap)
+        return max(max_err(*zip(rle, want)), max_err((cig, tad._align_cigar_plain(a_sub, a_idx, b_flat, lengths, go, ge,
+                                                                                      cap))))
+
     shapes, err = {}, 0
     for name, (q, wins, go, ge) in cases.items():
-        a = _seq_to_idx(q)
-        bs = [_seq_to_idx(w) for w in wins]
-        lengths = [b.shape[0] for b in bs]
-        a_sub = torch.as_tensor(_NUC44[a].astype(np.int32), device=device)
-        b_flat = torch.as_tensor(np.concatenate(bs).astype(np.int8), device=device)
-        ms, out = kernel_ms(lambda: tad.align_dp(a_sub, b_flat, lengths, go, ge), on_card)
-        plain_ms, twin = kernel_ms(lambda: tad._align_dp_plain(a_sub, b_flat, lengths, go, ge, tad.RLE_CAP), on_card,
-                                   reps=1, windows=3)
-        e = max_err(*zip(out, twin))
+        a_sub, a_idx, b_flat, lengths = a1_inputs(q, wins)
+        m = a_sub.shape[0]
+        rle_ms, _ = kernel_ms(lambda: tad.align_dp(a_sub, b_flat, lengths, go, ge), on_card)
+        ms, out = kernel_ms(lambda: tad.align_cigar(a_sub, a_idx, b_flat, lengths, go, ge), on_card)
+        dev_ms = (queued_device_ms(lambda: tad.align_cigar(a_sub, a_idx, b_flat, lengths, go, ge)) if on_card
+                  else None)
+        plain_ms, twin = kernel_ms(lambda: tad._align_cigar_plain(a_sub, a_idx, b_flat, lengths, go, ge, tad.RLE_CAP),
+                                   on_card, reps=1, windows=3)
+        e = max(a1_err(a_sub, a_idx, b_flat, lengths, go, ge), max_err((tad._rows(out[0], tad.RLE_CAP), twin)))
         err = max(err, e)
-        dev_s, res = clock(lambda: tad.semiglobal_align_device(q, wins, go, ge, device=device), sync)
-        nat = [clock(lambda: semiglobal_align_batch(q, wins, go, ge), sync) for _ in range(3)]
-        host = nat[-1][1]
-        scores, rle, n_runs, _ = (x.cpu().numpy() for x in out)
-        t0 = time.perf_counter()
-        for i, b in enumerate(bs):
-            if n_runs[i] <= tad.RLE_CAP:
-                tad._decode_rle(rle[i, : n_runs[i]], a.shape[0], b.shape[0], a.astype(np.int32), b.astype(np.int32))
-        decode_ms = (time.perf_counter() - t0) * 1e3
         require(e == 0, f"A1 differs from its twins on the {name} windows (max_abs_err {e})")
+        stages, res = a1_stages(q, wins, go, ge, device, sync)
+        wall, got = clock(lambda: tad.semiglobal_align_device(q, wins, go, ge, device=device), sync)
+        nat = [clock(lambda: semiglobal_align_batch(q, wins, go, ge), sync) for _ in range(3)]
+        host = [(x.score, x.cigar) for x in nat[-1][1]]
+        require([(x.score, x.cigar) for x in got] == host and [(x.score, x.cigar) for x in res] == host,
+                f"the device aligner's AlignResults differ from the native DP's on the {name} windows")
         if name == "cut":
             cut_ms, cut_plain_ms = ms, plain_ms
-        require([(x.score, x.cigar) for x in res] == [(x.score, x.cigar) for x in host],
-                f"the device aligner's AlignResults differ from the native DP's on the {name} windows")
-        io = a1_io(a.shape[0], lengths, tad.RLE_CAP)
+        io = a1_io(m, lengths, tad.RLE_CAP)
         b_ms, b_by = bound(io["bytes"], io["ops"])
-        shapes[name] = {"windows": len(wins), "query": a.shape[0], "window_bp": [min(lengths), max(lengths)],
-                        "gap": [go, ge], "ms": float(ms), "ms_min": ms.min, "plain_ms": float(plain_ms),
-                        "bound_ms": b_ms, "bound_by": b_by, "tl_ms": io["tl_bytes"] / HBM_BYTES_PER_S * 1e3,
-                        "device_wall_ms": dev_s, "native_ms": st.median(t for t, _ in nat), "decode_ms": decode_ms,
-                        "max_runs": int(n_runs.max()), "io": io}
-        print(f"A1 on the {name} windows: {len(wins)} of {min(lengths)}-{max(lengths)} bp against a {a.shape[0]} bp "
-              f"query ({go}/{ge}), max {int(n_runs.max())} runs: {ms:.4f} ms a call (fastest window {ms.min:.4f}), twins "
-              f"{plain_ms:.3f} ms, max_abs_err {e}; bound {b_ms:.4f} ms ({b_by}), TL {io['tl_bytes']} B = "
-              f"{shapes[name]['tl_ms']:.4f} ms at 3.35 TB/s; semiglobal_align_device {dev_s:.3f} ms (decode "
-              f"{decode_ms:.3f} ms on the host); native DP {shapes[name]['native_ms']:.3f} ms; AlignResults equal "
-              f"[{label}]")
+        n_runs = out[2].cpu().numpy()
+        launch = a1_launch_info(m, max(lengths), True, on_card)
+        shapes[name] = {"windows": len(wins), "query": m, "window_bp": [min(lengths), max(lengths)],
+                        "gap": [go, ge], "ms": float(ms), "ms_min": ms.min, "rle_ms": float(rle_ms),
+                        "rle_ms_min": rle_ms.min, "device_ms": dev_ms,
+                        "plain_ms": float(plain_ms), "bound_ms": b_ms, "bound_by": b_by, "bytes": io["bytes"],
+                        "launch": launch, "device_wall_ms": wall, "stages_ms": stages,
+                        "native_ms": st.median(t for t, _ in nat), "max_cigar_runs": int(n_runs.max()), "io": io}
+        dev_txt = "not measured (CPU)" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"A1 on the {name} windows: {len(wins)} of {min(lengths)}-{max(lengths)} bp against a {m} bp query "
+              f"({go}/{ge}), max {int(n_runs.max())} CIGAR runs: CIGAR runs {ms:.4f} ms a call (fastest window "
+              f"{ms.min:.4f}), JAX runs {rle_ms:.4f} (fastest {rle_ms.min:.4f}), device {dev_txt}; PR 12 "
+              f"{A1_PR12_MS[name]:.4f}; twins {plain_ms:.3f} ms, max_abs_err {e}; bound {b_ms:.4f} ms ({b_by}), "
+              f"{io['bytes']} B moved [{label}]")
+        print(f"A1 launch on the {name} windows: {launch} [{label}]")
+        print(f"semiglobal_align_device on the {name} windows {wall:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f" ms; native DP {shapes[name]['native_ms']:.3f} ms; AlignResults equal [{label}]")
+
+    # the edge shapes: subjects past 511 letters and past the shared-memory
+    # budget (the device-memory layout), a query past one strip, m = 0, n = 0
+    rng = np.random.default_rng(7)
+
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    long_q = rand(700)
+    edges = {
+        "subjects of 600 and 1989 letters": (query, cut[:3] + [rand(600), cut[0][:50] + query + rand(1650)]),
+        "a 700-letter query (two strips)": (long_q, [long_q[:400], rand(389), long_q[500:] + rand(80), "",
+                                                     long_q[250:450]]),
+        "m = 0": ("", [cut[0], "", "ACG"]),
+        "n = 0": (query, ["", cut[1], ""]),
+    }
+    budget_m, budget_n = len(query), 1989
+    require(tad._smem_bytes(budget_m, budget_n) > tad.SMEM_BUDGET_BYTES >= tad._smem_bytes(len(query), 600),
+            "the edge shapes miss the device-memory layout")
+    ctx["launches"].reset()
+    want_launches, routes = 0, []
+    for what, (q, wins) in edges.items():
+        a_sub, a_idx, b_flat, lengths = a1_inputs(q, wins)
+        plan = tad._launch_plan(lengths, a_sub.shape[0])
+        want_launches += 8 * len(plan)  # two gap models, two caps, two wrappers
+        routes.append(f"{what}: " + " + ".join(f"{sel.size} in {'shared' if woff is None else 'device'} memory"
+                                                for sel, woff in plan))
+        for go, ge in ((-69, -1), (-5, -2)) if on_card else ((-69, -1),):  # the CPU rehearsal: one gap model
+            e = a1_err(a_sub, a_idx, b_flat, lengths, go, ge)
+            e = max(e, a1_err(a_sub, a_idx, b_flat, lengths, go, ge, cap=4))
+            err = max(err, e)
+            require(e == 0, f"A1 differs from its twins on {what} ({go}/{ge}, max_abs_err {e})")
+    edge_launches = ctx["launches"].read()["align_dp"]
+    require(all(f"{x} memory" in routes[k] for k in (0, 1) for x in ("shared", "device")),
+            f"the edge shapes miss a layout: {routes}")
+    if on_card:
+        require(edge_launches == want_launches, f"A1 launched {edge_launches} times on the edge shapes, not {want_launches}")
+    print(f"A1 edge shapes against the twins, both outputs, {'-69/-1 and -5/-2' if on_card else '-69/-1'}, cap 256 and 4: "
+          f"{'; '.join(routes)}: max_abs_err 0; {edge_launches} launches (the 1989-letter subject's launch: "
+          f"{a1_launch_info(budget_m, budget_n, False, on_card)}) [{label}]")
 
     # the native DP: one window a call, and the large batch by its threads
     # (it runs min(8, os.cpu_count()) of them)
     q, wins, go, ge = cases["cut"]
     real_cpu_count = os.cpu_count
     one = [clock(lambda: semiglobal_align_batch(q, wins[:1], go, ge), sync)[0] for _ in range(10)]
+    dev_one = [clock(lambda: tad.semiglobal_align_device(q, wins[:1], go, ge, device=device), sync)[0] for _ in range(10)]
+    shapes["cut"]["device_one_window_ms"] = st.median(dev_one)
     threads = {}
     with_lib = native.get_lib() is not None
     cores = os.cpu_count()
@@ -2369,7 +2490,8 @@ def aligner_phase(ctx) -> dict:
         finally:
             os.cpu_count = real_cpu_count
     print(f"native DP ({'the native library' if with_lib else 'no native library: the NumPy batch'}): one window a "
-          f"call {st.median(one):.3f} ms (median of 10); {len(wins)} windows on 1 / 2 / 4 / 8 threads "
+          f"call {st.median(one):.3f} ms (median of 10; semiglobal_align_device {st.median(dev_one):.3f} ms); "
+          f"{len(wins)} windows on 1 / 2 / 4 / 8 threads "
           f"{' / '.join(f'{threads[t]:.2f}' for t in (1, 2, 4, 8))} ms; {cores} cores; overflowed hits "
           f"{tad.semiglobal_align_device.overflowed} [{label}]")
     big = shapes["cut"]

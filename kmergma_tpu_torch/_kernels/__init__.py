@@ -111,7 +111,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kmg_hash_genome.restype = i
     lib.kmg_hash_genome.argtypes = [p, ll, ctypes.c_uint, p]
     lib.kmg_align_dp.restype = i
-    lib.kmg_align_dp.argtypes = [p, i, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
+    lib.kmg_align_dp.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.kmg_align_launch_info.restype = i
+    lib.kmg_align_launch_info.argtypes = [i, i, i, ip]
     lib.kmg_error_string.restype = ctypes.c_char_p
     lib.kmg_error_string.argtypes = [i]
     return lib

@@ -1,41 +1,64 @@
-// A1: the device aligner's forward DP and run traceback, written by hand
-// for Hopper (sm_90a).
+// A1: the device aligner's forward DP and traceback, written by hand for
+// Hopper (sm_90a).
 //
 // Replaces the jitted XLA of kmergma_tpu/ops/align_device.py (_forward_tl,
 // _traceback_rle_one and _get_jit().run); the JAX package has no Pallas
 // kernel for it.  One query (m letters, its NUC44 rows int32[m, 15])
 // against B subjects of any lengths: the semi-global affine-gap DP, global
-// in the query with free end gaps in the subject, row by row
+// in the query with free end gaps in the subject,
 //   E[i,j] = max(H[i-1,j] + go + ge, E[i-1,j] + ge)
 //   G[i,j] = max(H[i-1,j-1] + sub(a_i, b_j), E[i,j])
-//   F[i,j] = go + ge j + max_{j' < j} (G[i,j'] - ge j')   (G[i,0] = H[i,0])
-//   H[i,j] = max(G[i,j], F[i,j]),  H[i,0] = E[i,0] = go + ge i
-// and, for every cell, the decision the traceback takes there with the
-// length of its run, TL = (runlen << 2) | op (op 0 diagonal, 2 query gap,
-// 3 subject gap; the diagonal chain C, the query-gap run EL straight up,
-// the subject-gap run FL along the row since its last break).  Then the
-// traceback from the LAST column attaining the maximum of H[m] jumps a run
-// a step.  Integer arithmetic throughout, the JAX tie rules (match over D
-// over I, extend over open), NEG = -2^30: bit-identical to the twin.
+//   F[i,j] = max(G[i,j-1] + go + ge, F[i,j-1] + ge)   (G[i,0] = H[i,0], F[i,0] = NEG)
+//   H[i,j] = max(G[i,j], F[i,j]),  H[0,j] = 0, E[0,j] = NEG, H[i,0] = E[i,0] = go + ge i
+// (F unrolled is the running maximum go + ge j + max_{j' < j} (G[i,j'] - ge j')
+// of the JAX scan, for any go), then the traceback from the LAST column
+// attaining the maximum of H[m].  Integer arithmetic throughout, the JAX tie
+// rules (match over D over I, extend over open), NEG = -2^30: bit-identical
+// to the twins.
 //
-// Layout.  One block of one warp per subject.  A tile is 512 columns, 16
-// consecutive ones a lane; the previous row's H, E, C and EL of a lane's
-// columns stay in its registers across the rows when the subject is one
-// tile (up to 511 letters, every hit window of the miners), else in device
-// scratch that only the owning lane reads and writes.  The left neighbour
-// column comes from the next lane down by shuffle, or from the previous
-// tile's carry.  F's running maximum and FL's last break are warp-wide
-// max-scans (shuffles), each seeded by the carry of the tiles before; the
-// query row's 15 scores sit in lanes 0-14 and a column's substitution score
-// is one shuffle.  TL goes to device memory as int32[B, m, n1] with n1 =
-// n + 1 rounded up to 4 (16-byte stores, four a lane a row).  After the last
-// row lane 0 walks the runs, one load a run.
+// Forward: a row-band wavefront.  One block of one warp a subject.  Lane L
+// owns a band of R consecutive query rows (R = ceil(m / 32) rounded up to
+// 1, 2, 4, ..., 16; queries past 32 x 16 rows go in strips of 32 R rows)
+// and walks the subject's columns in order, one a step, one step behind
+// lane L - 1: at each step it takes the H and E of the row above its band
+// from lane L - 1 by one shuffle pair and runs its R rows down the column.
+// E flows down the band in a register, H[i, j-1] and F[i, j] of every band
+// row stay in registers, so no row needs a warp scan.  E and F are DPX
+// __viaddmax_s32 (max(a + b, c)), H a DPX __vimax3_s32; "extended" is the
+// maximum equal to the extend term, so extend wins ties.
+// A strip's last row goes to a buffer for the next strip.  The strip's
+// query profile, sub(a_i, c) for its rows and the 15 letters, sits in
+// shared memory, R/2 64-bit loads a step.
 //
-// What bounds it on an H100: the TL bytes, 4 m (n + 1) a subject written
-// once (1,000 windows of 389 x 390 are 607 MB, 0.18 ms at 3.35 TB/s),
-// against about 30 integer operations a cell (0.07 ms at 67 T/s).  A
-// subject's rows are sequential, so a launch needs enough subjects (one
-// warp each) to fill the SMs.
+// Decisions, not run lengths: each cell keeps 4 bits, diag_ok (H from the
+// diagonal), f_ok (H from F), ext_e (E extended) and ext_f (F extended),
+// 8 columns of a row in one 32-bit word, the words of a column group
+// row after row (uint32[ceil((n + 1) / 8)][pitch], see Layout): a lane
+// shifts each row's nibble into a register and stores its R words, side by
+// side, every step.  They live in shared memory (dynamic) beside the subject's and the
+// query's letters and the strip buffers; a subject past the caller's budget
+// keeps the same layout in device memory (the kSmem = false instantiation).
+//
+// Traceback: the warp walks cell by cell from the endpoint as a 3-state
+// walk (H: diag_ok steps diagonally, else f_ok enters F, else E; in E or F:
+// step, and stay while ext_e / ext_f), the same path as the JAX run jumps
+// (a diagonal run is the chain of diag_ok, an E run ends at the first
+// !ext_e, an F run at its last break).  Every lane follows the same path;
+// at each run the 32 lanes read the run's next 32 cells (and, on the
+// diagonal, their two letters) at once, so a ballot gives the run's length
+// and its = / X pattern.  In one walk lane 0 writes the JAX RLE, (len << 2)
+// | op (op 0 diagonal, 2 query gap, 3 subject gap), and the CIGAR runs
+// over "=XID", merged across run boundaries, the free end gaps included;
+// each in traceback order, a run past the cap overwriting the last slot.
+//
+// What bounds it on an H100: about 30 integer operations a cell of the
+// function (0.05 ms for 1,024 windows of 389 x 290 at 67 T/s); its bytes,
+// the letters in and the runs out, are under 2 MB.  What bounds this
+// kernel: a subject's columns are serial (n + 32 steps of R cells) and a
+// warp issues its cells' integer instructions on its own SM sub-partition,
+// whose INT32 lanes take a warp instruction in two cycles; a launch holds
+// three subjects an SM (a 389-letter window against a 289-letter query
+// keeps 57 KB of decisions).
 
 #include <climits>
 #include <cstdint>
@@ -44,264 +67,428 @@
 namespace {
 
 constexpr int kLanes = 32;
-constexpr int kCols = 16;                 // columns a lane owns in a tile
-constexpr int kTile = kLanes * kCols;     // columns a tile
+constexpr int kRMax = 16;
+constexpr int kLetters = 15;
 constexpr int kNeg = -(1 << 30);
 constexpr unsigned kFull = 0xffffffffu;
+// the decision bits of a cell
+constexpr unsigned kDiag = 1u, kFOk = 2u, kExtE = 4u, kExtF = 8u;
 
-__device__ __forceinline__ int warp_incl_max(int v, int lane) {
-#pragma unroll
-  for (int d = 1; d < kLanes; d <<= 1) {
-    const int o = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v = max(v, o);
-  }
-  return v;
+// A1's per-launch arguments.  Each output row is int32[3 + cap]: score,
+// run count, endpoint j0, then the runs.
+struct Args {
+  const int32_t* a_sub;     // int32[m, 15]
+  const int8_t* a_idx;      // int8[m] query letters (for the CIGAR runs), or null
+  const int8_t* b_flat;     // subject letters end to end
+  const long long* b_off;   // int64[B + 1], every subject's offset
+  const long long* sel;     // int64[n_launch]: the subjects of this launch
+  const long long* dec_off; // int64[n_launch]: word offsets into dec (device-memory layout)
+  uint32_t* dec;            // decisions and strip buffers (device-memory layout)
+  int32_t* rle_out;         // int32[B, 3 + cap] or null
+  int32_t* cig_out;         // int32[B, 3 + cap] or null
+  int m, go, ge, cap;
+};
+
+__host__ __device__ inline int rows_per_lane(int m) {
+  const int need = (m + kLanes - 1) / kLanes;
+  if (need <= 1) return 1;
+  return need >= kRMax ? kRMax : (need + 1) & ~1;
 }
 
-__global__ void __launch_bounds__(kLanes)
-align_dp_kernel(const int32_t* __restrict__ a_sub, int m, const int8_t* __restrict__ b_flat,
-                const long long* __restrict__ b_off, const long long* __restrict__ col_off,
-                int go, int ge, int rle_cap, int32_t* tl, int32_t* scratch,
-                int32_t* __restrict__ scores, int32_t* __restrict__ rle,
-                int32_t* __restrict__ n_runs, int32_t* __restrict__ j0_out) {
-  const int s = blockIdx.x;
+__host__ __device__ inline long long round16(long long x) { return (x + 15) & ~15LL; }
+
+// The shared memory layout of a subject of n letters (bytes): the strip's
+// query profile int32[15][stride], then (kSmem) the query letters, the
+// subject letters, two strip buffers of H and E when there is more than one
+// strip, and the decisions uint32[words][pitch]: word j / 8 of query row i
+// at j / 8 x pitch + i - 1, the rows padded to the bands (R per lane) and
+// the pitch made odd, so that the lanes' stores spread over the banks.
+struct Layout {
+  int R, strips, stride, words, pitch;  // words: 32-bit words a row
+  long long prof, a, b, bnd, dec, total;
+};
+
+__host__ __device__ inline Layout layout(int m, int n, bool smem) {
+  Layout L;
+  L.R = rows_per_lane(m);
+  const int strip_rows = kLanes * L.R;
+  L.strips = (m + strip_rows - 1) / strip_rows;
+  const int first = m < strip_rows ? m : strip_rows;
+  L.stride = ((first + L.R - 1) / L.R * L.R + 1) & ~1;
+  L.words = (n + 1 + 7) / 8;
+  L.pitch = ((m + L.R - 1) / L.R * L.R) | 1;
+  L.prof = 0;
+  L.a = 4LL * kLetters * L.stride;
+  if (!smem) {
+    L.b = L.bnd = L.dec = L.total = L.a;
+    return L;
+  }
+  L.b = L.a + round16(m);
+  L.bnd = L.b + round16(n);
+  L.dec = L.bnd + (L.strips > 1 ? 16LL * (n + 1) : 0);
+  L.total = L.dec + 4LL * L.pitch * L.words;
+  return L;
+}
+
+template <int R, bool kSmem>
+__global__ void __launch_bounds__(kLanes) align_dp_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
-  const int8_t* b = b_flat + b_off[s];
-  const int n = static_cast<int>(b_off[s + 1] - b_off[s]);
-  const long long c0 = col_off[s];
-  const int n1 = static_cast<int>(col_off[s + 1] - c0);  // n + 1 rounded up to 4
-  int32_t* tls = tl + c0 * m;                             // this subject's TL rows
-  const int n_tiles = (n + kTile) / kTile;                // tiles of the n + 1 columns
-  const bool wide = n_tiles > 1;
-  int32_t* st = wide ? scratch + 4 * c0 : nullptr;        // H, E, C, EL rows of n1 each
+  const int s = static_cast<int>(p.sel[blockIdx.x]);
+  const int m = p.m, go = p.go, ge = p.ge, goe = go + ge;
+  const int8_t* b = p.b_flat + p.b_off[s];
+  const int n = static_cast<int>(p.b_off[s + 1] - p.b_off[s]);
+  const Layout L = layout(m, n, kSmem);
+  const int stride = L.stride, pitch = L.pitch;
+  int32_t* prof = reinterpret_cast<int32_t*>(smem + L.prof);
 
-  int H[kCols], E[kCols], C[kCols], EL[kCols], letter[kCols];
-  // the previous row's G (then TL) and diagonal targets of the current tile
-  int G[kCols], dg[kCols];
-
-  auto load_letters = [&](int J0) {
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      const int j = J0 + q;
-      letter[q] = (j >= 1 && j <= n) ? static_cast<int>(b[j - 1]) : 0;
-    }
-  };
-
-  // row 0: H = 0, E = NEG, C = EL = 0 (every tile's columns start there)
-#pragma unroll
-  for (int q = 0; q < kCols; ++q) {
-    H[q] = 0;
-    E[q] = kNeg;
-    C[q] = 0;
-    EL[q] = 0;
-  }
-  if (wide) {
-    for (int t = 0; t < n_tiles; ++t) {
-      for (int q = 0; q < kCols; ++q) {
-        const int j = t * kTile + lane * kCols + q;
-        if (j <= n) {
-          st[j] = 0;
-          st[n1 + j] = kNeg;
-          st[2 * n1 + j] = 0;
-          st[3 * n1 + j] = 0;
-        }
-      }
-    }
+  const int8_t* al;  // query letters
+  const int8_t* bl;  // subject letters
+  int32_t* bnd;      // two strip buffers of H and E, (n + 1) each
+  uint32_t* D;       // decisions, word w of row i at D[w pitch + i - 1]
+  if constexpr (kSmem) {
+    int8_t* sa = reinterpret_cast<int8_t*>(smem + L.a);
+    int8_t* sb = reinterpret_cast<int8_t*>(smem + L.b);
+    if (p.a_idx != nullptr)
+      for (int k = lane; k < m; k += kLanes) sa[k] = p.a_idx[k];
+    for (int k = lane; k < n; k += kLanes) sb[k] = b[k];
+    al = sa;
+    bl = sb;
+    bnd = reinterpret_cast<int32_t*>(smem + L.bnd);
+    D = reinterpret_cast<uint32_t*>(smem + L.dec);
   } else {
-    load_letters(lane * kCols);
+    al = p.a_idx;
+    bl = b;
+    D = p.dec + p.dec_off[blockIdx.x];
+    bnd = reinterpret_cast<int32_t*>(D + static_cast<long long>(pitch) * L.words);
   }
 
-  int best = INT_MIN, best_j = -1;  // the last row's maximum and its last column
-  for (int i = 1; i <= m; ++i) {
-    const int col = go + ge * i;
-    const int arow = lane < 15 ? a_sub[(i - 1) * 15 + lane] : 0;
-    int carry_run = kNeg;          // max of base over the tiles before
-    int carry_h = 0, carry_c = 0;  // previous row's H and C left of the tile
-    int carry_f = kNeg;            // this row's F left of the tile
-    int carry_brk = -1;            // last break of FL before the tile
-    for (int t = 0; t < n_tiles; ++t) {
-      const int J0 = t * kTile + lane * kCols;
-      if (wide) {
-        load_letters(J0);
+  int best = INT_MIN, best_j = -1;  // H[m]'s maximum and its last column
+  for (int strip = 0; strip < L.strips; ++strip) {
+    const int r0 = strip * kLanes * R;  // rows r0 + 1 .. of the strip
+    const int rows = min(kLanes * R, m - r0);
+    const int nl = (rows + R - 1) / R;  // live lanes
+    const bool last = strip == L.strips - 1;
+    __syncwarp();  // the previous strip has read the profile
+    for (int k = lane; k < rows * kLetters; k += kLanes) {
+      const int r = k / kLetters, c = k - r * kLetters;
+      prof[c * stride + r] = p.a_sub[static_cast<long long>(r0) * kLetters + k];
+    }
+    for (int k = rows + lane; k < nl * R; k += kLanes)
+      for (int c = 0; c < kLetters; ++c) prof[c * stride + k] = 0;
+    __syncwarp();
+
+    const bool live = lane < nl;
+    const int base = r0 + lane * R;            // the band's rows are base + 1 .. base + R
+    const int rm = last ? m - 1 - base : -1;   // row m's place in the band
+    const int32_t* bnd_h = bnd + ((strip + 1) & 1) * 2 * (n + 1);  // written by the strip before
+    int32_t* out_h = bnd + (strip & 1) * 2 * (n + 1);
+    const int32_t* pr = prof + lane * R;
+
+    int Hp[R];        // H[i, j - 1]
+    int Fn[R];        // F[i, j]
+    unsigned acc[R];  // the row's nibbles, newest at the top
 #pragma unroll
-        for (int q = 0; q < kCols; ++q) {
-          const int j = J0 + q;
-          if (j <= n) {
-            H[q] = st[j];
-            E[q] = st[n1 + j];
-            C[q] = st[2 * n1 + j];
-            EL[q] = st[3 * n1 + j];
-          }
-        }
-      }
-      // the previous row's H and C one column left of the lane's first
-      int hl = __shfl_up_sync(kFull, H[kCols - 1], 1);
-      int cl = __shfl_up_sync(kFull, C[kCols - 1], 1);
+    for (int r = 0; r < R; ++r) {
+      Hp[r] = 0;
+      Fn[r] = kNeg;
+      acc[r] = 0;
+    }
+    unsigned extf = 0;         // ext_f of the band's rows at column j
+    int hd = 0;                // H[base, j - 1]
+    int hout = 0, eout = kNeg; // the band's last row at column j, for lane + 1
+    int hm = 0;                // H[m, j]
+    int c_next = 0;            // the subject letter of the next column
+    if (live && n > 0) c_next = bl[0];
+
+    for (int t = 0; t < n + nl; ++t) {
+      const int j = t - lane;
+      int hin = __shfl_up_sync(kFull, hout, 1);
+      int ein = __shfl_up_sync(kFull, eout, 1);
+      if (!live || j < 0 || j > n) continue;
       if (lane == 0) {
-        hl = carry_h;
-        cl = carry_c;
+        hin = strip == 0 ? 0 : bnd_h[j];
+        ein = strip == 0 ? kNeg : bnd_h[n + 1 + j];
       }
-      carry_h = __shfl_sync(kFull, H[kCols - 1], kLanes - 1);
-      carry_c = __shfl_sync(kFull, C[kCols - 1], kLanes - 1);
-
-      // E (and with it EL), the diagonal target and G; the lane's max of
-      // base = G - ge j (H[i,0] at j = 0; dead columns past n add nothing)
-      int agg = kNeg;
+      const int q = j & 7;
+      if (j == 0) {
+        // column 0: H = E = go + ge i, no diagonal, no F; E extends below row 1
 #pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int j = J0 + q;
-        const int sub = __shfl_sync(kFull, arow, letter[q]);
-        const int hleft = q == 0 ? hl : H[q - 1];
-        int e;
-        if (j == 0) {
-          e = col;
-          dg[q] = kNeg;
-          G[q] = col;
-        } else {
-          e = max(H[q] + go + ge, E[q] + ge);
-          dg[q] = hleft + sub;
-          G[q] = max(dg[q], e);
+        for (int r = 0; r < R; ++r) {
+          const int i = base + 1 + r;
+          const int col = go + ge * i;
+          Hp[r] = col;
+          Fn[r] = col + goe;  // F[i, 1]; ext_f there is false
+          acc[r] = (acc[r] >> 4) | ((i > 1 ? kExtE : 0u) << 28);
+          if (r == rm) hm = col;
         }
-        EL[q] = (i > 1 && e == E[q] + ge) ? EL[q] + 1 : 1;
-        E[q] = e;
-        if (j <= n) agg = max(agg, j == 0 ? col : G[q] - ge * j);
-      }
-      const int incl = warp_incl_max(agg, lane);
-      int run = __shfl_up_sync(kFull, incl, 1);
-      run = lane == 0 ? carry_run : max(run, carry_run);
-      carry_run = max(carry_run, __shfl_sync(kFull, incl, kLanes - 1));
-
-      // F, H, the decisions and C, walking the lane's columns in order
-      unsigned dmask = 0, fmask = 0, xmask = 0;  // diag_ok, f_ok, ext_f per column
-      int f_prev = 0, f_first = 0;
-      int c_left = cl;  // the previous row's C one column left
+        extf = 0;
+        hd = hin;
+        hout = eout = go + ge * (base + R);
+      } else {
+        const int c = c_next;
+        if (j < n) c_next = bl[j];
+        int sub[R];
+        if constexpr (R % 2 == 0) {
 #pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int j = J0 + q;
-        int f, h;
-        if (j == 0) {
-          f = kNeg;
-          h = col;
-        } else {
-          f = go + ge * j + run;
-          h = max(G[q], f);
-        }
-        run = max(run, j == 0 ? col : G[q] - ge * j);
-        const bool diag_ok = j > 0 && h == dg[q];
-        const bool f_ok = j > 0 && h == f;
-        dmask |= static_cast<unsigned>(diag_ok) << q;
-        fmask |= static_cast<unsigned>(f_ok) << q;
-        if (q > 0 && j > 1 && f == f_prev + ge) xmask |= 1u << q;
-        if (q == 0) f_first = f;
-        f_prev = f;
-        const int c_old = C[q];
-        C[q] = diag_ok ? c_left + 1 : 0;
-        c_left = c_old;
-        H[q] = h;
-        if (i == m && j <= n && h >= best) {
-          best = h;
-          best_j = j;
-        }
-      }
-      int fl_left = __shfl_up_sync(kFull, f_prev, 1);
-      if (lane == 0) fl_left = carry_f;
-      carry_f = __shfl_sync(kFull, f_prev, kLanes - 1);
-      if (J0 > 1 && f_first == fl_left + ge) xmask |= 1u;
-
-      // FL's last break: a warp max-scan of brk = ext_f ? -1 : j
-      const unsigned breaks = ~xmask & 0xffffu;
-      const int lane_brk = breaks ? J0 + 31 - __clz(breaks) : -1;
-      const int bincl = warp_incl_max(lane_brk, lane);
-      int last_brk = __shfl_up_sync(kFull, bincl, 1);
-      last_brk = lane == 0 ? carry_brk : max(last_brk, carry_brk);
-      carry_brk = max(carry_brk, __shfl_sync(kFull, bincl, kLanes - 1));
-
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int j = J0 + q;
-        if (!((xmask >> q) & 1u)) last_brk = max(last_brk, j);
-        const int fl = j - last_brk + 1;
-        G[q] = ((dmask >> q) & 1u) ? (C[q] << 2)
-               : ((fmask >> q) & 1u) ? ((fl << 2) | 3) : ((EL[q] << 2) | 2);
-      }
-      int32_t* row = tls + static_cast<long long>(i - 1) * n1 + J0;
-#pragma unroll
-      for (int v = 0; v < kCols / 4; ++v) {
-        if (J0 + 4 * v < n1) {
-          reinterpret_cast<int4*>(row)[v] = make_int4(G[4 * v], G[4 * v + 1], G[4 * v + 2], G[4 * v + 3]);
-        }
-      }
-      if (wide) {
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) {
-          const int j = J0 + q;
-          if (j <= n) {
-            st[j] = H[q];
-            st[n1 + j] = E[q];
-            st[2 * n1 + j] = C[q];
-            st[3 * n1 + j] = EL[q];
+          for (int r = 0; r < R; r += 2) {
+            const int2 v = *reinterpret_cast<const int2*>(pr + c * stride + r);
+            sub[r] = v.x;
+            sub[r + 1] = v.y;
           }
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) sub[r] = pr[c * stride + r];
         }
+        int hu = hin, eu = ein, hdiag = hd;
+        hd = hin;
+        unsigned extf_next = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int e_ext = eu + ge;
+          const int e = __viaddmax_s32(hu, goe, e_ext);  // E, extend winning ties
+          const int dg = hdiag + sub[r];
+          const int f = Fn[r];
+          const int h = __vimax3_s32(dg, e, f);
+          const int f_ext = f + ge;
+          Fn[r] = __viaddmax_s32(max(dg, e), goe, f_ext);  // F[i, j + 1] from G[i, j]
+          const unsigned nib = (h == dg ? kDiag : 0u) | (h == f ? kFOk : 0u) | (e == e_ext ? kExtE : 0u) |
+                               (((extf >> r) & 1u) << 3);
+          extf_next |= static_cast<unsigned>(Fn[r] == f_ext) << r;
+          acc[r] = (acc[r] >> 4) | (nib << 28);
+          hdiag = Hp[r];
+          Hp[r] = h;
+          hu = h;
+          eu = e;
+          if (r == rm) hm = h;
+        }
+        extf = extf_next;
+        hout = hu;
+        eout = eu;
+      }
+      // this column's nibble lands at 4 (j & 7) of word j / 8; the band's
+      // rows are consecutive there (padded rows past m included)
+      const int shift = 4 * (7 - q);
+      uint32_t* dw = D + (j >> 3) * pitch + base;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dw[r] = acc[r] >> shift;
+      if (!last && lane == kLanes - 1) {
+        out_h[j] = hout;
+        out_h[n + 1 + j] = eout;
+      }
+      if (rm >= 0 && rm < R && hm >= best) {
+        best = hm;
+        best_j = j;
       }
     }
   }
+  __syncwarp();  // the decisions, before lane 0 reads them
 
-  // the endpoint: the largest score, ties to the later column
-#pragma unroll
-  for (int d = kLanes / 2; d > 0; d >>= 1) {
-    const int ov = __shfl_xor_sync(kFull, best, d);
-    const int oj = __shfl_xor_sync(kFull, best_j, d);
-    if (ov > best || (ov == best && oj > best_j)) {
-      best = ov;
-      best_j = oj;
-    }
-  }
   if (m == 0) {  // no query rows: H[0] = 0 everywhere
     best = 0;
     best_j = n;
+  } else {
+    const int owner = ((m - 1) % (kLanes * R)) / R;
+    best = __shfl_sync(kFull, best, owner);
+    best_j = __shfl_sync(kFull, best_j, owner);
   }
-  int32_t* out = rle + static_cast<long long>(s) * rle_cap;
-  for (int q = lane; q < rle_cap; q += kLanes) out[q] = 0;
-  __syncwarp();  // the TL rows and the zeroed slots, before lane 0 reads and writes them
-  if (lane == 0) {
-    const int lead = n - best_j;
-    out[0] = (lead << 2) | 3;
-    int pos = lead > 0 ? 1 : 0;
-    int i = m, j = best_j;
-    // every run moves i or j down by at least 1, so m + n steps end it
-    for (long long step = 0; i > 0 && j >= 0 && step <= static_cast<long long>(m) + n; ++step) {
-      const int v = tls[static_cast<long long>(i - 1) * n1 + j];
-      const int t = v >> 2, op = v & 3;
-      out[pos < rle_cap - 1 ? pos : rle_cap - 1] = v;
-      i -= op == 3 ? 0 : t;
-      j -= op == 2 ? 0 : t;
-      ++pos;
+  const int cap = p.cap;
+  int32_t* rle = p.rle_out ? p.rle_out + static_cast<long long>(s) * (3 + cap) : nullptr;
+  int32_t* cig = p.cig_out ? p.cig_out + static_cast<long long>(s) * (3 + cap) : nullptr;
+  for (int k = lane; k < cap; k += kLanes) {
+    if (rle) rle[3 + k] = 0;
+    if (cig) cig[3 + k] = 0;
+  }
+  __syncwarp();  // the zeroed slots, before lane 0 writes the runs
+
+  // The walk, warp-wide: every lane follows the same path (i, j); at each
+  // run the lanes read the next 32 cells of it at once and ballot their
+  // bits, and lane 0 writes.
+  auto bits = [&](int i, int j) -> unsigned {
+    return (D[(j >> 3) * pitch + i - 1] >> (4 * (j & 7))) & 15u;
+  };
+  const int lead = n - best_j;
+  int n_rle = lead > 0 ? 1 : 0, n_cig = 0;
+  if (rle && lane == 0) rle[3] = (lead << 2) | 3;
+  auto put_rle = [&](int v) {
+    if (rle && lane == 0) rle[3 + min(n_rle, cap - 1)] = v;
+    ++n_rle;
+  };
+  int cop = 3, clen = lead;  // the open CIGAR run: the trailing free subject gap
+  auto cells = [&](int op, int len) {
+    if (op == cop) {
+      clen += len;
+      return;
     }
-    scores[s] = best;
-    n_runs[s] = pos;
-    j0_out[s] = best_j;
+    if (clen > 0) {
+      if (cig && lane == 0) cig[3 + min(n_cig, cap - 1)] = (clen << 2) | cop;
+      ++n_cig;
+    }
+    cop = op;
+    clen = len;
+  };
+  int i = m, j = best_j;
+  while (i > 0) {
+    const unsigned d = bits(i, j);
+    int len = 0, k;
+    if (d & kDiag) {  // the diagonal chain: lane l reads cell (i - l, j - l)
+      do {
+        const int ii = i - lane, jj = j - lane;
+        const bool in = ii > 0 && jj > 0;
+        const unsigned chain = __ballot_sync(kFull, in && (bits(ii, jj) & kDiag));
+        const unsigned eq = cig ? __ballot_sync(kFull, in && al[ii - 1] == bl[jj - 1]) : 0u;
+        k = chain == kFull ? kLanes : __ffs(~chain) - 1;  // cells 0 .. k - 1 are diagonal
+        for (int c = 0; cig && c < k;) {  // their = / X runs
+          const unsigned same = (((eq >> c) & 1u) ? ~eq : eq) >> c;
+          const int run = min(same ? __ffs(same) - 1 : kLanes - c, k - c);
+          cells(((eq >> c) & 1u) ? 0 : 1, run);
+          c += run;
+        }
+        i -= k;
+        j -= k;
+        len += k;
+      } while (k == kLanes);
+      put_rle(len << 2);
+    } else {  // a gap: lane l reads cell (i, j - l) of a subject gap or (i - l, j) of a query gap
+      const bool along = d & kFOk;
+      const unsigned ext_bit = along ? kExtF : kExtE;
+      bool more;
+      do {
+        const int ii = along ? i : i - lane, jj = along ? j - lane : j;
+        const unsigned ext = __ballot_sync(kFull, ii > 0 && jj >= 0 && (bits(ii, jj) & ext_bit));
+        more = ext == kFull;                // all 32 extended: the run goes on past them
+        k = more ? kLanes : __ffs(~ext);    // else it takes cells 0 .. k - 1, the last not extended
+        if (along) {
+          j -= k;
+        } else {
+          i -= k;
+        }
+        len += k;
+      } while (more);
+      cells(along ? 3 : 2, len);
+      put_rle((len << 2) | (along ? 3 : 2));
+    }
+  }
+  if (j > 0) cells(3, j);  // the leading free subject gap
+  cells(-1, 0);            // close the last run
+  if (lane != 0) return;
+  if (rle) {
+    rle[0] = best;
+    rle[1] = n_rle;
+    rle[2] = best_j;
+  }
+  if (cig) {
+    cig[0] = best;
+    cig[1] = n_cig;
+    cig[2] = best_j;
+  }
+}
+
+template <int R, bool kSmem>
+int launch_r(const Args& a, int n_launch, long long smem, cudaStream_t stream) {
+  auto kernel = align_dp_kernel<R, kSmem>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_launch, kLanes, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSmem>
+int launch(const Args& a, int n_launch, long long smem, cudaStream_t stream) {
+  switch (rows_per_lane(a.m)) {
+    case 1: return launch_r<1, kSmem>(a, n_launch, smem, stream);
+    case 2: return launch_r<2, kSmem>(a, n_launch, smem, stream);
+    case 4: return launch_r<4, kSmem>(a, n_launch, smem, stream);
+    case 6: return launch_r<6, kSmem>(a, n_launch, smem, stream);
+    case 8: return launch_r<8, kSmem>(a, n_launch, smem, stream);
+    case 10: return launch_r<10, kSmem>(a, n_launch, smem, stream);
+    case 12: return launch_r<12, kSmem>(a, n_launch, smem, stream);
+    case 14: return launch_r<14, kSmem>(a, n_launch, smem, stream);
+    default: return launch_r<16, kSmem>(a, n_launch, smem, stream);
+  }
+}
+
+template <int R, bool kSmem>
+int info_r(long long smem, int* out) {
+  auto kernel = align_dp_kernel<R, kSmem>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLanes, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[2] = blocks;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+template <bool kSmem>
+int info(int m, long long smem, int* out) {
+  switch (rows_per_lane(m)) {
+    case 1: return info_r<1, kSmem>(smem, out);
+    case 2: return info_r<2, kSmem>(smem, out);
+    case 4: return info_r<4, kSmem>(smem, out);
+    case 6: return info_r<6, kSmem>(smem, out);
+    case 8: return info_r<8, kSmem>(smem, out);
+    case 10: return info_r<10, kSmem>(smem, out);
+    case 12: return info_r<12, kSmem>(smem, out);
+    case 14: return info_r<14, kSmem>(smem, out);
+    default: return info_r<16, kSmem>(smem, out);
   }
 }
 
 }  // namespace
 
-// One query against n_sub subjects.  a_sub int32[m, 15]; b_flat int8 letter
-// indices; b_off int64[n_sub + 1] subject offsets into b_flat; col_off
-// int64[n_sub + 1] prefix sums of n1 = n + 1 rounded up to 4; tl int32
-// [m * col_off[n_sub]] (16-byte aligned); scratch int32[4 * col_off[n_sub]]
-// when a subject is longer than 511 letters, else null.  Outputs scores,
-// n_runs, j0 int32[n_sub] and rle int32[n_sub, rle_cap].  Returns
-// cudaGetLastError().
-extern "C" int kmg_align_dp(const void* a_sub, int m, const void* b_flat, const void* b_off,
-                            const void* col_off, int n_sub, int go, int ge, int rle_cap, void* tl,
-                            void* scratch, void* scores, void* rle, void* n_runs, void* j0,
-                            void* stream) {
-  if (n_sub < 0 || m < 0 || rle_cap < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_sub == 0) return static_cast<int>(cudaSuccess);
-  align_dp_kernel<<<n_sub, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a_sub), m, static_cast<const int8_t*>(b_flat),
-      static_cast<const long long*>(b_off), static_cast<const long long*>(col_off), go, ge, rle_cap,
-      static_cast<int32_t*>(tl), static_cast<int32_t*>(scratch), static_cast<int32_t*>(scores),
-      static_cast<int32_t*>(rle), static_cast<int32_t*>(n_runs), static_cast<int32_t*>(j0));
-  return static_cast<int>(cudaGetLastError());
+// One query against n_launch of B subjects.  a_sub int32[m, 15]; a_idx
+// int8[m] query letters (needed for cig_out, else may be null); b_flat
+// int8 letter indices; b_off int64[B + 1] subject offsets; sel int64
+// [n_launch] the subjects to align; max_n the longest of them.  dec_off
+// null keeps the decisions in shared memory; else int64[n_launch] word
+// offsets into dec (the decisions, pitch x words, then the strip buffers
+// past one strip; _global_words in ops/align_device.py).  rle_out and
+// cig_out (either may be null) are int32[B, 3 + cap]: score, run count,
+// endpoint, then the runs.  Returns cudaGetLastError().
+extern "C" int kmg_align_dp(const void* a_sub, const void* a_idx, int m, const void* b_flat, const void* b_off,
+                            const void* sel, const void* dec_off, int n_launch, int max_n, int go, int ge, int cap,
+                            void* dec, void* rle_out, void* cig_out, void* stream) {
+  if (n_launch < 0 || m < 0 || max_n < 0 || cap < 1 || (cig_out != nullptr && a_idx == nullptr && m > 0) ||
+      (dec_off != nullptr && dec == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_launch == 0) return static_cast<int>(cudaSuccess);
+  Args a;
+  a.a_sub = static_cast<const int32_t*>(a_sub);
+  a.a_idx = static_cast<const int8_t*>(a_idx);
+  a.b_flat = static_cast<const int8_t*>(b_flat);
+  a.b_off = static_cast<const long long*>(b_off);
+  a.sel = static_cast<const long long*>(sel);
+  a.dec_off = static_cast<const long long*>(dec_off);
+  a.dec = static_cast<uint32_t*>(dec);
+  a.rle_out = static_cast<int32_t*>(rle_out);
+  a.cig_out = static_cast<int32_t*>(cig_out);
+  a.m = m;
+  a.go = go;
+  a.ge = ge;
+  a.cap = cap;
+  const bool smem = dec_off == nullptr;
+  const long long bytes = layout(m, max_n, smem).total;
+  if (bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);  // past a block's 227 KB
+  const auto st = static_cast<cudaStream_t>(stream);
+  return smem ? launch<true>(a, n_launch, bytes, st) : launch<false>(a, n_launch, bytes, st);
+}
+
+// A launch's shape for a query of m rows and subjects up to max_n letters:
+// out[0] rows a lane, [1] dynamic shared memory a block (bytes), [2]
+// resident blocks an SM, [3] registers a thread, [4] local (spill) bytes a
+// thread, [5] strips.  Returns a cudaError_t.
+extern "C" int kmg_align_launch_info(int m, int max_n, int smem, int* out) {
+  const Layout L = layout(m, max_n, smem != 0);
+  out[0] = L.R;
+  out[1] = static_cast<int>(L.total);
+  out[5] = L.strips;
+  return smem ? info<true>(m, L.total, out) : info<false>(m, L.total, out);
 }
