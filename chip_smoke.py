@@ -81,6 +81,15 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   launched, K1 not; walls and table bytes a device), over four cards
   with the miners' own route to it where four are present, and
   ``ScanEngine`` at k = 15 against it;
+* the two-axis step: ``sharded_cluster_scan_step`` on the first 16 Mbp
+  contig in 245 tiles of 65,536 windows (``make_tiles``) against four
+  profiles (each a fourth of the reference set), at a threshold that lets
+  about one window in 10,000 below and at 2^30 (every buffer full), on the
+  (1 x 1), (1 x 4), (2 x 2) and (4 x 1) ("clusters" x "data") meshes over
+  logical shards of the first card: all six outputs against the int64
+  host engine's distances cut per tile, K2 launched once a device and K1
+  and K3 not, walls, device times and peak memory; K2 against its twin at
+  the step's shape; a (2 x 1) hybrid mesh over a one-rank NCCL group;
 * the port's throughput harness (``kmergma_tpu_torch.bench.run``) at its
   default sizes, every genome made on the card by K7 (a 512 Mbp headline,
   64 Mbp hit-dense, k = 10 and strobe genomes, 6 x 512 Mbp records), each
@@ -104,7 +113,9 @@ at those shapes (one JSON line); a copy of this file placed in the root of
 an earlier checkout times that checkout's kernels the same way.  It is
 the parent-against-change tool of the pair kernels' redesigns.
 ``python3 chip_smoke.py --tp-cards`` runs the profile-sharded engine's
-phase alone, on a host with four cards.  No other option is taken.
+phase alone, on a host with four cards; ``--mesh-cards`` the two-axis
+step's phase alone there, its four-device meshes over the four cards.  No
+other option is taken.
 
 It imports only the port (``kmergma_tpu_torch``), never jax or the JAX
 package.  Exits non-zero, printing no result, without a CUDA device or
@@ -187,6 +198,14 @@ DP_OPS_PER_CELL = 15
 TP_CASES = ((10, 11.5), (12, 7.75))
 #: the largest k of ScanEngine's K codes (int32), probed on one card
 MAX_K = 15
+#: the two-axis step: tiles of 65,536 windows (245 over a 16 Mbp contig),
+#: candidate buffers of 256, four profiles at ws 289 and r 21 (one a fourth
+#: of the reference set), over (clusters x data) meshes of one and four
+#: devices; the first threshold case lets about one window in 10,000 below
+TWO_AXIS_TILE = 65_536
+TWO_AXIS_CAP = 256
+TWO_AXIS_WS, TWO_AXIS_R = 289, 21
+TWO_AXIS_MESHES = ((1, 1), (1, 4), (2, 2), (4, 1))
 
 #: one H100 SXM's published peaks (NVIDIA's data sheet): device memory
 #: bytes per second,
@@ -2630,6 +2649,212 @@ def tp_cards(device, label: str = "", contig_bp: int = 16_000_000, runs: int = 3
                   profile=gen_ref_ws_cons(REF, 6)))
 
 
+def two_axis_tile_dists(record, profiles, t: int, n_tiles: int) -> list:
+    """Each profile's exact distances over ``n_tiles`` tiles of ``t``
+    windows (int64[n_tiles, t]) from the int64 host engine: over the record
+    zero-padded past its end, as ``make_tiles`` pads it, and for the whole
+    padding tiles over one all-zero tile."""
+    import numpy as np
+
+    from kmergma_tpu_torch.ops.scan_host import HostScanEngine
+
+    ws = TWO_AXIS_WS
+    real = -(-(record.shape[0] - ws + 1) // t)
+    padded = np.zeros(real * t + ws - 1, dtype=np.int8)
+    padded[: record.shape[0]] = record
+    out = []
+    for p in profiles:
+        host = HostScanEngine(p, k=6, ws=ws, r=TWO_AXIS_R)
+        d = np.empty((n_tiles, t), dtype=np.int64)
+        d[:real] = host._dists(padded).reshape(real, t)
+        d[real:] = host._dists(np.zeros(t + ws - 1, dtype=np.int8))
+        out.append(d)
+    return out
+
+
+def two_axis_oracle(tile_dists: list, thrs, cap: int) -> tuple:
+    """The two-axis step's six outputs from each profile's tile distances
+    (``two_axis_tile_dists``), derived in numpy: a window is a candidate
+    where it or the window before lies below the threshold, and a tile's
+    buffer holds its first ``cap`` candidates, then 0."""
+    import numpy as np
+
+    out = [[] for _ in range(6)]
+    for d, thr in zip(tile_dists, thrs):
+        below = d < int(thr)
+        mask = below.copy()
+        mask[:, 1:] |= below[:, :-1]
+        rows, cols = np.nonzero(mask)  # row-major: each row's windows in order
+        rank = np.arange(rows.shape[0]) - np.searchsorted(rows, rows)
+        keep = rank < cap
+        idx = np.zeros((d.shape[0], cap), dtype=np.int64)
+        idx[rows[keep], rank[keep]] = cols[keep]
+        for o, v in zip(out, (d[:, 0], mask.sum(axis=1), idx, np.take_along_axis(d, idx, axis=1), below[:, 0],
+                              below[:, -1])):
+            o.append(v)
+    return tuple(np.stack(o) for o in out)
+
+
+def two_axis_phase(ctx, cards: bool = False) -> dict:
+    """The two-axis step ``sharded_cluster_scan_step`` on the genome's first
+    contig, cut by ``make_tiles`` into tiles of ``TWO_AXIS_TILE`` windows,
+    against four profiles (profile j summed over the reference records
+    with index j mod 4), in two threshold cases: each profile's distance at
+    rank ceil(nw / 10,000), and 2^30 (every window a candidate, the buffers
+    full).  On every mesh of ``TWO_AXIS_MESHES``, over logical shards of the
+    first device (``cards``: (1 x 1) on the first card and the four-device
+    meshes over four cards), all six outputs equal the int64 host
+    oracle's (``two_axis_oracle``), K2 launched once a device and K1 and
+    K3 not, each wall (median of ``runs``) beside its device time and peak
+    memory.  K2 against its twin at the step's shape, and the step over a
+    one-rank process group (NCCL on the card).  Returns the launches of
+    every kernel in the counted calls, and K2's row at the step's shape."""
+    import math
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import rolling_kmer_codes
+    from kmergma_tpu_torch.ops.scan_kernels import _match_counts_plain, match_counts
+    from kmergma_tpu_torch.parallel.mesh import initialize_distributed, make_hybrid_mesh, make_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import make_tiles, sharded_cluster_scan_step
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    device, on_card, sync, label, launches = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"], ctx["launches"]
+    record = ctx["contigs"][0]
+    t, cap, ws, r = ctx["two_axis_tile"], TWO_AXIS_CAP, TWO_AXIS_WS, TWO_AXIS_R
+    first = device if device.type == "cpu" else torch.device("cuda", 0)
+    refs = as_records(REF)
+    profiles = np.stack([gen_ref_ws_cons(refs[j::4], 6).sum_kfv for j in range(4)]).astype(np.int32)
+    nw = record.shape[0] - ws + 1
+    rank = math.ceil(nw / 10_000)
+    meshes = {}
+    for nc, nd in TWO_AXIS_MESHES:
+        if cards and nc * nd == 4:
+            meshes[f"{nc} x {nd} over four cards"] = make_mesh(4, n_clusters=nc)
+        else:
+            meshes[f"{nc} x {nd} over {nc * nd} logical shard(s) of {first}"] = make_mesh(devices=[first] * (nc * nd),
+                                                                                          n_clusters=nc)
+    n_max = max(make_tiles(record, t, ws, m.shape["data"])[0].shape[0] for m in meshes.values())
+    host_ms, tile_dists = clock(lambda: two_axis_tile_dists(record, profiles, t, n_max), lambda: None)
+    cases = {f"rank {rank}": np.array([np.partition(d.reshape(-1)[:nw], rank)[rank] for d in tile_dists], dtype=np.int32),
+             "2^30": np.full(4, 2**30, dtype=np.int32)}
+    total = dict.fromkeys(launches.read(), 0)
+    walls = {}
+    for case, thrs in cases.items():
+        oracle_ms, want = clock(lambda: two_axis_oracle(tile_dists, thrs, cap), lambda: None)
+        one = None
+        line = []
+        for what, mesh in meshes.items():
+            tiles, _ = make_tiles(record, t, ws, mesh.shape["data"])
+
+            def step():
+                return sharded_cluster_scan_step(tiles, profiles, thrs, k=6, ws=ws, r=r, cap=cap, mesh=mesh)
+
+            times, _ = timed_calls(step, sync, ctx["runs"])
+            launches.reset()
+            got = step()
+            sync()
+            counted = launches.read()
+            for name, n in counted.items():
+                total[name] += n
+            n_dev = len(mesh.devices)
+            for i, (a, b) in enumerate(zip(got, want)):
+                require(a.device == mesh.first and a.shape == (4, tiles.shape[0], *b.shape[2:])
+                        and np.array_equal(a.cpu().numpy(), b[:, : tiles.shape[0]]),
+                        f"two-axis step over {what}, thresholds {case}: output {i} differs from the int64 host oracle")
+            if one is None:
+                one = got
+            require(all(torch.equal(a[:, : one[0].shape[1]].cpu(), b.cpu()) for a, b in zip(got, one)),
+                    f"two-axis step over {what} differs from the (1 x 1) mesh")
+            if on_card:
+                require(counted["match_counts"] == n_dev and counted["fused_record_bitmaps"] == 0
+                        and counted["fused_cluster_record_bitmaps"] == 0,
+                        f"two-axis step over {what} launched {counted}")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                step()
+                sync()
+                peak = f"{torch.cuda.max_memory_allocated()} B"
+                dev_ms, _ = device_ms_per_call(step, reps=3)
+                dev = f"{dev_ms:.3f} ms"
+            else:
+                peak = dev = "not measured (CPU)"
+            wall = statistics.median(times)
+            walls[(case, what)] = wall
+            line.append(f"{what}: {wall:.4f} s, device {dev}, peak {peak}, K2 {counted['match_counts']}, K1 "
+                        f"{counted['fused_record_bitmaps']}, K3 {counted['fused_cluster_record_bitmaps']}")
+        print(f"two-axis step, thresholds {case} ({int(want[1][:, : -(-nw // t)].sum())} candidates, "
+              f"{int(np.minimum(want[1], cap).sum())} in the buffers), {record.shape[0]} bp in tiles of {t} windows, "
+              f"4 profiles (ws {ws}, r {r}), cap {cap}, median of {ctx['runs']}: {'; '.join(line)}; all six outputs "
+              f"equal the int64 host oracle's (host distances {host_ms / 1e3:.3f} s, candidates "
+              f"{oracle_ms / 1e3:.3f} s) [{label}]")
+
+    # K2 against its twin at the step's shape: a device's tiles' K codes
+    tiles, _ = make_tiles(record, t, ws, 1)
+    w = ws - 6 + 1
+    kc = torch.nn.functional.pad(rolling_kmer_codes(torch.from_numpy(tiles).to(first), 6), (0, 1))
+    ms, ab = kernel_ms(lambda: match_counts(kc, w, t), on_card, reps=5)
+    plain_ms, ab_plain = kernel_ms(lambda: _match_counts_plain(kc, w, t), on_card, reps=1)
+    err = max_err((ab, ab_plain))
+    require(err == 0, "K2 at the two-axis step's shape differs from the plain twin")
+    device_ms = queued_device_ms(lambda: match_counts(kc, w, t), reps=5) if on_card else None
+    io = k2_io(tiles.shape[0], t, w)
+    k2 = {"rows": tiles.shape[0], "t": t, "max_abs_err": err, "ms": float(ms), "ms_min": ms.min,
+          "plain_ms": float(plain_ms), "device_ms": device_ms, "bound_ms": bound(*io)[0], "bound_by": bound(*io)[1]}
+    print(f"K2 at the two-axis step's shape, {tiles.shape[0]} x {t + w} K codes: {ms:.4f} ms (fastest window "
+          f"{ms.min:.4f}){'' if device_ms is None else f', device {device_ms:.4f} ms'}, plain twin {plain_ms:.3f} ms, "
+          f"bound {k2['bound_ms']:.5f} ms ({k2['bound_by']}), bit-identical=True [{label}]")
+
+    if not cards:  # the data axis's all-gather over a one-rank process group
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        initialize_distributed(f"localhost:{port}", num_processes=1, process_id=0, device=device)
+        try:
+            mesh = make_hybrid_mesh(n_clusters=2, devices=[first, first])
+            require(mesh.distributed and mesh.shape == {"clusters": 2, "data": 1}, f"hybrid mesh {mesh.shape}")
+            thrs = next(iter(cases.values()))
+            got = sharded_cluster_scan_step(make_tiles(record, t, ws, 1)[0], profiles, thrs, k=6, ws=ws, r=r, cap=cap,
+                                            mesh=mesh)
+            want = two_axis_oracle([d[: got[0].shape[1]] for d in tile_dists], thrs, cap)
+            require(all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(got, want)),
+                    "two-axis step over a one-rank process group differs from the int64 host oracle")
+            print(f"two-axis step on a (2 x 1) hybrid mesh over a one-rank process group ({dist.get_backend()}): "
+                  f"the data axis's all-gather ran, outputs equal [{label}]")
+        finally:
+            dist.destroy_process_group()
+    return {"launches": total, "k2": k2, "walls": walls}
+
+
+def mesh_cards(device, label: str = "", contig_bp: int = 16_000_000, runs: int = 3) -> None:
+    """The two-axis phase alone on a host with four cards (``python3
+    chip_smoke.py --mesh-cards``): the step on one card and on the (2 x 2),
+    (1 x 4) and (4 x 1) meshes over four cards, each equal to one card's
+    outputs and the int64 host oracle's, each wall beside one card's."""
+    import torch
+
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        require(torch.cuda.device_count() >= 4, f"--mesh-cards needs four cards, {torch.cuda.device_count()} present")
+        build_kernels(label)
+    contigs = synthetic_genome(1, contig_bp, 500_000, [rec.codes for rec in as_records(REF)])
+    out = two_axis_phase(dict(device=device, on_card=on_card, sync=torch.cuda.synchronize if on_card else (lambda: None),
+                              label=label, runs=runs, contigs=contigs, launches=Launches(),
+                              two_axis_tile=TWO_AXIS_TILE), cards=True)
+    for case in dict.fromkeys(c for c, _ in out["walls"]):
+        one = next(v for (c, what), v in out["walls"].items() if c == case and what.startswith("1 x 1"))
+        print(f"two-axis step over four cards, thresholds {case}: " + "; ".join(
+            f"{what} {v:.4f} s ({v / one:.2f}x one card's {one:.4f} s)"
+            for (c, what), v in out["walls"].items() if c == case and not what.startswith("1 x 1")) + f" [{label}]")
+
+
 def build_kernels(label: str) -> None:
     """Build (or load) the kernel library, printing the build time and
     ptxas's registers and spills per kernel."""
@@ -2696,14 +2921,15 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     return out
 
 
-def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS, long_bp: int = LONG_BP, long_chunk: int | None = None, max_k: int = MAX_K) -> dict:
+def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS, long_bp: int = LONG_BP, long_chunk: int | None = None, max_k: int = MAX_K, two_axis_tile: int = TWO_AXIS_TILE) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
     ``runs`` timed runs follow one warm-up at size, and each stage of the
     breakdowns is the median of ``runs``; ``bench_sizes`` are the bench
     phase's row sizes (``BENCH_SIZES`` by default), ``fragments`` the
     fragmented assembly's record count; ``long_bp`` the long record's
     length and ``long_chunk`` its engine's ``chunk_windows`` (the default
-    when None); ``max_k`` the k of ScanEngine's largest table (``MAX_K``).
+    when None); ``max_k`` the k of ScanEngine's largest table (``MAX_K``);
+    ``two_axis_tile`` the two-axis step's tile (``TWO_AXIS_TILE``).
     Returns the kernels' report."""
     import torch
 
@@ -2732,7 +2958,7 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
         launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
-        long_bp=long_bp, long_chunk=long_chunk, plant_every=plant_every, max_k=max_k,
+        long_bp=long_bp, long_chunk=long_chunk, plant_every=plant_every, max_k=max_k, two_axis_tile=two_axis_tile,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx.update(tmp=Path(tmp), fasta=Path(tmp) / "genome.fasta", cluster_fasta=Path(tmp) / "cluster_genome.fasta",
@@ -2743,11 +2969,15 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         checkpoint_phase(ctx)
         long_launches = long_record_phase(ctx)
         tp_phase(ctx)
+        two_axis = two_axis_phase(ctx)
     paired_spectrum_check(ctx)
     kernels += mixed_depth_phase(ctx)
     kernels += bench_phase(ctx) + [a1]
-    for row in kernels:  # each kernel's launches on the long-record and sharded path
+    for row in kernels:  # each kernel's launches on the long-record and sharded path, and on the two-axis step's
         row["long_path_launches"] = long_launches[row["name"].split("[")[0]]
+        row["two_axis_launches"] = two_axis["launches"][row["name"].split("[")[0]]
+        if row["name"] == "match_counts":
+            row["two_axis"] = two_axis["k2"]
     return {"kernels": kernels}
 
 
@@ -2777,6 +3007,10 @@ def main() -> int:
             return 0
         if sys.argv[1:] == ["--tp-cards"]:
             tp_cards("cuda", label=label)
+            print(f"card: {label}")
+            return 0
+        if sys.argv[1:] == ["--mesh-cards"]:
+            mesh_cards("cuda", label=label)
             print(f"card: {label}")
             return 0
         report = run("cuda", label=label)

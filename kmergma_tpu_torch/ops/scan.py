@@ -431,15 +431,32 @@ def _scan_rows_d(rows: torch.Tensor, s_profile: torch.Tensor, k: int, ws: int, r
     return _rows_d_from(kc, profile_lookup(kc, s_profile), _sq_norm(s_profile), k, ws, r)
 
 
-def _rows_d_from(kc: torch.Tensor, g: torch.Tensor, s2: torch.Tensor, k: int, ws: int, r: int) -> torch.Tensor:
+def _rows_ab(kc: torch.Tensor, w: int) -> "torch.Tensor | None":
+    """The depth-W match counts of a batch of rows' K codes ``kc``
+    (int32[n, rspan + w - 1]) through K2 (``scan_kernels.match_counts``),
+    one region per row: int32[n, rspan - 1], or None for one window a row
+    (no transition, no launch).  They depend on the codes alone, so rows
+    scanned against several profiles count them once."""
+    from .scan_kernels import match_counts
+
+    n, m = kc.shape  # m = K codes per row
+    rspan = m - w + 1
+    if rspan == 1:
+        return None
+    # each row is one K2 tile of rspan transitions; kc has rspan + w - 1
+    # columns and K2 wants rspan + w, so pad one column (only the
+    # discarded last transition reads it)
+    tiles = torch.nn.functional.pad(kc, (0, rspan + w - m))
+    return match_counts(tiles, w, rspan)[:, : rspan - 1]
+
+
+def _rows_d_from(kc: torch.Tensor, g: torch.Tensor, s2: torch.Tensor, k: int, ws: int, r: int, ab: "torch.Tensor | None" = None) -> torch.Tensor:
     """``_scan_rows_d`` from the rows' K codes ``kc`` (int32[n, rspan + w
     - 1]), their profile lookups g = S[K] and s2 = ||S||^2 (0-dim int64),
     the profile's only two reductions: the one-device engine looks them up
     in its table, the profile-sharded ``TPScanEngine`` reduces them over
-    its shards.  The depth-W match counts go through K2
-    (``scan_kernels.match_counts``), one region per row."""
-    from .scan_kernels import match_counts
-
+    its shards.  ``ab`` are the rows' match counts (``_rows_ab``), counted
+    here through K2 unless the caller shares them across profiles."""
     n, m = kc.shape  # m = K codes per row
     w = ws - k + 1
     rspan = m - w + 1
@@ -453,11 +470,8 @@ def _rows_d_from(kc: torch.Tensor, g: torch.Tensor, s2: torch.Tensor, k: int, ws
     nt = rspan - 1
     kl = kc[:, :nt]
     kr = kc[:, w : w + nt]
-    # each row is one K2 tile of rspan transitions; kc has rspan + w - 1
-    # columns and K2 wants rspan + w, so pad one column (only the
-    # discarded last transition reads it)
-    tiles = torch.nn.functional.pad(kc, (0, rspan + w - m))
-    ab = match_counts(tiles, w, rspan)[:, :nt]
+    if ab is None:
+        ab = _rows_ab(kc, w)
     r2 = 2 * r * r
     delta = r2 * (kl != kr).to(torch.int32) + r2 * ab + (2 * r) * (g[:, :nt] - g[:, w : w + nt])
     return torch.cat([d0[:, None], d0[:, None] + _cumsum32(delta, dim=1)], dim=1)

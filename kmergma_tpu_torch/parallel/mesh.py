@@ -1,19 +1,23 @@
 """Device meshes for the sharded scan, one process or many (counterpart of
 ``kmergma_tpu.parallel.mesh``).
 
-A mesh is the "data" axis of the JAX package's mesh: a list of devices,
-and the sharded engines cut a record's window axis into contiguous
-shards along it, one per device.  The JAX mesh's "clusters" axis, which
-only its unported two-axis step reads, has no counterpart here.
+A mesh has the JAX package's two axes, ("clusters", "data"): its devices
+form c rows of d, row c holding data shards 0 ... d - 1 of profile block
+c.  ``sharded_scan.sharded_cluster_scan_step`` shards profiles over
+"clusters" and genome tiles over "data"; the sharded engines and
+``TPScanEngine`` read only "data" (``local_data``, the first row) and
+replicate over "clusters", as the JAX engines do.  ``make_mesh(N,
+n_clusters=M)`` gives the clusters axis the largest divisor of N up to M
+(``_cluster_ways``), the rest to data.
 
 Across processes (``initialize_distributed``: NCCL between cards, gloo
 between CPUs) the data axis lays processes outermost, so process p holds
-shards [p L, (p + 1) L) of its L local ones; the only traffic between
-processes is the all-gather of each pass's packed block bitmap.  Each
-process names only its own devices: a ``torch.device`` cannot name another
-process's card.  By default a process drives one card, the one its
-``LOCAL_RANK`` names (as ``torchrun`` sets it), so that processes on one
-host never share a card.
+data shards [p L, (p + 1) L) of its L local ones in every row, and the
+clusters axis stays inside a process; the only traffic between processes
+is an all-gather along the data axis.  Each process names only its own
+devices: a ``torch.device`` cannot name another process's card.  By
+default a process drives one card, the one its ``LOCAL_RANK`` names (as
+``torchrun`` sets it), so that processes on one host never share a card.
 
 ``make_mesh(device="cpu")`` and an explicit ``devices=[...]`` list may
 repeat one device, as the JAX tests' virtual host devices do: several
@@ -38,23 +42,34 @@ class NotEnoughDevices(ValueError):
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's part of the data axis: ``devices[j]`` holds local
-    data shard j."""
+    """This process's part of the mesh, cluster-major: ``devices[c L + j]``
+    holds profile block c and local data shard j, L = len(devices) /
+    ``clusters``."""
 
     devices: tuple
     process_count: int = 1
     process_index: int = 0
     #: built over a process group: each pass's bitmap is all-gathered
     distributed: bool = False
+    #: ways of the clusters axis (all of them in this process)
+    clusters: int = 1
 
     @property
     def shape(self) -> dict:
-        return {"data": self.process_count * len(self.devices)}
+        return {"clusters": self.clusters, "data": self.process_count * len(self.devices) // self.clusters}
+
+    @property
+    def rows(self) -> list:
+        """This process's devices by cluster row: rows[c][j] holds profile
+        block c and local data shard j."""
+        n = len(self.devices) // self.clusters
+        return [list(self.devices[c * n : (c + 1) * n]) for c in range(self.clusters)]
 
     @property
     def local_data(self) -> list:
-        """The devices of this process's data shards, in order."""
-        return list(self.devices)
+        """The devices of this process's data shards, in order: the first
+        cluster row, which the one-axis engines shard over."""
+        return self.rows[0]
 
     @property
     def first(self) -> torch.device:
@@ -118,6 +133,15 @@ def initialize_distributed(coordinator_address: str | None = None, num_processes
         torch.cuda.set_device(_local_card())
 
 
+def _cluster_ways(n_clusters: int, n_devices: int) -> int:
+    """Ways of the clusters axis: the largest divisor of ``n_devices`` up
+    to ``n_clusters`` (the JAX package's rule)."""
+    for cand in range(min(n_clusters, n_devices), 0, -1):
+        if n_devices % cand == 0:
+            return cand
+    return 1
+
+
 def _devices(n_devices: int | None, device) -> list:
     """The first ``n_devices`` cards (all by default), or on the CPU
     ``n_devices`` logical shards (one by default)."""
@@ -135,28 +159,33 @@ def _devices(n_devices: int | None, device) -> list:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def make_mesh(n_devices: int | None = None, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
-    """A mesh over the first ``n_devices`` cards (all of them by default),
-    or over ``devices``; ``device="cpu"`` gives ``n_devices`` logical
-    shards on the CPU.  It never falls back to fewer cards or to the CPU:
-    asking for more cards than are present raises ``NotEnoughDevices``.
-    After ``initialize_distributed``, with no ``n_devices``, the mesh spans
-    every process (``make_hybrid_mesh``)."""
+def make_mesh(n_devices: int | None = None, n_clusters: int = 1, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
+    """A ("clusters", "data") mesh over the first ``n_devices`` cards (all
+    of them by default), or over ``devices``; ``device="cpu"`` gives
+    ``n_devices`` logical shards on the CPU.  The clusters axis takes
+    ``_cluster_ways(n_clusters, N)`` ways, the data axis the rest, the
+    devices laid out cluster-major.  It never falls back to fewer cards or
+    to the CPU: asking for more cards than are present raises
+    ``NotEnoughDevices``.  After ``initialize_distributed``, with no
+    ``n_devices``, the mesh spans every process (``make_hybrid_mesh``)."""
     import torch.distributed as dist
 
     if n_devices is None and dist.is_available() and dist.is_initialized():
-        return make_hybrid_mesh(device=device, devices=devices)
+        return make_hybrid_mesh(n_clusters, device=device, devices=devices)
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"devices={n_devices}: need at least one device")
     devs = [resolve_device(d) for d in devices] if devices is not None else _devices(n_devices, device)
-    return Mesh(tuple(devs))
+    return Mesh(tuple(devs), clusters=_cluster_ways(n_clusters, len(devs)))
 
 
-def make_hybrid_mesh(device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
-    """A mesh over every process of the process group, processes outermost
-    on the data axis: this process's shards are its local ``devices``, by
-    default its own card (``LOCAL_RANK``; one process per card) or one CPU.
-    A process that drives several cards names them in ``devices``."""
+def make_hybrid_mesh(n_clusters: int = 1, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
+    """A ("clusters", "data") mesh over every process of the process group:
+    the clusters axis over this process's local ``devices``
+    (``_cluster_ways(n_clusters, L)`` ways), the data axis over the rest
+    of them and across processes, processes outermost.  The local devices
+    are by default this process's own card (``LOCAL_RANK``; one process
+    per card) or one CPU; a process that drives several cards names them
+    in ``devices``."""
     import torch.distributed as dist
 
     if devices is not None:
@@ -165,4 +194,5 @@ def make_hybrid_mesh(device: "str | torch.device" = "cuda", devices: list | None
         devs = [torch.device("cpu")]
     else:
         devs = [_local_card()]
-    return Mesh(tuple(devs), process_count=dist.get_world_size(), process_index=dist.get_rank(), distributed=True)
+    return Mesh(tuple(devs), process_count=dist.get_world_size(), process_index=dist.get_rank(), distributed=True,
+                clusters=_cluster_ways(n_clusters, len(devs)))

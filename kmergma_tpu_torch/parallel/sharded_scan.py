@@ -1,6 +1,7 @@
 """The scan sharded over a device mesh (counterpart of
 ``kmergma_tpu.parallel.sharded_scan``): ``ShardedScanEngine`` and
-``ShardedClusterScanEngine``.
+``ShardedClusterScanEngine`` on the mesh's data axis, and the two-axis
+step ``sharded_cluster_scan_step`` on both of its axes.
 
 A record's window axis is cut into n_data contiguous shards of equal span,
 ``rspan``-aligned (the record's windows over the shards, rounded up): data
@@ -23,6 +24,15 @@ at a time, each shard owning ``_seg_spd`` spans of a batch, and each batch's
 packed words are persisted: a killed scan resumes after the last batch
 every shard finished.  The batch grid and the fingerprints are the JAX
 engines'.
+
+``sharded_cluster_scan_step`` shards m profiles over the mesh's "clusters"
+axis, one block a row ("one expert per reference cluster"), and a record's
+overlapped tiles (``make_tiles``) over its "data" axis: device (c, d)
+computes the exact distances of tile block d against profile block c and
+each tile's fixed-capacity candidate buffer, and the buffers are gathered
+over both axes.  The tiles' match counts depend on the codes alone, so a
+device counts them once through K2 (``ops/scan._rows_ab``) for all its
+profiles.
 """
 
 from __future__ import annotations
@@ -34,10 +44,16 @@ from ..ops.reference import RefProfile
 from ..ops.scan import (
     ScanEngine,
     _planned_streams,
+    _rows_ab,
+    _rows_d_from,
+    _sq_norm,
+    check_int32_headroom,
     fit_blocks,
     pack_bitmap_words,
     pad_to_device,
+    profile_lookup,
     resume_segments,
+    rolling_kmer_codes,
     unpack_bitmap_words,
 )
 from ..ops.scan_cluster import ClusterScanEngine
@@ -77,22 +93,29 @@ def _shard_codes(codes: np.ndarray, shard: int, own: int, max_ws: int) -> np.nda
     return codes[lo : lo + own + max_ws - 1]
 
 
-def _all_gather_blocks(mesh: Mesh, local: np.ndarray) -> np.ndarray:
-    """Every process's bool[..., n] block bitmap, joined in process order
-    along the last axis: the packed words cross the process group once
-    (NCCL from the first card, gloo from the CPU)."""
+def _all_gather(mesh: Mesh, local: torch.Tensor) -> list:
+    """Every process's ``local`` (one shape in all of them), in process
+    order: one all-gather over the process group (NCCL from the first card,
+    gloo from the CPU)."""
     import torch.distributed as dist
 
-    n = local.shape[-1]
-    words = np.stack([pack_bitmap_words(row) for row in local.reshape(-1, n)])
     on = mesh.first if dist.get_backend() == "nccl" else torch.device("cpu")
-    mine = torch.from_numpy(words.view(np.int32)).to(on)
+    mine = local.to(on).contiguous()
     parts = [torch.empty_like(mine) for _ in range(mesh.process_count)]
     if on.type == "cuda":
         with torch.cuda.device(on):  # this process's own card in the group
             dist.all_gather(parts, mine)
     else:
         dist.all_gather(parts, mine)
+    return parts
+
+
+def _all_gather_blocks(mesh: Mesh, local: np.ndarray) -> np.ndarray:
+    """Every process's bool[..., n] block bitmap, joined in process order
+    along the last axis: the packed words cross the process group once."""
+    n = local.shape[-1]
+    words = np.stack([pack_bitmap_words(row) for row in local.reshape(-1, n)])
+    parts = _all_gather(mesh, torch.from_numpy(words.view(np.int32)))
     rows = [
         np.stack([unpack_bitmap_words(w, n) for w in p.cpu().numpy().view("<u4")]).reshape(local.shape)
         for p in parts
@@ -318,3 +341,109 @@ class ShardedClusterScanEngine(ClusterScanEngine):
         nws = [int(nw) for nw in n_valids]
         mis = [min(nw - 1, imax) for nw in nws]
         return _planned_streams(self.engines, codes, flats, nws, list(thrs), mis)
+
+
+# ---------------------------------------------------------------------------
+# The two-axis step: profiles over "clusters", genome tiles over "data"
+# ---------------------------------------------------------------------------
+
+
+def make_tiles(codes: np.ndarray, tile_windows: int, ws: int, n_tiles_round: int) -> tuple[np.ndarray, int]:
+    """Cut one record into overlapped tiles of ``tile_windows`` windows each
+    (halo ws - 1), zero-padded, with whole zero tiles up to a multiple of
+    ``n_tiles_round`` for even sharding.
+
+    Returns (tiles int8[n_tiles, tile_windows + ws - 1], n_real_windows)."""
+    n = codes.shape[0]
+    nw = n - ws + 1
+    n_tiles = -(-nw // tile_windows)
+    n_pad_tiles = -(-n_tiles // n_tiles_round) * n_tiles_round
+    tile_len = tile_windows + ws - 1
+    tiles = np.zeros((n_pad_tiles, tile_len), dtype=np.int8)
+    for t in range(n_tiles):
+        lo = t * tile_windows
+        chunk = codes[lo : min(lo + tile_len, n)]
+        tiles[t, : chunk.shape[0]] = chunk
+    return tiles, nw
+
+
+def _tile_candidates(d: torch.Tensor, thr, cap: int) -> tuple:
+    """The candidates of each tile's distances d (int32[T, t]) under one
+    threshold (counterpart of the JAX ``_tile_kernel`` after its distances):
+    (d_first int32[T], count int32[T], idx int32[T, cap], vals int32[T,
+    cap], below_first bool[T], below_last bool[T]).  A window is a
+    candidate where it or the window before it lies below the threshold;
+    idx holds the first min(cap, count) candidates in increasing order,
+    then 0, and vals = d[idx]."""
+    n, t = d.shape
+    below = d < thr
+    mask = below.clone()
+    mask[:, 1:] |= below[:, :-1]
+    # the JAX top_k of score t - p over the candidates: distinct scores,
+    # so the order is the windows' whatever the tie rule
+    score = torch.where(mask, t - torch.arange(t, dtype=torch.int32, device=d.device), 0)
+    top = torch.topk(score, min(cap, t), dim=1).values
+    idx = torch.where(top > 0, t - top, 0)
+    if cap > t:
+        idx = torch.nn.functional.pad(idx, (0, cap - t))
+    vals = torch.gather(d, 1, idx.to(torch.int64))
+    count = mask.sum(dim=1, dtype=torch.int32)
+    return d[:, 0], count, idx.to(torch.int32), vals, below[:, 0], below[:, -1]
+
+
+def sharded_cluster_scan_step(codes_tiles, s_profiles, thr_ints, *, k: int, ws: int, r: int, cap: int, mesh: Mesh) -> tuple:
+    """The two-axis scan step (counterpart of the JAX
+    ``sharded_cluster_scan_step``): profiles sharded over the mesh's
+    "clusters" axis, the tiles over its "data" axis, each tile's
+    candidates (``_tile_candidates``) gathered over both.
+
+    codes_tiles: int8[T, t + ws - 1] (``make_tiles``); s_profiles:
+    int32[m, 4^k]; thr_ints: int32[m] scaled thresholds; numpy arrays or
+    tensors.  m must be a multiple of the clusters ways and T of the data
+    ways.  Returns (d_first int32[m, T], count int32[m, T], idx int32[m, T,
+    cap], vals int32[m, T, cap], below_first bool[m, T], below_last
+    bool[m, T]) on the mesh's first device, the same in every process.
+    Device (c, d) builds the K codes of tile block d once and counts their
+    matches through K2 once, then looks up, sums and picks the candidates
+    for each profile of block c; every device's work is queued before any
+    result is read."""
+    tiles = torch.as_tensor(codes_tiles).cpu()
+    profiles = torch.as_tensor(s_profiles).cpu().to(torch.int32)
+    thrs = torch.as_tensor(thr_ints).cpu().to(torch.int32)
+    n_c, n_d = mesh.shape["clusters"], mesh.shape["data"]
+    m, n_tiles = profiles.shape[0], tiles.shape[0]
+    if m % n_c or thrs.shape[0] != m:
+        raise ValueError(f"{m} profiles ({thrs.shape[0]} thresholds) do not split over {n_c} clusters ways")
+    if n_tiles % n_d:
+        raise ValueError(f"{n_tiles} tiles do not split over {n_d} data ways")
+    t = tiles.shape[1] - ws + 1
+    if t < 1:
+        raise ValueError(f"tiles of {tiles.shape[1]} codes are shorter than the windowsize {ws}")
+    for s in profiles.numpy():
+        check_int32_headroom(s, ws, k, r)
+    w = ws - k + 1
+    m_loc, t_loc = m // n_c, n_tiles // n_d
+    first = mesh.process_index * len(mesh.local_data)
+    pending = []
+    for c, row in enumerate(mesh.rows):
+        block = []
+        for j, dev in enumerate(row):
+            lo = (first + j) * t_loc
+            kc = rolling_kmer_codes(tiles[lo : lo + t_loc].to(dev), k)
+            ab = _rows_ab(kc, w)
+            outs = []
+            for i in range(c * m_loc, (c + 1) * m_loc):
+                s = profiles[i].to(dev)
+                d = _rows_d_from(kc, profile_lookup(kc, s), _sq_norm(s), k, ws, r, ab=ab)
+                outs.append(_tile_candidates(d, thrs[i].to(dev), cap))
+            # one int32 block [m_loc, t_loc, 2 cap + 4] a device
+            block.append(torch.stack([
+                torch.cat([o[0][:, None], o[1][:, None], o[2], o[3], o[4][:, None].int(), o[5][:, None].int()], dim=1)
+                for o in outs
+            ]))
+        pending.append(block)
+    packed = torch.cat([torch.cat([b.to(mesh.first) for b in block], dim=1) for block in pending], dim=0)
+    if mesh.distributed:  # the data axis runs across processes, processes outermost
+        packed = torch.cat(_all_gather(mesh, packed), dim=1).to(mesh.first)
+    return (packed[..., 0], packed[..., 1], packed[..., 2 : 2 + cap], packed[..., 2 + cap : 2 + 2 * cap],
+            packed[..., 2 + 2 * cap].bool(), packed[..., 3 + 2 * cap].bool())

@@ -2,7 +2,7 @@
 and tests/test_torch_tp.py on the CPU, tests/test_torch_multicard.py on the
 cards).
 
-    python tests/_torch_multihost_worker.py <port> <process id> <processes> [cpu|cuda] [sharded|tp]
+    python tests/_torch_multihost_worker.py <port> <process id> <processes> [cpu|cuda] [sharded|tp|two_axis]
 
 Joins a process group on localhost (gloo for ``cpu``, the default; NCCL
 for ``cuda``) and builds the mesh over every process (two logical CPU
@@ -11,8 +11,10 @@ outermost on the data axis).  Mode ``sharded`` (the default) holds the
 sharded single-profile and cluster engines' streams, one pass and segment
 batches, bit-identical to the one-device engines' on the same record;
 mode ``tp`` holds ``TPScanEngine``'s streams, its table sharded over the
-processes, and the miner's own route to it at k = 10.  Imports only the
-port.
+processes, and the miner's own route to it at k = 10; mode ``two_axis``
+holds ``sharded_cluster_scan_step`` on a hybrid mesh with two clusters
+ways (two logical shards of each process's device, the data axis across
+the processes) to one device's outputs.  Imports only the port.
 """
 
 import os
@@ -120,6 +122,28 @@ def tp_checks(mesh, dev) -> None:
     assert [h.description for h in got.hits] == [h.description for h in want.hits] and len(want.hits) == 2
 
 
+def two_axis_checks(dev) -> None:
+    """The two-axis step on a hybrid (clusters 2 x data 2) mesh against
+    the step on this process's device alone, on the same inputs in every
+    process."""
+    from kmergma_tpu_torch.ops.scan_host import scan_window_distances_np_i64
+    from kmergma_tpu_torch.parallel.mesh import Mesh, make_hybrid_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import make_tiles, sharded_cluster_scan_step
+
+    rng = np.random.default_rng(5)
+    k, ws, r, cap, t = 6, 64, 4, 16, 32
+    codes = rng.integers(0, 4, 9 * t + ws + 10, dtype=np.int8)
+    s = rng.integers(0, 8, (4, 4**k)).astype(np.int32)
+    thr = np.array([np.percentile(scan_window_distances_np_i64(codes, p, k, ws, r), 10) for p in s], dtype=np.int32)
+    mesh = make_hybrid_mesh(n_clusters=2, devices=[dev, dev])
+    assert mesh.shape == {"clusters": 2, "data": 2} and mesh.distributed, mesh.shape
+    tiles, _ = make_tiles(codes, t, ws, mesh.shape["data"])
+    got = sharded_cluster_scan_step(tiles, s, thr, k=k, ws=ws, r=r, cap=cap, mesh=mesh)
+    want = sharded_cluster_scan_step(tiles, s, thr, k=k, ws=ws, r=r, cap=cap, mesh=Mesh((dev,)))
+    assert all(a.device == dev and a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    assert int(want[1].sum()) > 0 and got[0].shape == (4, tiles.shape[0])
+
+
 def main() -> None:
     port, pid, nproc = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
     kind = sys.argv[4] if len(sys.argv) > 4 else "cpu"
@@ -140,6 +164,8 @@ def main() -> None:
 
     if mode == "tp":
         tp_checks(mesh, dev)
+    elif mode == "two_axis":
+        two_axis_checks(dev)
     else:
         sharded_checks(mesh, dev, pid)
 

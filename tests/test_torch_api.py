@@ -142,6 +142,13 @@ def test_port_never_imports_jax(mini_genome, ref_fasta):
         f"hits = kt.strobemer_find_genes({mini_genome!r}, {ref_fasta!r}, verbose=False, device='cpu')[0]\n"
         "assert len(hits) == 3, hits\n"
         "assert kt.exact_match('ACG', b'TTACGTTACG' * 120_000, device='cpu')[:2] == [(3, 5), (8, 10)]\n"
+        "import numpy as np\n"
+        "from kmergma_tpu_torch.parallel import make_mesh, make_tiles, sharded_cluster_scan_step\n"
+        "tiles, _ = make_tiles(np.random.default_rng(0).integers(0, 4, 400, dtype=np.int8), 32, 64, 2)\n"
+        "s = np.random.default_rng(1).integers(0, 8, (2, 4096)).astype(np.int32)\n"
+        "out = sharded_cluster_scan_step(tiles, s, np.full(2, 2**30, np.int32), k=6, ws=64, r=4, cap=8,\n"
+        "                                mesh=make_mesh(4, n_clusters=2, device='cpu'))\n"
+        "assert out[2].shape == (2, tiles.shape[0], 8)\n"
         "import kmergma_tpu_torch.bench, kmergma_tpu_torch.utils.cli\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'kmergma_tpu') or m.startswith(('jax.', 'jaxlib', 'kmergma_tpu.')))\n"
         "assert not bad, bad\n"
@@ -274,7 +281,7 @@ def test_chip_smoke_phases_on_cpu(capsys):
     """chip_smoke.run drives every phase of every path (single profile,
     cluster mode, strobemers, the device aligner, checkpoint/resume of the
     three miners, long records and shards, the profile-sharded engine, the
-    paired spectrum, the mixed-depth cluster set, the bench), the
+    two-axis step, the paired spectrum, the mixed-depth cluster set, the bench), the
     stage breakdowns and the busy shares included, on CPU tensors at a
     small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
@@ -285,18 +292,19 @@ def test_chip_smoke_phases_on_cpu(capsys):
     spec.loader.exec_module(cs)
     bench_sizes = dict(n_mbp=0.5, dense_mbp=0.5, k10_mbp=0.2, strobe_mbp=0.1, g3_mbp=1.0, g3_rec_mbp=0.5)
     report = cs.run("cpu", contig_bp=100_000, n_contigs=3, plant_every=50_000, whole_bp=20_000, runs=1, label="cpu",
-                    bench_sizes=bench_sizes, fragments=8, long_bp=200_000, long_chunk=8192, max_k=11)
+                    bench_sizes=bench_sizes, fragments=8, long_bp=200_000, long_chunk=8192, max_k=11,
+                    two_axis_tile=4096)
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
         "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome", "align_dp",
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "long_path_launches"}
+            "long_path_launches", "two_axis_launches"}
     # each median time with its fastest window beside it; K1's and K3's stages on the card; device
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
     extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
-             "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed"}
+             "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed", "two_axis"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
@@ -314,6 +322,11 @@ def test_chip_smoke_phases_on_cpu(capsys):
     k2 = next(k for k in report["kernels"] if k["name"] == "match_counts")
     k6 = next(k for k in report["kernels"] if k["name"] == "pair_ab_from_kcodes")
     assert k2["whole_record"]["rows"] > 0 and k6["prefix_depth"]["depth"] == 14
+    # the two-axis step on four meshes in both threshold cases against the int64 host oracle, K2 at its shape, and
+    # the hybrid mesh over a one-rank group
+    assert k2["two_axis"]["rows"] == 25 and k2["two_axis"]["max_abs_err"] == 0
+    assert out.count("two-axis step, thresholds ") == 2 and out.count("all six outputs equal the int64 host oracle's") == 2
+    assert "(2 x 1) hybrid mesh over a one-rank process group (gloo)" in out
     assert all(k["launches"] == 0 and k["max_abs_err"] == 0 for k in report["kernels"])
     assert all(k["replaces"].startswith(("kmergma_tpu/", "bench.py:")) and (_ROOT / k["source"]).exists() for k in report["kernels"])
     assert all(k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations") for k in report["kernels"])

@@ -77,9 +77,9 @@ def _same(got, want) -> None:
 
 def test_mesh_shapes():
     m = make_mesh(8, device="cpu")
-    assert m.shape == {"data": 8} and m.local_data == [torch.device("cpu")] * 8
+    assert m.shape == {"clusters": 1, "data": 8} and m.local_data == [torch.device("cpu")] * 8
     m = make_mesh(devices=["cpu"] * 3)
-    assert m.shape == {"data": 3} and not m.distributed and m.first == torch.device("cpu")
+    assert m.shape == {"clusters": 1, "data": 3} and not m.distributed and m.first == torch.device("cpu")
 
 
 def test_mesh_never_falls_back(monkeypatch):
@@ -114,7 +114,7 @@ def test_hybrid_mesh_takes_the_process_card(monkeypatch, local_rank):
         monkeypatch.setenv("LOCAL_RANK", local_rank)
     m = make_hybrid_mesh()
     assert m.local_data == [torch.device("cuda", 2 if local_rank else 1)]
-    assert m.shape == {"data": 8} and m.process_index == 5 and m.distributed
+    assert m.shape == {"clusters": 1, "data": 8} and m.process_index == 5 and m.distributed
     assert make_hybrid_mesh(device="cpu").local_data == [torch.device("cpu")]
 
 
