@@ -35,6 +35,16 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   on int32 strobe codes at s = 3, the strobe goldens through ``strobemer_find_genes``,
   then the same genome mined against an int64 host oracle of the strobe
   recurrence, and where one call's wall goes;
+* R1, the planned record's run reduce (``run_reduce_multi``: the below
+  mask and the segmented (min, first-argmin) scan of every profile of a
+  planned pass in one call): its launches in each path's run (one call a
+  planned pass, all six clusters in it), then against its plain twin,
+  the torch chain it replaced, on the inputs captured from a planned
+  pass of the single-profile, cluster, fragmented and strobe cells'
+  calls (wrapper and device times beside the chain's) and on the
+  edge cases of ``tests/_r1_cases.py``; every profiled call's device
+  time beside the same call's before R1, with no scatter or gather
+  kernel in it;
 * the device aligner: A1 (``align_dp``, ``align_cigar``) against its
   plain twins on the card (scores, JAX runs, run counts, endpoints, CIGAR
   runs, their counts) on the windows the single-profile and strobe API
@@ -109,9 +119,12 @@ times are CUDA events over back-to-back launches after a warm-up, the
 median of five windows with the fastest beside it.
 
 ``python3 chip_smoke.py --pair-kernels`` times K2, K4, K6 and K5 alone
-at those shapes (one JSON line); a copy of this file placed in the root of
-an earlier checkout times that checkout's kernels the same way.  It is
-the parent-against-change tool of the pair kernels' redesigns.
+at those shapes, then the planned pass's engine calls (single, cluster,
+strobe and 64 fragments: wall and device ms) and the three API calls'
+walls on the 64 Mbp genome (one JSON line); a copy of
+this file placed in the root of an earlier checkout times that
+checkout's kernels the same way.  It is the parent-against-change tool
+of the pair kernels' redesigns and of R1.
 ``python3 chip_smoke.py --tp-cards`` runs the profile-sharded engine's
 phase alone, on a host with four cards; ``--mesh-cards`` the two-axis
 step's phase alone there, its four-device meshes over the four cards.  No
@@ -482,7 +495,7 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, devic
     names = [
         "FASTA parse (as_records)", "reference profile (gen_ref_ws_cons)", "threshold estimate",
         "ScanEngine set-up (S to the device)", "H2D from pinned staging, tail zeroed on the device (prepare_codes)",
-        "planned pass: K1 + plan + K2 + run reduce + D2H", "  of which K1 bitmap alone (incl. l0, bases)",
+        "planned pass: K1 + plan + K2 + R1 + D2H", "  of which K1 bitmap alone (incl. l0, bases)",
         "replay (replay_single)", "alignment (semiglobal_align_batch)",
     ]
     runs = []
@@ -509,7 +522,8 @@ def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, devic
                 ms[names[8]] += t
         runs.append(ms)
     print_breakdown("find_genes", names, runs, wall_s, label, skip=(6,))
-    device_share("find_genes", lambda: kt.find_genes(str(fasta), REF, verbose=False, device=device), sync, device, label)
+    device_share("find_genes", lambda: kt.find_genes(str(fasta), REF, verbose=False, device=device), sync, device, label,
+                 before_ms=6.472)
 
 
 def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
@@ -590,7 +604,7 @@ def strobe_stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync
         "FASTA parse (as_records)", "strobe profile (gen_strobe_ref_ws_cons)",
         "H2D of int8 genome codes + strobe extraction on the device", "StrobeSpanEngine set-up (S - r e_x to the device)",
         "device zero-padding of the strobe codes (prepare_codes)",
-        "planned pass: K4r exact bitmap + plan + K2 + run reduce + D2H", "  of which the K4r exact bitmap alone",
+        "planned pass: K4r exact bitmap + plan + K2 + R1 + D2H", "  of which the K4r exact bitmap alone",
         "replay (replay_single)", "alignment (align_hits_batch, -69/-5)",
     ]
     runs = []
@@ -619,14 +633,18 @@ def strobe_stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync
         runs.append(ms)
     print_breakdown("strobemer_find_genes", names, runs, wall_s, label, skip=(6,))
     device_share("strobemer_find_genes", lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, device=device),
-                 sync, device, label)
+                 sync, device, label, before_ms=22.754)
 
 
-def device_share(what: str, call, sync, device, label: str) -> None:
+def device_share(what: str, call, sync, device, label: str, before_ms: float | None = None) -> None:
     """Run ``call`` under torch.profiler, after a first profiled call that
     only starts the tracer, and print the device's busy time (the union of
     its kernel, copy and fill intervals) and the wall, both from that one
-    call, with the ten largest device totals by name."""
+    call, with the ten largest device totals by name; ``before_ms`` is the
+    same call's busy time at commit 3cc3093, before R1, when two
+    ``scatter_reduce_`` passes a profile did the run reduce (NVIDIA H100
+    80GB HBM3, 700.00 W), printed beside.  Every such call runs a planned pass, whose
+    run reduce is R1 now: a scatter or gather kernel in it fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -646,7 +664,8 @@ def device_share(what: str, call, sync, device, label: str) -> None:
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    print(f"profiled {what} call: wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+    before = "" if before_ms is None else f", before R1 (3cc3093) {before_ms:.3f} ms"
+    print(f"profiled {what} call: wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms{before} "
           f"(union of {len(dev_events)} device intervals), busy share {busy_us / 1e3 / wall_ms:.4f}, "
           f"idle share {1 - busy_us / 1e3 / wall_ms:.4f} [{label}]")
     totals: dict = {}
@@ -655,6 +674,8 @@ def device_share(what: str, call, sync, device, label: str) -> None:
         totals[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
     for name, (n, t) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"  device: {t / 1e3:9.3f} ms in {n:4d} x {name[:90]}")
+    scatter = [name[:90] for name in totals if "scatter_gather" in name]
+    require(not scatter, f"the profiled {what} call ran a scatter/gather kernel: {scatter}")
 
 
 def timed_calls(call, sync, runs: int) -> tuple[list, object]:
@@ -680,7 +701,7 @@ class Launches:
         from kmergma_tpu_torch.bench import hash_genome
         from kmergma_tpu_torch.ops.align_device import align_dp
         from kmergma_tpu_torch.ops.scan_kernels import (
-            codes_pair_ab_kcodes, codes_pair_multi, match_counts, pair_ab_from_kcodes,
+            codes_pair_ab_kcodes, codes_pair_multi, match_counts, pair_ab_from_kcodes, run_reduce_multi,
         )
 
         self.wrappers = {
@@ -688,7 +709,7 @@ class Launches:
             "fused_cluster_record_bitmaps": fused_cluster_record_bitmaps,
             "codes_pair_multi": codes_pair_multi, "lookup_roundtrip": lookup_roundtrip,
             "codes_pair_ab_kcodes": codes_pair_ab_kcodes, "pair_ab_from_kcodes": pair_ab_from_kcodes,
-            "hash_genome": hash_genome, "align_dp": align_dp,
+            "hash_genome": hash_genome, "align_dp": align_dp, "run_reduce_multi": run_reduce_multi,
         }
 
     def reset(self) -> None:
@@ -712,6 +733,141 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, l
             row[key] = getattr(value, "min", float(value))
     row.update(extra)
     return row
+
+
+class R1Capture:
+    """Keeps the inputs of the largest R1 call (``run_reduce_multi``, by
+    region rows) made during one captured call of an entry point, and the
+    profiles of each R1 call then; the kernel itself still runs."""
+
+    def __init__(self):
+        from kmergma_tpu_torch.ops import scan_kernels
+
+        self.module, self.real = scan_kernels, scan_kernels.run_reduce_multi
+        self.args, self.profiles, self.done = None, [], False
+
+    def _spy(self, ds, starts, nvrs, thrs, nws, mis, buckets):
+        self.profiles.append(len(ds))
+        if self.args is None or sum(d.shape[0] for d in ds) > sum(d.shape[0] for d in self.args[0]):
+            self.args = ([d.clone() for d in ds], [x.clone() for x in starts], [x.clone() for x in nvrs],
+                         list(thrs), list(nws), list(mis), list(buckets))
+        return self.real(ds, starts, nvrs, thrs, nws, mis, buckets)
+
+    def once(self, call):
+        """``call``, its first run captured."""
+        def wrapped():
+            if self.done:
+                return call()
+            self.done = True
+            self.module.run_reduce_multi = self._spy
+            try:
+                return call()
+            finally:
+                self.module.run_reduce_multi = self.real
+        return wrapped
+
+
+#: 32-bit operations R1's function does a region window: the mask's four
+#: compares and three ands, the rise and fall tests (two each) and the
+#: segmented scan's combine (a compare, an or, two selects and an add)
+R1_OPS_PER_WINDOW = 16
+
+
+def r1_io(args) -> tuple[int, int]:
+    """(bytes, operations) of R1's function on one call's inputs: each
+    profile's distances, starts and region count read once and its part of
+    the output written once; ``R1_OPS_PER_WINDOW`` a region window."""
+    from kmergma_tpu_torch.ops.scan_kernels import run_reduce_size
+
+    ds, starts, _nvrs, _thrs, _nws, _mis, buckets = args
+    n_win = sum(d.numel() for d in ds)
+    n_bytes = 4 * n_win + sum(8 * x.numel() + 4 for x in starts) + 4 * sum(run_reduce_size(R) for R in buckets)
+    return n_bytes, R1_OPS_PER_WINDOW * n_win
+
+
+def r1_measure(args, on_card: bool, what: str, label: str) -> dict:
+    """R1 against its plain twin (the torch chain it replaced) on one
+    captured call's inputs: wrapper ms by CUDA events back to back
+    (``kernel_ms``), R1's device ms queued behind a spin, both sides'
+    device ms summed by torch.profiler (the twin's tens of launches a
+    profile cannot be queued ahead of the card), the bound, the error."""
+    from kmergma_tpu_torch.ops.scan_kernels import _run_reduce_multi_plain, run_reduce_multi, run_reduce_size
+
+    ms, got = kernel_ms(lambda: run_reduce_multi(*args), on_card)
+    plain_ms, want = kernel_ms(lambda: _run_reduce_multi_plain(*args), on_card, reps=5)
+    err = max_err((got, want))
+    io = r1_io(args)
+    host = got.cpu().numpy()
+    offs = [0]
+    for R in args[6]:
+        offs.append(offs[-1] + run_reduce_size(R))
+    row = {"profiles": len(args[0]), "rows": [d.shape[0] for d in args[0]], "rspan": args[0][0].shape[1],
+           "run_buckets": list(args[6]), "n_runs": [int(host[o + 2]) for o in offs[:-1]],
+           "ms": float(ms), "ms_min": ms.min, "plain_ms": float(plain_ms), "plain_ms_min": plain_ms.min,
+           "bound_ms": bound(*io)[0], "bound_by": bound(*io)[1], "max_abs_err": err,
+           "device_ms": None, "device_profiled_ms": None, "plain_device_profiled_ms": None}
+    if on_card:
+        row["device_ms"] = queued_device_ms(lambda: run_reduce_multi(*args))
+        row["device_profiled_ms"], _ = device_ms_per_call(lambda: run_reduce_multi(*args))
+        row["plain_device_profiled_ms"], _ = device_ms_per_call(lambda: _run_reduce_multi_plain(*args))
+    dev = "" if not on_card else (f", device {row['device_ms']:.5f} ms (profiled {row['device_profiled_ms']:.5f}); "
+                                  f"the torch chain profiled {row['plain_device_profiled_ms']:.5f} ms")
+    print(f"R1 run_reduce_multi on the {what} cell's captured planned pass ({row['profiles']} profiles, "
+          f"{sum(row['rows'])} region rows of {row['rspan']}, runs {row['n_runs']}): {ms:.4f} ms (fastest window "
+          f"{ms.min:.4f}){dev}, the torch chain {plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+          f"bit-identical={err == 0} [{label}]")
+    require(err == 0, f"R1 differs from its plain twin on the {what} cell's inputs")
+    return {**row, "io": io, "ms_obj": ms, "plain_ms_obj": plain_ms}
+
+
+def r1_synthetic(device, label: str) -> tuple[int, int]:
+    """(max_abs_err, calls) of R1 against its twin on the edge cases of
+    ``tests/_r1_cases.py`` (runs over three and more adjacent regions,
+    border flags on rows that do not touch, rows past nvr, mi cuts, ties,
+    n_runs over R, nvr over the region bucket, one row, 6 and 32 profiles
+    of different region counts), each one call, and all single-profile
+    cases in one call, at rows of 1,024 and of 64 windows."""
+    import importlib.util
+
+    import torch
+
+    from kmergma_tpu_torch.ops.scan_kernels import _run_reduce_multi_plain, run_reduce_multi
+
+    spec = importlib.util.spec_from_file_location("_r1_cases", ROOT / "tests" / "_r1_cases.py")
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    calls = []
+    for rspan in (1024, 64):
+        per_case = [cases.r1_case(name, rspan=rspan, seed=4) for name in cases.R1_CASES]
+        calls += per_case + [[p for profiles in per_case if len(profiles) == 1 for p in profiles]]
+    err = 0
+    for profiles in calls:
+        args = ([torch.from_numpy(p["d"]).to(device) for p in profiles],
+                [torch.from_numpy(p["starts"]).to(device) for p in profiles],
+                [torch.tensor(p["nvr"], dtype=torch.int32, device=device) for p in profiles],
+                [p["thr"] for p in profiles], [p["nw"] for p in profiles], [p["mi"] for p in profiles],
+                [p["R"] for p in profiles])
+        err = max(err, max_err((run_reduce_multi(*args), _run_reduce_multi_plain(*args))))
+    print(f"R1 on {len(calls)} synthetic calls ({', '.join(cases.R1_CASES)}; each case one call and the "
+          f"single-profile ones together, rows of 1,024 and 64 windows): max_abs_err {err} against the twin [{label}]")
+    require(err == 0, "R1 differs from its plain twin on a synthetic case")
+    return err, len(calls)
+
+
+def r1_phase(ctx) -> dict:
+    """R1's row: against its twin on the inputs captured from the single,
+    cluster, fragmented and strobe cells' real calls and on the synthetic
+    cases; ``launches`` from the single-profile path, each phase's count in
+    ``phase_launches``."""
+    on_card, label = ctx["on_card"], ctx["label"]
+    meas = {what: r1_measure(args, on_card, what, label) for what, args in ctx["r1_inputs"].items()}
+    syn_err, n_calls = r1_synthetic(ctx["device"], label)
+    err = max(syn_err, *(m["max_abs_err"] for m in meas.values()))
+    single = meas["single"]
+    shapes = {what: {k: v for k, v in m.items() if k not in ("io", "ms_obj", "plain_ms_obj")} for what, m in meas.items()}
+    return entry("run_reduce_multi", "run_reduce.cu", "kmergma_tpu/ops/scan.py:620", ctx["r1_launches"]["single"], err,
+                 single["ms_obj"], single["plain_ms_obj"], *single["io"], device_ms=single["device_ms"], shapes=shapes,
+                 phase_launches=ctx["r1_launches"], synthetic_calls=n_calls)
 
 
 def single_profile_phase(ctx) -> list:
@@ -807,13 +963,16 @@ def single_profile_phase(ctx) -> list:
 
     # --- the main path at size: find_genes on the synthetic genome ----------
     fasta, total_bp = ctx["fasta"], ctx["total_bp"]
+    cap = R1Capture()
     ctx["launches"].reset()
     times, out = timed_calls(
-        lambda: kt.find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device), sync, runs
+        cap.once(lambda: kt.find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device)), sync, runs
     )
     hits = out[0]
     ctx["uninterrupted"]["single"] = out
     launches = ctx["launches"].read()
+    require(cap.args is not None, "find_genes made no R1 call")
+    ctx["r1_inputs"]["single"], ctx["r1_launches"]["single"] = cap.args, launches["run_reduce_multi"]
     t_med = statistics.median(times)
     print(
         f"find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
@@ -831,8 +990,8 @@ def single_profile_phase(ctx) -> list:
     )
     print(f"hits equal the host oracle's; launch counts over the {runs + 1} runs: {launches}")
     if on_card:
-        require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0,
-                f"a kernel of the single-profile path never launched: {launches}")
+        require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0
+                and launches["run_reduce_multi"] > 0, f"a kernel of the single-profile path never launched: {launches}")
     return [
         entry("fused_record_bitmaps", "fused_cluster_bitmaps.cu", "kmergma_tpu/ops/scan_fused.py:165",
               launches["fused_record_bitmaps"], k1_err, k1_ms, k1_plain_ms, *k1_io, stages_ms=k1_stages),
@@ -1048,14 +1207,21 @@ def cluster_phase(ctx) -> list:
     ctotal = sum(c.shape[0] for c in ccontigs)
     fasta = ctx["cluster_fasta"]
     write_fasta(fasta, ccontigs)
+    cap = R1Capture()
     ctx["launches"].reset()
     times, out = timed_calls(
-        lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device),
+        cap.once(lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device)),
         sync, runs,
     )
     chits = out[0]
     ctx["uninterrupted"]["cluster"] = out
     claunches = ctx["launches"].read()
+    # one R1 call a planned pass carries every cluster: the first pass of each record holds all m
+    require(cap.args is not None and cap.profiles.count(m) >= len(ccontigs),
+            f"the cluster call's R1 calls held {cap.profiles} profiles, not all {m} clusters once a record")
+    ctx["r1_inputs"]["cluster"], ctx["r1_launches"]["cluster"] = cap.args, claunches["run_reduce_multi"]
+    print(f"cluster mode: R1 calls of one find_genes_cluster_mode call held {cap.profiles} profiles ({len(ccontigs)} "
+          f"records, {m} clusters) [{label}]")
     t_med = statistics.median(times)
     print(
         f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
@@ -1068,7 +1234,8 @@ def cluster_phase(ctx) -> list:
           f"{len(coracle.hits)} hits [{label}]")
     cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
     device_share("find_genes_cluster_mode",
-                 lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, device, label)
+                 lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, device, label,
+                 before_ms=30.611)
     require(len(chits) > 0, "no cluster hits on the planted genome")
     require(
         [(h.description, h.seq) for h in chits] == [(h.description, h.seq) for h in coracle.hits],
@@ -1076,8 +1243,8 @@ def cluster_phase(ctx) -> list:
     )
     print(f"cluster hits equal the host oracle's; launch counts over the {runs + 1} runs: {claunches}")
     if on_card:
-        missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts")
-                   if claunches[n] == 0]
+        missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts",
+                               "run_reduce_multi") if claunches[n] == 0]
         require(not missing, f"a kernel of the cluster path never launched: {claunches}")
     frag = fragmented_phase(ctx, short_contig)
     return [
@@ -1176,14 +1343,17 @@ def strobe_phase(ctx) -> list:
 
     # --- the strobe path at size ------------------------------------------------
     fasta, total_bp = ctx["fasta"], ctx["total_bp"]
+    cap = R1Capture()
     ctx["launches"].reset()
     times, out = timed_calls(
-        lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device),
+        cap.once(lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device)),
         sync, runs,
     )
     shits = out[0]
     ctx["uninterrupted"]["strobe"] = out
     slaunches = ctx["launches"].read()
+    require(cap.args is not None, "strobemer_find_genes made no R1 call")
+    ctx["r1_inputs"]["strobe"], ctx["r1_launches"]["strobe"] = cap.args, slaunches["run_reduce_multi"]
     t_med = statistics.median(times)
     print(
         f"strobemer_find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
@@ -1203,8 +1373,8 @@ def strobe_phase(ctx) -> list:
     )
     print(f"strobe hits equal the host oracle's; launch counts over the {runs + 1} runs: {slaunches}")
     if on_card:
-        require(slaunches["codes_pair_ab_kcodes"] > 0 and slaunches["match_counts"] > 0,
-                f"a kernel of the strobe path never launched: {slaunches}")
+        require(slaunches["codes_pair_ab_kcodes"] > 0 and slaunches["match_counts"] > 0
+                and slaunches["run_reduce_multi"] > 0, f"a kernel of the strobe path never launched: {slaunches}")
     return [
         entry("codes_pair_ab_kcodes[K4r]", "pair_depth.cu", "kmergma_tpu/ops/scan_pallas.py:329",
               slaunches["codes_pair_ab_kcodes"], k4r_err, k4r_ms, k4r_plain_ms, *k4r_io,
@@ -1414,7 +1584,9 @@ def mixed_depth_phase(ctx) -> list:
         require(len(got[-1][1]) > 0, "no prefix-profile stream entries on a record with planted genes")
         if on_card:
             require(launches["codes_pair_ab_kcodes"] == 1 and launches["pair_ab_from_kcodes"] == len(groups) - 1
-                    and launches["match_counts"] > 0, f"the mixed-depth pass did not run K4, K6 and K2: {launches}")
+                    and launches["match_counts"] > 0 and launches["run_reduce_multi"] > 0,
+                    f"the mixed-depth pass did not run K4, K6, K2 and R1: {launches}")
+    ctx["r1_launches"]["mixed_depth"] = total["run_reduce_multi"]
     k4 = results[("K4", PREFIX_BP - k)]
     k6 = results[("K6", groups[1][1])]
     k6_prefix = results[("K6", PREFIX_BP - k)]
@@ -1564,17 +1736,26 @@ def fragmented_phase(ctx, short_contig) -> dict:
     print(f"fragmented assembly: {n_rec} records of {FRAGMENT_BP} bp through ClusterScanEngine.record_streams: "
           f"{wall_s:.3f} s = {mbps:.2f} Mbp/s, {sum(len(s) for st in streams for _d, s in st)} stream entries; "
           f"launch counts {launches} [{label}]")
+    ctx["r1_launches"]["fragmented"] = launches["run_reduce_multi"]
     if on_card:
         require(launches["codes_pair_multi"] == n_rec and launches["fused_cluster_record_bitmaps"] == 0,
                 f"the fragmented records did not take K5 once each: {launches}")
+        require(launches["run_reduce_multi"] == n_rec,
+                f"the fragmented records did not take one R1 call each, all {len(profiles)} clusters in it: {launches}")
     oracle = HostClusterOracle(profiles, k)
     for i in range(n_oracle):
         require(streams[i] == oracle.minimal_streams(recs[i], cthrs, eng.max_ws),
                 f"fragment {i}'s cluster streams differ from the int64 host oracle")
     require(any(s for st in streams for _d, s in st), "no cluster stream entries on the fragmented genome")
+    # R1's inputs from the planned pass of the first record with stream entries
+    cap = R1Capture()
+    hit = next(i for i, st in enumerate(streams) if any(s for _d, s in st))
+    cap.once(lambda: eng.record_streams(recs[hit], cthrs))()
+    ctx["r1_inputs"]["fragmented"] = cap.args
     print(f"the first {n_oracle} fragments' streams equal the int64 host cluster oracle's [{label}]")
     device_share(f"{n_oracle}-fragment record_streams",
-                 lambda: [eng.record_streams(r, cthrs) for r in recs[:n_oracle]], sync, device, label)
+                 lambda: [eng.record_streams(r, cthrs) for r in recs[:n_oracle]], sync, device, label,
+                 before_ms=167.404 if n_oracle == ORACLE_FRAGMENTS else None)
     passes = {str(n_bp): split_pass_profile(profiles, k, codes, cthrs, device, on_card, label)
               for n_bp, codes in ((FRAGMENT_BP, recs[0]), (SHORT_CONTIG_BP, short_contig))}
     return {"records": n_rec, "record_bp": FRAGMENT_BP, "wall_s": wall_s, "mbps": mbps,
@@ -1824,14 +2005,15 @@ def bench_phase(ctx) -> list:
 
     # --- the device's busy share of the headline and hit-dense rows ----------
     device_share(f"bench headline row ({n_head} bp, record_stream)", lambda: eng.record_stream(genome, rnd["thr"]),
-                 sync, device, label)
+                 sync, device, label, before_ms=8.735)
     dgenome = torch.from_numpy(dense["codes"]).to(device)
 
     def dense_row():
         d0, st, _ = eng.record_stream(dgenome, dense["thr"])
         return replay_single(st, d0, dense["thr"], p.k, p.windowsize, dgenome.shape[0], 50)
 
-    device_share(f"bench hit-dense row ({dgenome.shape[0]} bp, record_stream + replay)", dense_row, sync, device, label)
+    device_share(f"bench hit-dense row ({dgenome.shape[0]} bp, record_stream + replay)", dense_row, sync, device, label,
+                 before_ms=1.835)
     del genome
 
     # --- the dense row: K1 vs its twin, hits against the int64 host engine ----
@@ -2051,8 +2233,8 @@ def long_record_phase(ctx) -> dict:
           f"host engine's over the whole record ({n_host} host stream entries, {time.perf_counter() - t0:.3f} s), one "
           f"straddling the segment boundary [{label}]")
     if on_card:
-        require(seg_launch["fused_record_bitmaps"] == 2 * n_segs and seg_launch["match_counts"] > 0,
-                f"the segmented path did not run K1 once a segment and K2: {seg_launch}")
+        require(seg_launch["fused_record_bitmaps"] == 2 * n_segs and seg_launch["match_counts"] > 0
+                and seg_launch["run_reduce_multi"] > 0, f"the segmented path did not run K1 once a segment, K2 and R1: {seg_launch}")
 
     # --- mine_genome on the segmented path: killed after 3 segments, resumed --
     rec = FastaRecord("long", np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes(), _codes=codes)
@@ -2150,10 +2332,11 @@ def long_record_phase(ctx) -> dict:
                      f"{cgot['codes_pair_multi']}, K8 {cgot['lookup_roundtrip']}, K2 {cgot['match_counts']}")
             if on_card:
                 require(cgot["fused_cluster_record_bitmaps"] > 0 and cgot["codes_pair_multi"] > 0
-                        and cgot["lookup_roundtrip"] > 0, f"a kernel of the sharded cluster path never launched: {cgot}")
+                        and cgot["lookup_roundtrip"] > 0 and cgot["run_reduce_multi"] > 0,
+                        f"a kernel of the sharded cluster path never launched: {cgot}")
         print(line + f" [{label}]")
         if on_card:
-            require(got["fused_record_bitmaps"] > 0 and got["match_counts"] > 0,
+            require(got["fused_record_bitmaps"] > 0 and got["match_counts"] > 0 and got["run_reduce_multi"] > 0,
                     f"a kernel of the sharded single-profile path never launched: {got}")
 
     with warnings.catch_warnings():
@@ -2871,16 +3054,102 @@ def build_kernels(label: str) -> None:
                 print(f"  ptxas: {line.strip()}")
 
 
-def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp: int = 4_000_000) -> dict:
+def planned_pass_walls(record, profile, clusters, cthrs, thr: float, device, on_card: bool, label: str,
+                       n_frags: int = ORACLE_FRAGMENTS) -> dict:
+    """The planned pass through engine calls an earlier checkout has too
+    (R1's parent-against-change measure): one ``ScanEngine.record_stream``,
+    ``ClusterScanEngine.record_streams`` and strobe ``StrobeSpanEngine
+    .record_stream`` of ``record`` already on the card (``codes_dev``: the
+    bitmap pass, the planned pass and its copy back), and ``n_frags``
+    fragments of 16 kb cut from it through the cluster engine.  Wall ms a
+    call, host clock between synchronises (median and fastest of five),
+    and on the card device ms a call (torch.profiler, the sum of its
+    device intervals over five calls; one for the fragments, whose 50,000
+    intervals a call the profiler takes minutes to gather five times
+    over).  {name: {ms, ms_min, device_ms}}."""
+    import numpy as np
+    import torch
+
+    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+    eng = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
+    prep = eng.prepare_codes(record)
+    ceng = ClusterScanEngine(clusters.profiles, k=k, device=device)
+    cprep = ceng.prepare_codes(record)
+    sp = gen_strobe_ref_ws_cons(REF)
+    sw, n_steps = sp.windowsize - sp.k, record.shape[0] - sp.windowsize - 1
+    sc = strobe_2_mer_codes_torch(torch.from_numpy(record).to(device), sp.s, sp.w_min, sp.w_max, sp.q)
+    seng = StrobeSpanEngine(sp, int(sc[sw]), device=device)
+    sprep = seng.prepare_codes(sc[: n_steps + sw])
+    n_frags = min(n_frags, record.shape[0] // FRAGMENT_BP)
+    frags = np.ascontiguousarray(record[: n_frags * FRAGMENT_BP].reshape(n_frags, FRAGMENT_BP))
+    calls = {
+        "planned_single": lambda: eng.record_stream(record, thr, codes_dev=prep),
+        "planned_cluster": lambda: ceng.record_streams(record, cthrs, codes_dev=cprep),
+        "planned_strobe": lambda: seng.record_stream(sc[: n_steps + sw], 30.0, codes_dev=sprep),
+        "planned_fragments": lambda: [ceng.record_streams(f, cthrs) for f in frags],
+    }
+    out = {}
+    for name, call in calls.items():
+        call()
+        times = [clock(call, sync)[0] for _ in range(5)]
+        reps = 1 if name == "planned_fragments" else 5
+        row = {"ms": statistics.median(times), "ms_min": min(times),
+               "device_ms": device_ms_per_call(call, reps=reps)[0] if on_card else None}
+        out[name] = row
+        dev = "" if row["device_ms"] is None else f", device {row['device_ms']:.4f} ms"
+        print(f"{name}: {row['ms']:.3f} ms a call (fastest {row['ms_min']:.3f}){dev} [{label}]")
+    frag_bp = n_frags * FRAGMENT_BP
+    out["planned_fragments"]["mbps"] = frag_bp / out["planned_fragments"]["ms"] / 1e3
+    return out
+
+
+def api_walls(contigs, device, on_card: bool, label: str, runs: int = 3) -> dict:
+    """The three API calls on a FASTA of ``contigs`` (the API cells'
+    genome at size): wall ms a call, host clock between synchronises,
+    median and fastest of ``runs`` after a warm-up; the end-to-end side of
+    R1's parent-against-change measure.  {name: {ms, ms_min, device_ms}},
+    device_ms None (``device_share`` reads it in the full run)."""
+    import torch
+
+    import kmergma_tpu_torch as kt
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fasta = str(Path(tmp) / "genome.fasta")
+        write_fasta(Path(fasta), contigs)
+        calls = {
+            "api_single": lambda: kt.find_genes(fasta, REF, verbose=False, device=device),
+            "api_cluster": lambda: kt.find_genes_cluster_mode(fasta, REF, verbose=False, device=device),
+            "api_strobe": lambda: kt.strobemer_find_genes(fasta, REF, verbose=False, device=device),
+        }
+        for name, call in calls.items():
+            times, _ = timed_calls(call, sync, runs)
+            out[name] = {"ms": statistics.median(times) * 1e3, "ms_min": min(times) * 1e3, "device_ms": None}
+            print(f"{name}: {out[name]['ms']:.3f} ms a call (fastest {out[name]['ms_min']:.3f}), "
+                  f"{sum(c.shape[0] for c in contigs)} bp [{label}]")
+    return out
+
+
+def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp: int = 4_000_000, api_runs: int = 3) -> dict:
     """K2, K4, K6 and K5 alone at the shapes the main paths give them
     (``python3 chip_smoke.py --pair-kernels``): the first contig of the
     synthetic genome, K1's bitmap over it for K2's region rows, the
     whole-record scan's rows, the mixed-depth split pass's K4 and K6
     shapes, and the cluster split pass's K5 on its first 60 kb, 16 kb and
-    ``whole_bp``, each against its plain twin.  It calls only the package's
-    public wrappers and engines, so the same script times an earlier
-    checkout of the package: run from a copy of this file placed in that
-    checkout's root.  Returns {shape: {ms, ms_min, device_ms}}."""
+    ``whole_bp``, each against its plain twin; then the planned pass's
+    engine calls (``planned_pass_walls``) and the three API calls on the
+    four-contig genome (``api_walls``, ``api_runs`` timed), R1's measure.  It calls only
+    the package's public wrappers and engines, so the same script times an
+    earlier checkout of the package: run from a copy of this file placed
+    in that checkout's root.  Returns {shape: {ms, ms_min, device_ms}}."""
     import torch
 
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
@@ -2895,7 +3164,8 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     if on_card:
         build_kernels(label)
     profile = gen_ref_ws_cons(REF, 6)
-    record = synthetic_genome(1, contig_bp, 500_000, [rec.codes for rec in as_records(REF)])[0]
+    contigs = synthetic_genome(4, contig_bp, 500_000, [rec.codes for rec in as_records(REF)])
+    record = contigs[0]
     k, ws, r = profile.k, profile.windowsize, profile.n_records
     engine = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
     thr = estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0)
@@ -2918,6 +3188,8 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     ceng = ClusterScanEngine(clusters.profiles, k=6, device=device)
     for n_bp, v in k5_measure(ceng, record, (SHORT_CONTIG_BP, FRAGMENT_BP, whole_bp), on_card, label, time_plain=False).items():
         out[f"K5_{n_bp}bp"] = {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"]}
+    out.update(planned_pass_walls(record, profile, clusters, cthrs, thr, device, on_card, label))
+    out.update(api_walls(contigs, device, on_card, label, runs=api_runs))
     return out
 
 
@@ -2957,14 +3229,14 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         profile=profile, thr=estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0),
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
-        launches=Launches(), bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
+        launches=Launches(), r1_inputs={}, r1_launches={}, bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
         long_bp=long_bp, long_chunk=long_chunk, plant_every=plant_every, max_k=max_k, two_axis_tile=two_axis_tile,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx.update(tmp=Path(tmp), fasta=Path(tmp) / "genome.fasta", cluster_fasta=Path(tmp) / "cluster_genome.fasta",
                    uninterrupted={})
         write_fasta(ctx["fasta"], contigs)
-        kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx)
+        kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx) + [r1_phase(ctx)]
         a1 = aligner_phase(ctx)
         checkpoint_phase(ctx)
         long_launches = long_record_phase(ctx)

@@ -5,13 +5,15 @@ kernel of the cluster split pass (counterpart of ``codes_pair_multi`` and
 ``codes_pair_roll_multi``), and its plain twin; K4/K4r and K6, the pair
 kernel at one width and any depth (counterpart of ``codes_pair_ab_kcodes``,
 ``codes_pair_roll`` and ``pair_ab_from_kcodes``), its plain twins, and the
-lower bounds built on it (``scan_window_lower_bounds_codes``).
+lower bounds built on it (``scan_window_lower_bounds_codes``); R1, the
+planned record's run reduce of every profile in one call
+(``run_reduce_multi``), and its plain twin.
 
-``match_counts``, ``codes_pair_multi``, ``codes_pair_ab_kcodes`` and
-``pair_ab_from_kcodes`` launch the hand-written CUDA kernels
-``csrc/match_counts.cu``, ``csrc/pair_multi.cu`` and ``csrc/pair_depth.cu``
-on CUDA tensors and run their plain PyTorch twins on CPU tensors; any other
-device raises.
+``match_counts``, ``codes_pair_multi``, ``codes_pair_ab_kcodes``,
+``pair_ab_from_kcodes`` and ``run_reduce_multi`` launch the hand-written
+CUDA kernels ``csrc/match_counts.cu``, ``csrc/pair_multi.cu``,
+``csrc/pair_depth.cu`` and ``csrc/run_reduce.cu`` on CUDA tensors and run
+their plain PyTorch twins on CPU tensors; any other device raises.
 
 Source note (K2).  Replaces ``kmergma_tpu/ops/scan_pallas.py::_match_counts_kernel``.
 K2 is the net pair delta at depth w - 1 plus [K[p] == K[p+w]] - 1, so it
@@ -56,6 +58,15 @@ targets in registers: at depth <= 16 (K6's split pass, K4) all of a
 thread's codes sit in registers, about 4 shared loads a position; deeper,
 the columns stream from the staged tile.  Instruction issue binds at every
 depth, above the device-memory bytes even at depth 16.
+
+Source note (R1).  Replaces the below mask of ``_below_and_words`` and the
+segmented (flag, min, first-argmin) scan of ``_device_run_reduce`` in
+``kmergma_tpu/ops/scan.py`` (jitted XLA, no Pallas), which the JAX planned
+dispatch runs for all of a record's profiles at once.  Three launches for
+every profile of the call: a block a region row folds its row, a block a
+profile scans the row folds into each row's first run id and entering
+(min, argmin), and a block a row scans again from that carry and writes
+each run at its fall.  Device memory bounds it: d is read twice.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import functools
 
 import torch
 
+from . import scan
 from .scan import _cumsum32, _first_window_d0, _lower_bound_base, _lower_bounds_from, _pair_ab, profile_lookup, rolling_kmer_codes
 
 
@@ -384,3 +396,98 @@ def scan_window_lower_bounds_codes(codes: torch.Tensor, s_profile: torch.Tensor,
     g = profile_lookup(kc, s_profile)
     l0 = _lower_bound_base(kc, g, s_profile, w, r, depth)
     return _lower_bounds_from(kc, g, l0, w, r, depth, nw, ab=ab)
+
+
+#: R1 takes at most this many profiles a call (the kernel's kMaxProfiles,
+#: cluster mode's ``MAX_CLUSTERS``)
+RUN_REDUCE_MAX_PROFILES = 32
+#: the widest region row R1's block stages in shared memory
+RUN_REDUCE_MAX_RSPAN = 8192
+
+
+def run_reduce_size(run_bucket: int) -> int:
+    """int32 words of one profile's part of ``run_reduce_multi``'s output."""
+    return 3 + 5 * run_bucket
+
+
+def _run_reduce_multi_plain(ds, starts, nvrs, thrs, nws, mis, run_buckets) -> torch.Tensor:
+    """The plain PyTorch twin of R1: per profile the below mask
+    (``scan._below_mask``) and the run reduce (``scan._device_run_reduce``),
+    each profile's part [nvr, d[0, 0], reduce] joined in order."""
+    parts = []
+    for d, st, nvr, thr, nw, mi, R in zip(ds, starts, nvrs, thrs, nws, mis, run_buckets):
+        below = scan._below_mask(d, st, thr, nw, nvr)
+        red = scan._device_run_reduce(d, below, st, d.shape[1], mi, R)
+        parts.append(torch.cat([nvr.view(1), d[0, :1], red]))
+    return torch.cat(parts)
+
+
+def run_reduce_multi(ds: list, starts: list, nvrs: list, thrs: list, nws: list, mis: list, run_buckets: list) -> torch.Tensor:
+    """The planned record's below mask and run reduce for all its profiles
+    in one call.
+
+    Per profile i: ``ds[i]`` int32[n_i, rspan] exact region distances (K2),
+    ``starts[i]`` int64[n_i] region start windows, ``nvrs[i]`` the 0-dim
+    int32 true region count on the device, ``thrs[i]`` the exact integer
+    threshold, ``nws[i]`` the record's windows, ``mis[i]`` the last stream
+    index and ``run_buckets[i]`` its run bucket R_i.  Returns int32[sum of
+    ``run_reduce_size(R_i)``], profile i's part [nvr, d[0, 0], n_runs,
+    run_arg_win[R], run_min[R], edge_win[R], edge_val[R], edge_ok[R]] at
+    the sum of the sizes before it.  Launches R1 on CUDA tensors (three
+    kernels, whatever the number of profiles), the plain twin on CPU
+    tensors."""
+    m = len(ds)
+    if not 1 <= m <= RUN_REDUCE_MAX_PROFILES or not all(len(x) == m for x in (starts, nvrs, thrs, nws, mis, run_buckets)):
+        raise ValueError(f"run_reduce_multi takes 1..{RUN_REDUCE_MAX_PROFILES} profiles with one of each argument, got {m}")
+    rspan = ds[0].shape[1] if ds[0].dim() == 2 else -1
+    for d, st, nvr, R in zip(ds, starts, nvrs, run_buckets):
+        if (d.dim() != 2 or d.dtype != torch.int32 or d.shape[0] < 1 or d.shape[1] != rspan
+                or st.dtype != torch.int64 or st.shape != (d.shape[0],) or nvr.dtype != torch.int32 or nvr.numel() != 1
+                or int(R) < 1):
+            raise ValueError(
+                f"run_reduce_multi wants int32[n >= 1, {rspan}] distances, int64[n] starts, a one-element int32 region "
+                f"count and R >= 1 a profile, got {d.dtype}{tuple(d.shape)}, {st.dtype}{tuple(st.shape)}, "
+                f"{nvr.dtype}{tuple(nvr.shape)}, R {R}"
+            )
+    if not all(-(2**31) <= int(t) < 2**31 for t in thrs):
+        raise ValueError(f"run_reduce_multi: thresholds must fit int32, got {thrs}")
+    dev = ds[0].device
+    if any(t.device != dev for t in (*ds, *starts, *nvrs)):
+        raise ValueError("run_reduce_multi: every tensor must be on one device")
+    if dev.type == "cpu":
+        return _run_reduce_multi_plain(ds, starts, nvrs, thrs, nws, mis, run_buckets)
+    if dev.type != "cuda":
+        raise ValueError(f"run_reduce_multi: unsupported device {dev}")
+    if not 1 <= rspan <= RUN_REDUCE_MAX_RSPAN:
+        raise ValueError(f"run_reduce_multi: region rows of 1..{RUN_REDUCE_MAX_RSPAN} windows, got {rspan}")
+    from .._kernels import check, int_array, load, longlong_array
+
+    lib = load()
+    ds = [d.contiguous() for d in ds]
+    starts = [st.contiguous() for st in starts]
+    sizes = [run_reduce_size(int(R)) for R in run_buckets]
+    out = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    n_rows = sum(d.shape[0] for d in ds)
+    scratch = torch.empty(2 * n_rows, dtype=torch.int64, device=dev)  # one 16-byte fold a row
+    offs = [0]
+    for size in sizes[:-1]:
+        offs.append(offs[-1] + size)
+    ptrs = longlong_array(
+        v for d, st, nvr, off in zip(ds, starts, nvrs, offs)
+        for v in (d.data_ptr(), st.data_ptr(), nvr.data_ptr(), out.data_ptr() + 4 * off)
+    )
+    wins = longlong_array(v for nw, mi in zip(nws, mis) for v in (nw, mi))
+    ints = int_array(v for d, thr, R in zip(ds, thrs, run_buckets) for v in (thr, R, d.shape[0]))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(lib.kmg_run_reduce(m, rspan, ptrs, wins, ints, scratch.data_ptr(), stream), "run_reduce_multi")
+    _R1.launches += 1
+    return out
+
+
+#: R1 wrapper calls (three kernel launches each) since the count was last set to 0
+run_reduce_multi.launches = 0
+#: the wrapper itself: it counts on this name, which a spy that stands in
+#: for ``run_reduce_multi`` in this module (the planned pass imports it at
+#: each call) leaves in place
+_R1 = run_reduce_multi

@@ -297,20 +297,31 @@ def test_chip_smoke_phases_on_cpu(capsys):
     out = capsys.readouterr().out
     assert [k["name"] for k in report["kernels"]] == [
         "fused_record_bitmaps", "match_counts", "fused_cluster_record_bitmaps", "lookup_roundtrip", "codes_pair_multi",
-        "codes_pair_ab_kcodes[K4r]", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome", "align_dp",
+        "codes_pair_ab_kcodes[K4r]", "run_reduce_multi", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes", "hash_genome",
+        "align_dp",
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "long_path_launches", "two_axis_launches"}
     # each median time with its fastest window beside it; K1's and K3's stages on the card; device
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
     extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
-             "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed", "two_axis"}
+             "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed", "two_axis", "phase_launches",
+             "synthetic_calls"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
     assert [k["name"] for k in report["kernels"] if "device_ms" in k] == [
-        "match_counts", "codes_pair_multi", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
+        "match_counts", "codes_pair_multi", "run_reduce_multi", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
     ]
+    # R1 against its twin on the inputs of the four cells' largest planned passes (the cluster and fragmented ones
+    # with all six clusters) and on the synthetic edge cases; its launch count in each phase
+    r1 = next(k for k in report["kernels"] if k["name"] == "run_reduce_multi")
+    assert sorted(r1["shapes"]) == ["cluster", "fragmented", "single", "strobe"]
+    assert r1["shapes"]["cluster"]["profiles"] == r1["shapes"]["fragmented"]["profiles"] == 6
+    assert all(v["max_abs_err"] == 0 and v["bound_ms"] > 0 and sum(v["n_runs"]) > 0 for v in r1["shapes"].values())
+    assert r1["synthetic_calls"] == 24 and sorted(r1["phase_launches"]) == [
+        "cluster", "fragmented", "mixed_depth", "single", "strobe"]
+    assert "max_abs_err 0 against the twin [cpu]" in out
     # K5 at the 60 kb, 16 kb and whole-record shapes, each with its launch shape and bound; the fragmented
     # assembly on the split route with both routes' bitmap passes
     k5 = next(k for k in report["kernels"] if k["name"] == "codes_pair_multi")
@@ -331,7 +342,7 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert all(k["replaces"].startswith(("kmergma_tpu/", "bench.py:")) and (_ROOT / k["source"]).exists() for k in report["kernels"])
     assert all(k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations") for k in report["kernels"])
     assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False, False,
-                                                                        False]
+                                                                        False, False]
     # A1 on the two API cells' hit windows and the batch cut around the planted genes, against its twins and the
     # native DP; the API calls under KMERGMA_ALIGN_DEVICE=1 equal the default ones
     a1 = report["kernels"][-1]
@@ -377,19 +388,21 @@ def test_chip_smoke_phases_on_cpu(capsys):
 
 def test_chip_smoke_pair_kernels_on_cpu(capsys):
     """``chip_smoke.py --pair-kernels`` (K2, K4, K6 and K5 alone at the main
-    paths' shapes, each held against its plain twin) on CPU tensors at a
-    small size: every shape timed, no device time off the card."""
+    paths' shapes, each held against its plain twin, then the planned
+    pass's engine calls and the three API calls) on CPU tensors at a small
+    size: every shape timed, no device time off the card."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000)
+    out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000, api_runs=1)
     assert sorted(out) == [
         "K2_region_rows", "K2_whole_record", "K4_depth14", "K4_depth16", "K5_16000bp", "K5_20000bp", "K5_60000bp",
-        "K6_depth14", "K6_depth16",
+        "K6_depth14", "K6_depth16", "api_cluster", "api_single", "api_strobe", "planned_cluster", "planned_fragments", "planned_single", "planned_strobe",
     ]
     assert all(v["ms"] > 0 and v["ms_min"] <= v["ms"] and v["device_ms"] is None for v in out.values())
+    assert out["planned_fragments"]["mbps"] > 0
     assert "bit-identical=False" not in capsys.readouterr().out
 
 

@@ -35,13 +35,16 @@ from kmergma_tpu_torch.ops.scan_kernels import (
     codes_pair_ab_kcodes,
     codes_pair_multi,
     match_counts,
+    _run_reduce_multi_plain,
     pair_ab_from_kcodes,
+    run_reduce_multi,
     scan_window_distances_kernel,
 )
 from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes
 from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
 
 from ._k5_cases import K5_CASES, k5_case
+from ._r1_cases import R1_CASES, r1_case
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -675,3 +678,51 @@ def test_exact_match_engine_on_card_matches_host(record, cuda_device):
     sub = np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes()
     for q in (sub[1000:1030], sub[5000:5003], sub[7000:7016], sub[9000:9040], b"ACGTN"):
         assert match_starts_engine(sub, q, cuda_device).tolist() == match_starts_np(sub, q).tolist()
+
+
+def _r1_args(profiles, device):
+    return (
+        [torch.from_numpy(p["d"]).to(device) for p in profiles],
+        [torch.from_numpy(p["starts"]).to(device) for p in profiles],
+        [torch.tensor(p["nvr"], dtype=torch.int32, device=device) for p in profiles],
+        [p["thr"] for p in profiles], [p["nw"] for p in profiles], [p["mi"] for p in profiles],
+        [p["R"] for p in profiles],
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rspan", [1024, 64, 40])
+def test_r1_matches_twin_on_card(cuda_device, rspan):
+    """R1 on the edge cases of ``tests/_r1_cases.py``, each one call and
+    all single-profile cases in one call together, equal to its plain twin
+    (the old torch chain); one launch count a call."""
+    singles = [p for name in R1_CASES if name not in ("m6", "m32") for p in r1_case(name, rspan=rspan, seed=3)]
+    for profiles in [r1_case(name, rspan=rspan, seed=3) for name in R1_CASES] + [singles]:
+        run_reduce_multi.launches = 0
+        got = run_reduce_multi(*_r1_args(profiles, cuda_device))
+        torch.cuda.synchronize()
+        assert run_reduce_multi.launches == 1
+        assert torch.equal(got, _run_reduce_multi_plain(*_r1_args(profiles, cuda_device)))
+
+
+@pytest.mark.cuda
+def test_r1_counts_behind_a_spy(cuda_device, monkeypatch):
+    """A spy standing in for ``run_reduce_multi`` in its module (as
+    ``chip_smoke.py`` captures the planned passes' inputs) leaves the count
+    on the wrapper: one a planned pass."""
+    from kmergma_tpu_torch.ops import scan_kernels
+
+    seen = []
+
+    def spy(*args):
+        seen.append(len(args[0]))
+        return run_reduce_multi(*args)
+
+    monkeypatch.setattr(scan_kernels, "run_reduce_multi", spy)
+    p = gen_ref_ws_cons(REF, 6)
+    eng = tscan.ScanEngine(p.sum_kfv, k=6, ws=p.windowsize, r=p.n_records, device=cuda_device)
+    codes = next(iter(as_records(REF))).codes
+    run_reduce_multi.launches = 0
+    eng.record_stream(np.concatenate([codes, codes, codes]), 30.0)
+    assert seen == [1] and run_reduce_multi.launches == 1
+
