@@ -29,6 +29,13 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   records against the int64 host cluster oracle, and one 16 kb and one
   60 kb bitmap pass on both routes: K5's device time against the torch
   glue after it, and K3's route on the same record;
+* many clusters (cluster mode past the 32 profiles one K3 or K8 call
+  takes): ``find_genes_cluster_mode`` on Loci.fasta with 35
+  clusters against the port's CPU path, then 84 clusters through
+  ``ClusterScanEngine`` on the first contig (K3 on three groups of at most
+  32 clusters: six launches) and the short contig (the split pass), the
+  streams against the int64 host cluster oracle; R1's calls and kernel
+  launches a planned pass (one launch a call);
 * strobemers (the Alp_V strobe profile, s 2, w_min 3, w_max 5, q 5): K4r
   (K4 at depth ws - k = 282 over uint8 strobe codes, codes >= 128 present:
   the sliding-histogram route) against its twin, and its depth-loop route
@@ -38,11 +45,12 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
 * R1, the planned record's run reduce (``run_reduce_multi``: the below
   mask and the segmented (min, first-argmin) scan of every profile of a
   planned pass in one call): its launches in each path's run (one call a
-  planned pass, all six clusters in it), then against its plain twin,
-  the torch chain it replaced, on the inputs captured from a planned
-  pass of the single-profile, cluster, fragmented and strobe cells'
-  calls (wrapper and device times beside the chain's) and on the
-  edge cases of ``tests/_r1_cases.py``; every profiled call's device
+  planned pass, all clusters in it; one kernel launch a call), then
+  against its plain twin, the torch chain it replaced, on the inputs
+  captured from a planned pass of the single-profile, cluster,
+  fragmented, strobe and many-clusters (m = 35, 84) cells' calls (wrapper
+  and device times beside the chain's) and on the edge cases of
+  ``tests/_r1_cases.py`` (33 and 84 profiles among them); every profiled call's device
   time beside the same call's before R1, with no scatter or gather
   kernel in it;
 * the device aligner: A1 (``align_dp``, ``align_cigar``) against its
@@ -125,6 +133,10 @@ walls on the 64 Mbp genome (one JSON line); a copy of
 this file placed in the root of an earlier checkout times that
 checkout's kernels the same way.  It is the parent-against-change tool
 of the pair kernels' redesigns and of R1.
+``python3 chip_smoke.py --r1-alone`` builds the kernels (ptxas's lines
+printed) and times R1 alone on captured planned passes at m = 1, 6, a
+fragment's 6, 35 and 84 (one JSON line); run from a copy of the
+checkout with another build of R1, it compares the two.
 ``python3 chip_smoke.py --tp-cards`` runs the profile-sharded engine's
 phase alone, on a host with four cards; ``--mesh-cards`` the two-axis
 step's phase alone there, its four-device meshes over the four cards.  No
@@ -715,9 +727,14 @@ class Launches:
     def reset(self) -> None:
         for fn in self.wrappers.values():
             fn.launches = 0
+        self.wrappers["run_reduce_multi"].kernel_launches = 0
 
     def read(self) -> dict:
-        return {name: fn.launches for name, fn in self.wrappers.items()}
+        """Each wrapper's count, and R1's kernel launches beside its calls
+        (``run_reduce_multi_kernel``: one a call for up to 510 profiles)."""
+        out = {name: fn.launches for name, fn in self.wrappers.items()}
+        out["run_reduce_multi_kernel"] = self.wrappers["run_reduce_multi"].kernel_launches
+        return out
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms=None, **extra) -> dict:
@@ -807,9 +824,11 @@ def r1_measure(args, on_card: bool, what: str, label: str) -> dict:
            "bound_ms": bound(*io)[0], "bound_by": bound(*io)[1], "max_abs_err": err,
            "device_ms": None, "device_profiled_ms": None, "plain_device_profiled_ms": None}
     if on_card:
-        row["device_ms"] = queued_device_ms(lambda: run_reduce_multi(*args))
+        row["device_ms"] = queued_device_ms(lambda: run_reduce_multi(*args), reps=r1_queued_reps(len(args[0])))
         row["device_profiled_ms"], _ = device_ms_per_call(lambda: run_reduce_multi(*args))
-        row["plain_device_profiled_ms"], _ = device_ms_per_call(lambda: _run_reduce_multi_plain(*args))
+        # the chain's tens of launches a profile: fewer profiled calls past a few profiles
+        row["plain_device_profiled_ms"], _ = device_ms_per_call(lambda: _run_reduce_multi_plain(*args),
+                                                                reps=max(1, 20 // len(args[0])))
     dev = "" if not on_card else (f", device {row['device_ms']:.5f} ms (profiled {row['device_profiled_ms']:.5f}); "
                                   f"the torch chain profiled {row['plain_device_profiled_ms']:.5f} ms")
     print(f"R1 run_reduce_multi on the {what} cell's captured planned pass ({row['profiles']} profiles, "
@@ -820,12 +839,20 @@ def r1_measure(args, on_card: bool, what: str, label: str) -> dict:
     return {**row, "io": io, "ms_obj": ms, "plain_ms_obj": plain_ms}
 
 
+def r1_queued_reps(m: int) -> int:
+    """R1 calls of m profiles to queue behind ``queued_device_ms``' spin:
+    the wrapper's host time grows with m (about 6 us a profile), and the
+    queued calls must be issued before the spin ends, or host time enters
+    the interval; 20 calls at m = 1, 2 at m = 84."""
+    return max(2, min(20, 120 // m))
+
+
 def r1_synthetic(device, label: str) -> tuple[int, int]:
     """(max_abs_err, calls) of R1 against its twin on the edge cases of
     ``tests/_r1_cases.py`` (runs over three and more adjacent regions,
     border flags on rows that do not touch, rows past nvr, mi cuts, ties,
-    n_runs over R, nvr over the region bucket, one row, 6 and 32 profiles
-    of different region counts), each one call, and all single-profile
+    n_runs over R, nvr over the region bucket, one row, 6, 32, 33 and 84
+    profiles of different region counts), each one call, and all single-profile
     cases in one call, at rows of 1,024 and of 64 windows."""
     import importlib.util
 
@@ -856,18 +883,20 @@ def r1_synthetic(device, label: str) -> tuple[int, int]:
 
 def r1_phase(ctx) -> dict:
     """R1's row: against its twin on the inputs captured from the single,
-    cluster, fragmented and strobe cells' real calls and on the synthetic
-    cases; ``launches`` from the single-profile path, each phase's count in
-    ``phase_launches``."""
+    cluster, fragmented, strobe and many-clusters (m = 35 and 84) cells'
+    real calls and on the synthetic cases; ``launches`` from the
+    single-profile path, each phase's wrapper calls in ``phase_launches``
+    and its kernel launches in ``kernel_launches``."""
     on_card, label = ctx["on_card"], ctx["label"]
     meas = {what: r1_measure(args, on_card, what, label) for what, args in ctx["r1_inputs"].items()}
     syn_err, n_calls = r1_synthetic(ctx["device"], label)
     err = max(syn_err, *(m["max_abs_err"] for m in meas.values()))
     single = meas["single"]
     shapes = {what: {k: v for k, v in m.items() if k not in ("io", "ms_obj", "plain_ms_obj")} for what, m in meas.items()}
+    print(f"R1 calls a phase {ctx['r1_launches']}, kernel launches a phase {ctx['r1_kernel_launches']} [{label}]")
     return entry("run_reduce_multi", "run_reduce.cu", "kmergma_tpu/ops/scan.py:620", ctx["r1_launches"]["single"], err,
                  single["ms_obj"], single["plain_ms_obj"], *single["io"], device_ms=single["device_ms"], shapes=shapes,
-                 phase_launches=ctx["r1_launches"], synthetic_calls=n_calls)
+                 phase_launches=ctx["r1_launches"], kernel_launches=ctx["r1_kernel_launches"], synthetic_calls=n_calls)
 
 
 def single_profile_phase(ctx) -> list:
@@ -973,6 +1002,7 @@ def single_profile_phase(ctx) -> list:
     launches = ctx["launches"].read()
     require(cap.args is not None, "find_genes made no R1 call")
     ctx["r1_inputs"]["single"], ctx["r1_launches"]["single"] = cap.args, launches["run_reduce_multi"]
+    ctx["r1_kernel_launches"]["single"] = launches["run_reduce_multi_kernel"]
     t_med = statistics.median(times)
     print(
         f"find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
@@ -1220,6 +1250,7 @@ def cluster_phase(ctx) -> list:
     require(cap.args is not None and cap.profiles.count(m) >= len(ccontigs),
             f"the cluster call's R1 calls held {cap.profiles} profiles, not all {m} clusters once a record")
     ctx["r1_inputs"]["cluster"], ctx["r1_launches"]["cluster"] = cap.args, claunches["run_reduce_multi"]
+    ctx["r1_kernel_launches"]["cluster"] = claunches["run_reduce_multi_kernel"]
     print(f"cluster mode: R1 calls of one find_genes_cluster_mode call held {cap.profiles} profiles ({len(ccontigs)} "
           f"records, {m} clusters) [{label}]")
     t_med = statistics.median(times)
@@ -1260,6 +1291,104 @@ def cluster_phase(ctx) -> list:
                       for n_bp, v in k5.items()},
               fragmented=frag),
     ]
+
+
+#: the many-clusters phase's sets: m clusters of the Alp_V references at
+#: k = 6, cut at the midpoints between their sorted distinct distances to
+#: the mean profile: every second one, the first 33, gives 35 (the set on
+#: which the port refused cluster mode before); every one of them, 84
+MANY_CLUSTERS = (35, 84)
+
+
+def many_cluster_sets(m: int):
+    """(cutoffs, clusters) of ``MANY_CLUSTERS``' m."""
+    import numpy as np
+
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
+
+    d = np.unique(np.asarray(cluster_ref_api(REF, 6, get_dists=True).dists))
+    mids = [float(x) for x in (d[1:] + d[:-1]) / 2]
+    cut = mids if m == len(mids) + 2 else mids[::2][: m - 2]
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6, cutoffs=cut))
+    require(len(clusters.profiles) == m, f"the cutoffs gave {len(clusters.profiles)} clusters, not {m}")
+    return cut, clusters
+
+
+def many_clusters_phase(ctx) -> None:
+    """Cluster mode past 32 clusters, which the port refused before:
+    ``find_genes_cluster_mode`` on Loci.fasta with 35 clusters, its hits
+    and loci equal to the port's CPU path; then 84 clusters through
+    ``ClusterScanEngine`` over the first contig (K3, six launches: two for
+    each group of 32 clusters) and the short contig (the split pass), the
+    streams equal to the int64 host cluster oracle's.  R1's inputs at
+    m = 35 and 84 are kept for its row; its calls and kernel launches a
+    planned pass are printed."""
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
+
+    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    m35, m84 = MANY_CLUSTERS
+    cut, clusters = many_cluster_sets(m35)
+    loci = str(DATA / "Loci.fasta")
+    kw = dict(cluster_cutoffs=cut, verbose=False, do_return_hit_loci=True)
+    cap = R1Capture()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ctx["launches"].reset()
+        wall_ms, (hits, hit_loci) = clock(cap.once(lambda: kt.find_genes_cluster_mode(loci, REF, device=device, **kw)), sync)
+        launches = ctx["launches"].read()
+        # on the CPU (the rehearsal) the run above is the CPU path
+        want = kt.find_genes_cluster_mode(loci, REF, device="cpu", **kw) if on_card else (hits, hit_loci)
+    got = ([(h.description, h.seq) for h in hits], hit_loci)
+    require(got == ([(h.description, h.seq) for h in want[0]], want[1]),
+            f"find_genes_cluster_mode with {m35} clusters differs from the port's CPU path")
+    require(len(hits) > 0, f"no hits with {m35} clusters on Loci.fasta")
+    require(cap.args is not None and max(cap.profiles) == m35, f"the {m35}-cluster call's R1 calls held {cap.profiles} profiles")
+    ctx["r1_inputs"][f"m{m35}"] = cap.args
+    print(f"find_genes_cluster_mode, {m35} clusters (windowsizes {sorted(set(clusters.windowsizes))}), Loci.fasta: "
+          f"{wall_ms:.1f} ms, {len(hits)} hits, loci {hit_loci}, equal to the CPU path's; R1 calls {cap.profiles} "
+          f"profiles each, {launches['run_reduce_multi']} calls and {launches['run_reduce_multi_kernel']} kernel "
+          f"launches; launch counts {launches} [{label}]")
+    if on_card:
+        require(launches["codes_pair_multi"] > 0 and launches["match_counts"] > 0 and launches["run_reduce_multi"] > 0,
+                f"the {m35}-cluster call did not run K5, K2 and R1: {launches}")
+        require(launches["run_reduce_multi_kernel"] == launches["run_reduce_multi"],
+                f"R1 took more than one kernel launch a call at {m35} profiles: {launches}")
+
+    _cut, clusters = many_cluster_sets(m84)
+    thrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+    oracle = HostClusterOracle(clusters.profiles, 6)
+    total = {}
+    for codes, route in ((ctx["contigs"][0], "K3"), (ctx["short_contig"], "split")):
+        eng = ClusterScanEngine(clusters.profiles, k=6, device=device)
+        eng.fused_min_windows = 1 if route == "K3" else 1 << 30
+        cap = R1Capture()
+        ctx["launches"].reset()
+        wall_ms, streams = clock(cap.once(lambda: eng.record_streams(codes, thrs)), sync)
+        launches = ctx["launches"].read()
+        total = {name: total.get(name, 0) + n for name, n in launches.items()}
+        t0 = time.perf_counter()
+        require(streams == oracle.minimal_streams(codes, thrs, eng.max_ws),
+                f"the {m84}-cluster streams of a {codes.shape[0]} bp record ({route}) differ from the int64 host oracle")
+        require(any(s for _d0, s in streams), f"no {m84}-cluster stream entries on a {codes.shape[0]} bp record")
+        print(f"ClusterScanEngine, {m84} clusters, {codes.shape[0]} bp record on the {route} route: {wall_ms:.1f} ms, "
+              f"{sum(len(s) for _d0, s in streams)} stream entries, equal to the int64 host cluster oracle's "
+              f"({time.perf_counter() - t0:.1f} s); K3 launches {launches['fused_cluster_record_bitmaps']} "
+              f"(2 x ceil({m84} / 32) = {2 * -(-m84 // 32)} on K3), K8 {launches['lookup_roundtrip']}, K5 "
+              f"{launches['codes_pair_multi']}; R1 {launches['run_reduce_multi']} calls of {cap.profiles} profiles, "
+              f"{launches['run_reduce_multi_kernel']} kernel launches for the planned pass(es) [{label}]")
+        if route == "K3":
+            ctx["r1_inputs"][f"m{m84}"] = cap.args
+        if on_card:
+            want_k3 = 2 * -(-m84 // 32) if route == "K3" else 0
+            require(launches["fused_cluster_record_bitmaps"] == want_k3
+                    and launches["lookup_roundtrip"] == -(-m84 // 32) * (route == "K3"),
+                    f"the {m84}-cluster {route} pass did not launch K3 twice and K8 once a group of 32: {launches}")
+            require(launches["run_reduce_multi"] > 0 and launches["run_reduce_multi_kernel"] == launches["run_reduce_multi"],
+                    f"R1 did not take one kernel launch a call at {m84} profiles: {launches}")
+    ctx["r1_launches"]["many_clusters"] = total["run_reduce_multi"]
+    ctx["r1_kernel_launches"]["many_clusters"] = total["run_reduce_multi_kernel"]
 
 
 def strobe_phase(ctx) -> list:
@@ -1354,6 +1483,7 @@ def strobe_phase(ctx) -> list:
     slaunches = ctx["launches"].read()
     require(cap.args is not None, "strobemer_find_genes made no R1 call")
     ctx["r1_inputs"]["strobe"], ctx["r1_launches"]["strobe"] = cap.args, slaunches["run_reduce_multi"]
+    ctx["r1_kernel_launches"]["strobe"] = slaunches["run_reduce_multi_kernel"]
     t_med = statistics.median(times)
     print(
         f"strobemer_find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
@@ -1570,7 +1700,7 @@ def mixed_depth_phase(ctx) -> list:
 
     # --- the mixed-depth set against the int64 host cluster oracle ----------
     oracle = HostClusterOracle(profiles, k)
-    total = dict.fromkeys(ctx["launches"].wrappers, 0)
+    total = dict.fromkeys(ctx["launches"].read(), 0)
     for codes_r in (record, ctx["short_contig"]):
         n = codes_r.shape[0]
         ctx["launches"].reset()
@@ -1587,6 +1717,7 @@ def mixed_depth_phase(ctx) -> list:
                     and launches["match_counts"] > 0 and launches["run_reduce_multi"] > 0,
                     f"the mixed-depth pass did not run K4, K6, K2 and R1: {launches}")
     ctx["r1_launches"]["mixed_depth"] = total["run_reduce_multi"]
+    ctx["r1_kernel_launches"]["mixed_depth"] = total["run_reduce_multi_kernel"]
     k4 = results[("K4", PREFIX_BP - k)]
     k6 = results[("K6", groups[1][1])]
     k6_prefix = results[("K6", PREFIX_BP - k)]
@@ -1737,6 +1868,7 @@ def fragmented_phase(ctx, short_contig) -> dict:
           f"{wall_s:.3f} s = {mbps:.2f} Mbp/s, {sum(len(s) for st in streams for _d, s in st)} stream entries; "
           f"launch counts {launches} [{label}]")
     ctx["r1_launches"]["fragmented"] = launches["run_reduce_multi"]
+    ctx["r1_kernel_launches"]["fragmented"] = launches["run_reduce_multi_kernel"]
     if on_card:
         require(launches["codes_pair_multi"] == n_rec and launches["fused_cluster_record_bitmaps"] == 0,
                 f"the fragmented records did not take K5 once each: {launches}")
@@ -3109,6 +3241,76 @@ def planned_pass_walls(record, profile, clusters, cthrs, thr: float, device, on_
     return out
 
 
+def r1_alone(record, profile, clusters, cthrs, thr: float, device, on_card: bool, label: str, many=()) -> dict:
+    """R1 alone on the inputs of one planned pass each (R1's
+    parent-against-change measure, through calls an earlier checkout has
+    too): ``ScanEngine.record_stream`` of ``record`` (m = 1),
+    ``ClusterScanEngine.record_streams`` of it (m = 6) and of its first 16
+    kb (a fragment), and of it on K3 with each m of ``many`` clusters
+    (``many_cluster_sets``).  Wrapper ms back to back (``kernel_ms``) and,
+    on the card, device ms queued behind a spin and summed by
+    torch.profiler.  {name: {ms, ms_min, device_ms, device_profiled_ms}}."""
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.scan_kernels import run_reduce_multi
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
+
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+    eng = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
+    ceng = ClusterScanEngine(clusters.profiles, k=k, device=device)
+    calls = {
+        "R1_single_m1": lambda: eng.record_stream(record, thr),
+        "R1_cluster_m6": lambda: ceng.record_streams(record, cthrs),
+        "R1_fragment_m6": lambda: ceng.record_streams(record[:FRAGMENT_BP], cthrs),
+    }
+    for m in many:
+        _cut, mc = many_cluster_sets(m)
+        meng = ClusterScanEngine(mc.profiles, k=k, device=device)
+        meng.fused_min_windows = 1
+        mthrs = estimate_optimal_thresholds(mc.kfvs, mc.windowsizes, buffer=7.0)
+        calls[f"R1_many_m{m}"] = lambda meng=meng, mthrs=mthrs: meng.record_streams(record, mthrs)
+    out = {}
+    for name, call in calls.items():
+        cap = R1Capture()
+        cap.once(call)()
+        args = cap.args
+        ms, _ = kernel_ms(lambda: run_reduce_multi(*args), on_card)
+        out[name] = {"ms": float(ms), "ms_min": ms.min, "device_ms": None, "device_profiled_ms": None,
+                     "profiles": len(args[0]), "rows": sum(d.shape[0] for d in args[0])}
+        dev = ""
+        if on_card:
+            out[name]["device_ms"] = queued_device_ms(lambda: run_reduce_multi(*args), reps=r1_queued_reps(len(args[0])))
+            out[name]["device_profiled_ms"], _ = device_ms_per_call(lambda: run_reduce_multi(*args))
+            dev = f", device {out[name]['device_ms']:.5f} ms queued, {out[name]['device_profiled_ms']:.5f} profiled"
+        print(f"{name}: R1 alone on {out[name]['profiles']} profiles, {out[name]['rows']} region rows: "
+              f"{ms:.4f} ms a wrapper call (fastest window {ms.min:.4f}){dev} [{label}]")
+    return out
+
+
+def r1_kernels(device, label: str = "", contig_bp: int = 16_000_000, many=(35, 84)) -> dict:
+    """R1 alone (``python3 chip_smoke.py --r1-alone``): the kernel build
+    with ptxas's lines, then ``r1_alone`` on the first contig of the
+    synthetic genome at m = 1, 6, a fragment's 6 and each m of ``many``.
+    A copy of the checkout with another build of R1 is timed by running
+    this from its root."""
+    import torch
+
+    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
+    from kmergma_tpu_torch.utils.fasta import as_records
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card:
+        build_kernels(label)
+    profile = gen_ref_ws_cons(REF, 6)
+    record = synthetic_genome(1, contig_bp, 500_000, [rec.codes for rec in as_records(REF)])[0]
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6))
+    cthrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+    thr = estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0)
+    return r1_alone(record, profile, clusters, cthrs, thr, device, on_card, label, many=many)
+
+
 def api_walls(contigs, device, on_card: bool, label: str, runs: int = 3) -> dict:
     """The three API calls on a FASTA of ``contigs`` (the API cells'
     genome at size): wall ms a call, host clock between synchronises,
@@ -3146,7 +3348,9 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     shapes, and the cluster split pass's K5 on its first 60 kb, 16 kb and
     ``whole_bp``, each against its plain twin; then the planned pass's
     engine calls (``planned_pass_walls``) and the three API calls on the
-    four-contig genome (``api_walls``, ``api_runs`` timed), R1's measure.  It calls only
+    four-contig genome (``api_walls``, ``api_runs`` timed), and R1 alone
+    on the inputs of a planned pass at m = 1 and 6 (``r1_alone``): R1's
+    measure.  It calls only
     the package's public wrappers and engines, so the same script times an
     earlier checkout of the package: run from a copy of this file placed
     in that checkout's root.  Returns {shape: {ms, ms_min, device_ms}}."""
@@ -3189,6 +3393,7 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     for n_bp, v in k5_measure(ceng, record, (SHORT_CONTIG_BP, FRAGMENT_BP, whole_bp), on_card, label, time_plain=False).items():
         out[f"K5_{n_bp}bp"] = {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"]}
     out.update(planned_pass_walls(record, profile, clusters, cthrs, thr, device, on_card, label))
+    out.update(r1_alone(record, profile, clusters, cthrs, thr, device, on_card, label))
     out.update(api_walls(contigs, device, on_card, label, runs=api_runs))
     return out
 
@@ -3229,14 +3434,16 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         profile=profile, thr=estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0),
         contigs=contigs, short_contig=short_contig, total_bp=sum(c.shape[0] for c in contigs),
         clusters=clusters, cthrs=estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0),
-        launches=Launches(), r1_inputs={}, r1_launches={}, bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
+        launches=Launches(), r1_inputs={}, r1_launches={}, r1_kernel_launches={}, bench_sizes=BENCH_SIZES if bench_sizes is None else bench_sizes, fragments=fragments,
         long_bp=long_bp, long_chunk=long_chunk, plant_every=plant_every, max_k=max_k, two_axis_tile=two_axis_tile,
     )
     with tempfile.TemporaryDirectory() as tmp:
         ctx.update(tmp=Path(tmp), fasta=Path(tmp) / "genome.fasta", cluster_fasta=Path(tmp) / "cluster_genome.fasta",
                    uninterrupted={})
         write_fasta(ctx["fasta"], contigs)
-        kernels = single_profile_phase(ctx) + cluster_phase(ctx) + strobe_phase(ctx) + [r1_phase(ctx)]
+        kernels = single_profile_phase(ctx) + cluster_phase(ctx)
+        many_clusters_phase(ctx)
+        kernels += strobe_phase(ctx) + [r1_phase(ctx)]
         a1 = aligner_phase(ctx)
         checkpoint_phase(ctx)
         long_launches = long_record_phase(ctx)
@@ -3275,6 +3482,10 @@ def main() -> int:
     try:
         if sys.argv[1:] == ["--pair-kernels"]:
             print(json.dumps({"pair_kernels": pair_kernels("cuda", label=label)}))
+            print(f"card: {label}")
+            return 0
+        if sys.argv[1:] == ["--r1-alone"]:
+            print(json.dumps({"r1_alone": r1_kernels("cuda", label=label)}))
             print(f"card: {label}")
             return 0
         if sys.argv[1:] == ["--tp-cards"]:

@@ -88,7 +88,6 @@ def _build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)  # a host int array (``int_array``)
-    llp = ctypes.POINTER(ctypes.c_longlong)  # a host long long array (``longlong_array``)
     lib.kmg_match_counts.restype = i
     lib.kmg_match_counts.argtypes = [p, ll, i, i, i, p, p]
     lib.kmg_pair_multi.restype = i
@@ -116,7 +115,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.kmg_align_launch_info.restype = i
     lib.kmg_align_launch_info.argtypes = [i, i, i, ip]
     lib.kmg_run_reduce.restype = i
-    lib.kmg_run_reduce.argtypes = [i, i, llp, llp, ip, p, p]
+    lib.kmg_run_reduce.argtypes = [i, i, p, p, ll, i, p, ip]
+    lib.kmg_run_reduce_state_bytes.restype = ll
+    lib.kmg_run_reduce_state_bytes.argtypes = [ll]
     lib.kmg_error_string.restype = ctypes.c_char_p
     lib.kmg_error_string.argtypes = [i]
     return lib
@@ -135,13 +136,6 @@ def int_array(values) -> "ctypes.Array":
     """A host C int array for the kernels' per-group and per-cluster scalars."""
     values = [int(v) for v in values]
     return (ctypes.c_int * len(values))(*values)
-
-
-def longlong_array(values) -> "ctypes.Array":
-    """A host C long long array for the kernels' per-profile pointers and
-    window indices."""
-    values = [int(v) for v in values]
-    return (ctypes.c_longlong * len(values))(*values)
 
 
 def check(err: int, what: str) -> None:

@@ -16,12 +16,16 @@ bitmaps by one of two routes:
   * shorter records, and every record of a set that mixes pair depths (a
     cluster whose windowsize is below k + 16 clamps its depth to ws - k):
     the split pass (``_cluster_record_bitmaps``), whose pair counts come
-    from K5 (``ops/scan_kernels.codes_pair_multi``) in one launch for every
-    windowsize group at one depth, or for mixed depths from K4
+    from K5 (``ops/scan_kernels.codes_pair_multi``) in one launch for up to
+    32 windowsize groups at one depth, or for mixed depths from K4
     (``codes_pair_ab_kcodes``: group 0's pair deltas and all K codes) and
     K6 (``pair_ab_from_kcodes``: every other group's at its own depth).
 
-Both give each cluster the bitmap of its own single-profile K1 pass.  Then
+K3 and K8 take at most ``MAX_CLUSTERS`` (32) profiles a call, so the
+engine runs them on consecutive groups of that many clusters, in cluster
+order, and joins the groups' bitmaps: the engine takes any number of
+clusters, as the JAX one does.  Both give each cluster the bitmap of its
+own single-profile K1 pass.  Then
 the single-profile planned pass runs per cluster (device region plan, K2
 exact region recompute, device run reduce, ``scan._planned_streams``),
 with one device-to-host copy for all m, and each stream stops at the
@@ -73,12 +77,13 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
     groups: (ws, depth, cluster indices, r per cluster) per windowsize;
     thr_ints / n_valids: int32[m] conservative thresholds and window
     counts on the device.  The K codes and every group's pair deltas come
-    from one K5 call when the groups share one depth, else from K4 (group
+    from one K5 call for every 32 groups when the groups share one depth
+    (one call for any set of up to 32 windowsizes), else from K4 (group
     0, with all K codes) and K6 (each other group at its own depth); the
     pair kernels read zeros past the end of ``codes_dev``.  All m lookups
     come from one gather; each group's clusters then run their delta,
     prefix sum, threshold, validity mask and block any() together."""
-    from .scan_kernels import codes_pair_ab_kcodes, codes_pair_multi, pair_ab_from_kcodes
+    from .scan_kernels import MAX_PAIR_GROUPS, codes_pair_ab_kcodes, codes_pair_multi, pair_ab_from_kcodes
 
     s2 = (s_stack.to(torch.int64) ** 2).sum(dim=1)
     pos = torch.arange(span, dtype=torch.int64, device=codes_dev.device)
@@ -87,8 +92,15 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
     nkc = span + max_w - 1
     depths = {g[1] for g in groups}
     if len(depths) == 1:
-        ab_multi, kcodes = codes_pair_multi(codes_dev, k, tuple(g[0] for g in groups), nt, nkc, groups[0][1])
-        abs_ = list(ab_multi)
+        # K5 takes at most MAX_PAIR_GROUPS windowsizes a call: a set with
+        # more takes one call for each run of that many, in group order
+        abs_ = []
+        for g0 in range(0, len(groups), MAX_PAIR_GROUPS):
+            ws_chunk = tuple(g[0] for g in groups[g0 : g0 + MAX_PAIR_GROUPS])
+            ab_multi, kc = codes_pair_multi(codes_dev, k, ws_chunk, nt, nkc, groups[0][1])
+            abs_ += list(ab_multi)
+            if g0 == 0:
+                kcodes = kc
     else:
         ab0, kcodes = codes_pair_ab_kcodes(codes_dev, k, groups[0][0] - k + 1, nt, nkc, groups[0][1])
         abs_ = [ab0] + [
@@ -130,8 +142,8 @@ class ClusterScanEngine:
     prefetch_h2d = True
 
     def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda", chunk_windows: int | None = None):
-        if not 1 <= len(profiles) <= MAX_CLUSTERS:
-            raise ValueError(f"cluster mode takes 1..{MAX_CLUSTERS} profiles, got {len(profiles)}")
+        if not profiles:
+            raise ValueError("cluster mode takes at least one profile")
         self.k = k
         self.engines = [
             ScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records, device=device, chunk_windows=chunk_windows)
@@ -157,6 +169,10 @@ class ClusterScanEngine:
         #: through K3 in a one-depth set; shorter ones, and every record of
         #: a mixed-depth set, through the split pass (tests change it)
         self.fused_min_windows = 1 << 16
+        #: K3's and K8's calls: consecutive clusters, at most MAX_CLUSTERS each
+        self.k3_groups = tuple(
+            slice(c0, min(c0 + MAX_CLUSTERS, len(profiles))) for c0 in range(0, len(profiles), MAX_CLUSTERS)
+        )
         self._lookup_checked = False
 
     def _split_span(self, nw_max: int) -> int:
@@ -237,24 +253,33 @@ class ClusterScanEngine:
         )
 
     def _fused_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
-        """K3 over the whole record: bool[m, n_tiles * t // block].  The
-        engine's first K3 record runs K8 first and raises on a mismatch."""
+        """K3 over the whole record: bool[m, n_tiles * t // block], one K3
+        call for each of ``k3_groups`` (its own bounds, thresholds and
+        window counts, every group at the record's n_tiles), the groups'
+        bitmaps joined in cluster order; with ``fits_out`` each call
+        appends its own int32 check.  The engine's first K3 record runs K8
+        on every group first and raises on a mismatch."""
         from .scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
 
         s_stack = self.s_stack if s_stack is None else s_stack
         t = self.fused_t
         if not self._lookup_checked:
-            widths = [ws - self.k + 1 for ws, _r in self.specs]
-            got = lookup_roundtrip(self.s_stack, t=t, w_min=min(widths), w_max=max(widths))
-            if not torch.equal(got, self.s_stack):
-                raise RuntimeError("K8: a profile table entry came back wrong through K3's lookup")
+            for g in self.k3_groups:
+                widths = [ws - self.k + 1 for ws, _r in self.specs[g]]
+                got = lookup_roundtrip(self.s_stack[g], t=t, w_min=min(widths), w_max=max(widths))
+                if not torch.equal(got, self.s_stack[g]):
+                    raise RuntimeError("K8: a profile table entry came back wrong through K3's lookup")
             self._lookup_checked = True
         head = rolling_kmer_codes(prep[: self.max_ws], self.k)
         s2 = (s_stack.to(torch.int64) ** 2).sum(dim=1)
         l0s = _first_bounds(head, profile_lookup_multi(head, s_stack), s2, self.groups, self.k)
-        bm = fused_cluster_record_bitmaps(
-            prep, s_stack, thr_ints, l0s, nws,
-            k=self.k, specs=self.specs, depth=self.groups[0][1], t=t, block=self.block,
-            n_tiles=-(-max(nws) // t), fits_out=fits_out,
-        )
-        return bm.bool()
+        n_tiles = -(-max(nws) // t)
+        bms = [
+            fused_cluster_record_bitmaps(
+                prep, s_stack[g], thr_ints[g], l0s[g], nws[g],
+                k=self.k, specs=self.specs[g], depth=self.groups[0][1], t=t, block=self.block,
+                n_tiles=n_tiles, fits_out=fits_out,
+            )
+            for g in self.k3_groups
+        ]
+        return (bms[0] if len(bms) == 1 else torch.cat(bms)).bool()

@@ -62,17 +62,23 @@ depth, above the device-memory bytes even at depth 16.
 Source note (R1).  Replaces the below mask of ``_below_and_words`` and the
 segmented (flag, min, first-argmin) scan of ``_device_run_reduce`` in
 ``kmergma_tpu/ops/scan.py`` (jitted XLA, no Pallas), which the JAX planned
-dispatch runs for all of a record's profiles at once.  Three launches for
-every profile of the call: a block a region row folds its row, a block a
-profile scans the row folds into each row's first run id and entering
-(min, argmin), and a block a row scans again from that carry and writes
-each run at its fall.  Device memory bounds it: d is read twice.
+dispatch runs for all of a record's profiles at once.  One launch for
+every profile of the call (up to 510; more take one launch for each 510):
+a block a region row, its row taken from an atomic ticket so rows start
+in order, stages the row in shared memory once, folds it, publishes the
+fold, looks back over the profile's earlier rows' published folds and
+prefixes (a single-pass chained scan with decoupled look-back), publishes
+its prefix and writes each run at its fall.  The status words persist in
+a buffer a device and stream, tagged with the call's epoch.  The launch
+and the look-back's chain bound it at the main path's sizes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import scan
@@ -164,6 +170,9 @@ def scan_window_distances_kernel(codes: torch.Tensor, s_profile: torch.Tensor, k
     return torch.cat([d0.view(1), d0 + _cumsum32(delta)])
 
 
+#: windowsize groups one K5 call takes (the widths ride its launch)
+MAX_PAIR_GROUPS = 32
+
 #: K5's tiles, positions per CUDA block, and the SMs of an H100: a record
 #: takes the largest tile that still gives every SM a block, so short
 #: records fill the card and long ones keep the w_max halo a small share
@@ -238,9 +247,9 @@ def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc:
     w_min = min(ws_tuple) - k + 1
     if codes.dim() != 1 or codes.dtype != torch.int8:
         raise ValueError(f"codes_pair_multi wants int8[n] codes, got {codes.dtype}{tuple(codes.shape)}")
-    if not 1 <= len(ws_tuple) <= 32 or not 0 <= depth < w_min or depth > 255:
+    if not 1 <= len(ws_tuple) <= MAX_PAIR_GROUPS or not 0 <= depth < w_min or depth > 255:
         raise ValueError(
-            f"codes_pair_multi: need 1..32 groups, 0 <= depth < min(w) and depth <= 255 "
+            f"codes_pair_multi: need 1..{MAX_PAIR_GROUPS} groups, 0 <= depth < min(w) and depth <= 255 "
             f"(groups={len(ws_tuple)}, depth={depth}, w_min={w_min})"
         )
     if codes.device.type == "cpu":
@@ -398,11 +407,11 @@ def scan_window_lower_bounds_codes(codes: torch.Tensor, s_profile: torch.Tensor,
     return _lower_bounds_from(kc, g, l0, w, r, depth, nw, ab=ab)
 
 
-#: R1 takes at most this many profiles a call (the kernel's kMaxProfiles,
-#: cluster mode's ``MAX_CLUSTERS``)
-RUN_REDUCE_MAX_PROFILES = 32
 #: the widest region row R1's block stages in shared memory
 RUN_REDUCE_MAX_RSPAN = 8192
+#: R1's flags carry the call's epoch below this; the status buffer is
+#: made anew (zeroed) when its epochs run out
+_R1_EPOCHS = 1 << 30
 
 
 def run_reduce_size(run_bucket: int) -> int:
@@ -422,6 +431,39 @@ def _run_reduce_multi_plain(ds, starts, nvrs, thrs, nws, mis, run_buckets) -> to
     return torch.cat(parts)
 
 
+#: R1's status buffers, one a (device index, stream): [uint8 tensor, rows
+#: it holds, the last call's epoch]; the look-back's flags and prefixes
+#: live there across calls, so no call clears them
+_R1_STATE: dict = {}
+
+
+def _r1_state(lib, dev: torch.device, stream: int, n_rows: int) -> list:
+    """The status buffer for a call of ``n_rows`` rows on ``stream``, its
+    epoch advanced for the call; made (zeroed) on first use, when the call
+    outgrows it and when its epochs run out."""
+    st = _R1_STATE.get((dev.index, stream))
+    if st is None or st[1] < n_rows or st[2] + 1 >= _R1_EPOCHS:
+        rows = max(1024, 1 << (n_rows - 1).bit_length())
+        st = [torch.zeros(lib.kmg_run_reduce_state_bytes(rows), dtype=torch.uint8, device=dev), rows, 0]
+        _R1_STATE[(dev.index, stream)] = st
+    st[2] += 1
+    return st
+
+
+def _r1_descriptors(ds, starts, nvrs, thrs, nws, mis, run_buckets) -> tuple:
+    """R1's launch descriptors: (int64[m, 9] rows of d, starts and nvr
+    pointers, the part's byte offset in the output (the caller adds the
+    output's address), nw, mi, thr, R and the rows; the contiguous tensors
+    the pointers point into, which must outlive the launch call; the
+    output's int32 words; the call's rows)."""
+    kept = [(d.contiguous(), st.contiguous()) for d, st in zip(ds, starts)]
+    desc, size = [], 0
+    for (d, st), nvr, thr, nw, mi, R in zip(kept, nvrs, thrs, nws, mis, run_buckets):
+        desc.append((d.data_ptr(), st.data_ptr(), nvr.data_ptr(), 4 * size, nw, mi, thr, R, d.shape[0]))
+        size += run_reduce_size(int(R))
+    return np.array(desc, dtype=np.int64), kept, size, sum(d.shape[0] for d, _st in kept)
+
+
 def run_reduce_multi(ds: list, starts: list, nvrs: list, thrs: list, nws: list, mis: list, run_buckets: list) -> torch.Tensor:
     """The planned record's below mask and run reduce for all its profiles
     in one call.
@@ -430,15 +472,16 @@ def run_reduce_multi(ds: list, starts: list, nvrs: list, thrs: list, nws: list, 
     ``starts[i]`` int64[n_i] region start windows, ``nvrs[i]`` the 0-dim
     int32 true region count on the device, ``thrs[i]`` the exact integer
     threshold, ``nws[i]`` the record's windows, ``mis[i]`` the last stream
-    index and ``run_buckets[i]`` its run bucket R_i.  Returns int32[sum of
-    ``run_reduce_size(R_i)``], profile i's part [nvr, d[0, 0], n_runs,
-    run_arg_win[R], run_min[R], edge_win[R], edge_val[R], edge_ok[R]] at
-    the sum of the sizes before it.  Launches R1 on CUDA tensors (three
-    kernels, whatever the number of profiles), the plain twin on CPU
-    tensors."""
+    index and ``run_buckets[i]`` its run bucket R_i.  Any number of
+    profiles.  Returns int32[sum of ``run_reduce_size(R_i)``], profile i's
+    part [nvr, d[0, 0], n_runs, run_arg_win[R], run_min[R], edge_win[R],
+    edge_val[R], edge_ok[R]] at the sum of the sizes before it.  Launches
+    R1 on CUDA tensors (one kernel launch for up to 510 profiles; the count
+    of launches is ``run_reduce_multi.kernel_launches``), the plain twin on
+    CPU tensors."""
     m = len(ds)
-    if not 1 <= m <= RUN_REDUCE_MAX_PROFILES or not all(len(x) == m for x in (starts, nvrs, thrs, nws, mis, run_buckets)):
-        raise ValueError(f"run_reduce_multi takes 1..{RUN_REDUCE_MAX_PROFILES} profiles with one of each argument, got {m}")
+    if m < 1 or not all(len(x) == m for x in (starts, nvrs, thrs, nws, mis, run_buckets)):
+        raise ValueError(f"run_reduce_multi takes at least one profile with one of each argument, got {m}")
     rspan = ds[0].shape[1] if ds[0].dim() == 2 else -1
     for d, st, nvr, R in zip(ds, starts, nvrs, run_buckets):
         if (d.dim() != 2 or d.dtype != torch.int32 or d.shape[0] < 1 or d.shape[1] != rspan
@@ -460,33 +503,31 @@ def run_reduce_multi(ds: list, starts: list, nvrs: list, thrs: list, nws: list, 
         raise ValueError(f"run_reduce_multi: unsupported device {dev}")
     if not 1 <= rspan <= RUN_REDUCE_MAX_RSPAN:
         raise ValueError(f"run_reduce_multi: region rows of 1..{RUN_REDUCE_MAX_RSPAN} windows, got {rspan}")
-    from .._kernels import check, int_array, load, longlong_array
+    from .._kernels import check, load
+    from .scan_cluster_fused import _on_device, _raw_stream
 
     lib = load()
-    ds = [d.contiguous() for d in ds]
-    starts = [st.contiguous() for st in starts]
-    sizes = [run_reduce_size(int(R)) for R in run_buckets]
-    out = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    n_rows = sum(d.shape[0] for d in ds)
-    scratch = torch.empty(2 * n_rows, dtype=torch.int64, device=dev)  # one 16-byte fold a row
-    offs = [0]
-    for size in sizes[:-1]:
-        offs.append(offs[-1] + size)
-    ptrs = longlong_array(
-        v for d, st, nvr, off in zip(ds, starts, nvrs, offs)
-        for v in (d.data_ptr(), st.data_ptr(), nvr.data_ptr(), out.data_ptr() + 4 * off)
-    )
-    wins = longlong_array(v for nw, mi in zip(nws, mis) for v in (nw, mi))
-    ints = int_array(v for d, thr, R in zip(ds, thrs, run_buckets) for v in (thr, R, d.shape[0]))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(lib.kmg_run_reduce(m, rspan, ptrs, wins, ints, scratch.data_ptr(), stream), "run_reduce_multi")
+    desc, kept, size, n_rows = _r1_descriptors(ds, starts, nvrs, thrs, nws, mis, run_buckets)
+    out = torch.empty(size, dtype=torch.int32, device=dev)
+    desc[:, 3] += out.data_ptr()
+    n_launched = ctypes.c_int(0)
+    with _on_device(dev):
+        stream = _raw_stream(dev)
+        state, state_rows, epoch = _r1_state(lib, dev, stream, n_rows)
+        err = lib.kmg_run_reduce(m, rspan, desc.ctypes.data, state.data_ptr(), state_rows, epoch, stream,
+                                 ctypes.byref(n_launched))
+    del kept  # the launch is queued: later work on this stream may reuse the copies' memory
+    check(err, "run_reduce_multi")
     _R1.launches += 1
+    _R1.kernel_launches += n_launched.value
     return out
 
 
-#: R1 wrapper calls (three kernel launches each) since the count was last set to 0
+#: R1 wrapper calls since the count was last set to 0
 run_reduce_multi.launches = 0
+#: R1 kernel launches since the count was last set to 0, as the C entry
+#: point counts them when it issues them (one a call for up to 510 profiles)
+run_reduce_multi.kernel_launches = 0
 #: the wrapper itself: it counts on this name, which a spy that stands in
 #: for ``run_reduce_multi`` in this module (the planned pass imports it at
 #: each call) leaves in place

@@ -134,8 +134,8 @@ def _fetch(pending: list, n_blocks: int, what: str, m: int | None = None) -> np.
             parts.append(np.zeros(shape, dtype=bool))
             continue
         bm, fits = item
-        if fits:
-            check_fits(fits[0], what)
+        for fit in fits:  # one a K1 or K3 call: cluster mode makes one a group of 32 clusters
+            check_fits(fit, what)
         host = bm.cpu().numpy()
         if m is None:
             parts.append(fit_blocks(host, n_blocks))

@@ -27,6 +27,8 @@ R1_CASES = (
     "m1_random",
     "m6",  # six profiles of different n
     "m32",  # thirty-two profiles of different n
+    "m33",  # one profile past 32 (a launch once took at most 32)
+    "m84",  # the Alp_V set with every midpoint a cutoff: 84 profiles
 )
 
 
@@ -95,4 +97,11 @@ def r1_case(name: str, rspan: int = 64, seed: int = 0) -> list:
         ns = (1, 2, 3, 5)
         return [_profile(rng, rspan, ns[i % 4], n_valid=max(1, ns[i % 4] - (i % 7 == 3)), p_adjacent=0.6, thr=EVERY_WINDOW if i % 9 == 4 else None)
                 for i in range(32)]
+    if name in ("m33", "m84"):
+        # rows of 1-4, some past nvr, some regions over the bucket, mixed
+        # run buckets, some profiles below everywhere
+        ns = (1, 2, 4, 3)
+        return [_profile(rng, rspan, ns[i % 4], n_valid=ns[i % 4] + (2 if i % 13 == 5 else -(i % 5 == 2 and ns[i % 4] > 1)),
+                         p_adjacent=0.6, R=int(rng.choice([8, 64])), thr=EVERY_WINDOW if i % 11 == 7 else None)
+                for i in range(int(name[1:]))]
     raise ValueError(f"no R1 case {name!r}")

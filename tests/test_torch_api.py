@@ -306,22 +306,26 @@ def test_chip_smoke_phases_on_cpu(capsys):
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
     extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
              "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed", "two_axis", "phase_launches",
-             "synthetic_calls"}
+             "synthetic_calls", "kernel_launches"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
     assert [k["name"] for k in report["kernels"] if "device_ms" in k] == [
         "match_counts", "codes_pair_multi", "run_reduce_multi", "codes_pair_ab_kcodes[K4]", "pair_ab_from_kcodes",
     ]
-    # R1 against its twin on the inputs of the four cells' largest planned passes (the cluster and fragmented ones
-    # with all six clusters) and on the synthetic edge cases; its launch count in each phase
+    # R1 against its twin on the inputs of the six cells' largest planned passes (the cluster and fragmented ones
+    # with all six clusters, the many-clusters ones with 35 and 84) and on the synthetic edge cases; its calls and
+    # kernel launches in each phase
     r1 = next(k for k in report["kernels"] if k["name"] == "run_reduce_multi")
-    assert sorted(r1["shapes"]) == ["cluster", "fragmented", "single", "strobe"]
+    assert sorted(r1["shapes"]) == ["cluster", "fragmented", "m35", "m84", "single", "strobe"]
     assert r1["shapes"]["cluster"]["profiles"] == r1["shapes"]["fragmented"]["profiles"] == 6
+    assert (r1["shapes"]["m35"]["profiles"], r1["shapes"]["m84"]["profiles"]) == (35, 84)
     assert all(v["max_abs_err"] == 0 and v["bound_ms"] > 0 and sum(v["n_runs"]) > 0 for v in r1["shapes"].values())
-    assert r1["synthetic_calls"] == 24 and sorted(r1["phase_launches"]) == [
-        "cluster", "fragmented", "mixed_depth", "single", "strobe"]
+    phases = ["cluster", "fragmented", "many_clusters", "mixed_depth", "single", "strobe"]
+    assert r1["synthetic_calls"] == 28 and sorted(r1["phase_launches"]) == sorted(r1["kernel_launches"]) == phases
     assert "max_abs_err 0 against the twin [cpu]" in out
+    # cluster mode past 32 clusters: the API at 35 and the engine at 84 on both routes against the oracle
+    assert "find_genes_cluster_mode, 35 clusters" in out and out.count("equal to the int64 host cluster oracle's") == 2
     # K5 at the 60 kb, 16 kb and whole-record shapes, each with its launch shape and bound; the fragmented
     # assembly on the split route with both routes' bitmap passes
     k5 = next(k for k in report["kernels"] if k["name"] == "codes_pair_multi")
@@ -389,7 +393,8 @@ def test_chip_smoke_phases_on_cpu(capsys):
 def test_chip_smoke_pair_kernels_on_cpu(capsys):
     """``chip_smoke.py --pair-kernels`` (K2, K4, K6 and K5 alone at the main
     paths' shapes, each held against its plain twin, then the planned
-    pass's engine calls and the three API calls) on CPU tensors at a small
+    pass's engine calls, R1 alone on their inputs and the three API calls)
+    on CPU tensors at a small
     size: every shape timed, no device time off the card."""
     import importlib.util
 
@@ -399,8 +404,10 @@ def test_chip_smoke_pair_kernels_on_cpu(capsys):
     out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000, api_runs=1)
     assert sorted(out) == [
         "K2_region_rows", "K2_whole_record", "K4_depth14", "K4_depth16", "K5_16000bp", "K5_20000bp", "K5_60000bp",
-        "K6_depth14", "K6_depth16", "api_cluster", "api_single", "api_strobe", "planned_cluster", "planned_fragments", "planned_single", "planned_strobe",
+        "K6_depth14", "K6_depth16", "R1_cluster_m6", "R1_fragment_m6", "R1_single_m1", "api_cluster", "api_single",
+        "api_strobe", "planned_cluster", "planned_fragments", "planned_single", "planned_strobe",
     ]
+    assert (out["R1_single_m1"]["profiles"], out["R1_cluster_m6"]["profiles"]) == (1, 6)
     assert all(v["ms"] > 0 and v["ms_min"] <= v["ms"] and v["device_ms"] is None for v in out.values())
     assert out["planned_fragments"]["mbps"] > 0
     assert "bit-identical=False" not in capsys.readouterr().out

@@ -25,12 +25,17 @@ from kmergma_tpu.ops import scan_cluster as jcluster
 from kmergma_tpu.ops.kmers import kmer_count
 from kmergma_tpu.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
 from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
+from kmergma_tpu.ops.thresholds import estimate_optimal_thresholds
 from kmergma_tpu.utils.fasta import FastaRecord, as_records
 from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
 from kmergma_tpu_torch.ops import scan as tscan
 from kmergma_tpu_torch.ops import scan_cluster as tcluster
+from kmergma_tpu_torch.ops import scan_cluster_fused as tfused
+from kmergma_tpu_torch.ops import scan_kernels as tkernels
 from kmergma_tpu_torch.ops.scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
 from kmergma_tpu_torch.ops.scan_kernels import codes_pair_multi
+from kmergma_tpu_torch.parallel.mesh import make_mesh
+from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine
 
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
@@ -466,3 +471,135 @@ def test_threshold_count_mismatch_raises(clusters, mini_genome):
         eng.record_streams(np.zeros(1_000, dtype=np.int8), [1.0, 2.0])
     with pytest.raises(ValueError, match="thresholds"):
         mine_genome_clusters(mini_genome, clusters.profiles, thr_vec=[30.0] * 5, device="cpu")
+
+
+# --- more clusters than one K3, K8, K5 or R1 call takes ---------------------
+#
+# The JAX package takes any number of clusters; the port's kernels take at
+# most 32 profiles (K3, K8) or windowsize groups (K5) a call, so the engine
+# groups them.  The cutoffs are midpoints between the sorted distinct
+# distances of the Alp_V references to their mean profile (82 of them):
+# every second one, the first m - 2, gives m clusters (35: the set on
+# which the port raised before); every one of them gives 84.
+
+
+@pytest.fixture(scope="module")
+def midpoints(ref_fasta):
+    d = np.unique(np.asarray(cluster_ref_api(ref_fasta, 6, get_dists=True).dists))
+    return [float(x) for x in (d[1:] + d[:-1]) / 2]
+
+
+def _many(ref_fasta, midpoints, m):
+    """(cutoffs, clusters) of m clusters at k = 6."""
+    cut = midpoints if m == 84 else midpoints[::2][: m - 2]
+    clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=cut))
+    assert len(clusters.profiles) == m
+    return cut, clusters
+
+
+class _Calls:
+    """Spies on K3, K8 and K5's wrappers: the profiles (K3, K8) or groups
+    (K5) each call was given."""
+
+    def __init__(self, monkeypatch):
+        self.k3, self.k8, self.k5 = [], [], []
+        real_k3, real_k8, real_k5 = tfused.fused_cluster_record_bitmaps, tfused.lookup_roundtrip, tkernels.codes_pair_multi
+
+        def k3(codes, s_stack, *a, **kw):
+            self.k3.append(s_stack.shape[0])
+            return real_k3(codes, s_stack, *a, **kw)
+
+        def k8(s_stack, **kw):
+            self.k8.append(s_stack.shape[0])
+            return real_k8(s_stack, **kw)
+
+        def k5(codes, k, ws_tuple, *a):
+            self.k5.append(len(ws_tuple))
+            return real_k5(codes, k, ws_tuple, *a)
+
+        monkeypatch.setattr(tfused, "fused_cluster_record_bitmaps", k3)
+        monkeypatch.setattr(tfused, "lookup_roundtrip", k8)
+        monkeypatch.setattr(tkernels, "codes_pair_multi", k5)
+
+
+@pytest.mark.parametrize("m", [33, 84])
+def test_many_clusters_streams_match_jax(ref_fasta, midpoints, m, monkeypatch):
+    """Past 32 clusters, both routes give the JAX engine's (dist0, stream)
+    for every cluster: K3 on consecutive groups of 32 clusters (K8 on each
+    group on the engine's first K3 record), the split pass with one K5
+    call for the set's windowsizes."""
+    _cut, clusters = _many(ref_fasta, midpoints, m)
+    thrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+    codes = _planted_codes(m, 12_000, range(1_000, 11_000, 2_000))
+    want = _jax_engine(clusters.profiles).record_streams(codes, thrs)
+    assert sum(len(s) for _d0, s in want) > 0
+    groups = [32] * (m // 32) + [m % 32]
+    calls = _Calls(monkeypatch)
+    split, fused = _port_engine(clusters.profiles), _port_engine(clusters.profiles, fused=True)
+    assert split.record_streams(codes, thrs) == want
+    assert calls.k5 == [len(set(clusters.windowsizes))] and calls.k3 == calls.k8 == []
+    for _ in range(2):
+        assert fused.record_streams(codes, thrs) == want
+    assert calls.k3 == groups * 2 and calls.k8 == groups  # K8 on the first K3 record only
+
+
+def _random_set(rng, k, wss, n_records=2):
+    """One profile of random references at each windowsize in ``wss``."""
+    out = []
+    for ws in wss:
+        s = sum(kmer_count(rng.integers(0, 4, ws, dtype=np.int8), k).astype(np.int64) for _ in range(n_records))
+        out.append(RefProfile(mean_kfv=s / n_records, sum_kfv=s, n_records=n_records, windowsize=ws,
+                              consensus="A" * ws, k=k))
+    return out
+
+
+def test_split_pass_past_32_windowsizes(monkeypatch):
+    """A set of 33 clusters at 33 windowsizes (synthetic profiles, k = 4,
+    one pair depth): the split pass makes one K5 call for the first 32
+    groups and one for the last, K3 one call for 32 clusters and one for
+    the last; both routes give the JAX engine's streams."""
+    rng = np.random.default_rng(33)
+    k, wss = 4, list(range(40, 73))
+    profiles = _random_set(rng, k, wss)
+    codes = rng.integers(0, 4, 6_000, dtype=np.int8)
+    for pos in range(300, 5_600, 700):  # a profile's references, mutated, every 700 bp
+        src = rng.integers(0, 4, wss[pos % 33], dtype=np.int8)
+        codes[pos : pos + src.shape[0]] = src
+    thrs = [float(np.percentile(scan_window_distances_np_i64(codes, p.sum_kfv, k, p.windowsize, p.n_records), 3.0))
+            / (2.0 * k * p.n_records**2) for p in profiles]
+    want = _jax_engine(profiles, k=k).record_streams(codes, thrs)
+    assert sum(len(s) for _d0, s in want) > 0
+    calls = _Calls(monkeypatch)
+    assert _port_engine(profiles, k=k).record_streams(codes, thrs) == want
+    assert calls.k5 == [32, 1]
+    assert _port_engine(profiles, k=k, fused=True).record_streams(codes, thrs) == want
+    assert calls.k3 == calls.k8 == [32, 1]
+
+
+def test_kernel_wrappers_keep_their_limits():
+    """K3, K8 and K5's wrappers still refuse more than 32 profiles or
+    groups: the grouping lives in the engine."""
+    codes = torch.zeros(20_000, dtype=torch.int8)
+    s33 = torch.zeros((33, 4**4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 <= m <= 32"):
+        fused_cluster_record_bitmaps(codes, s33, [0] * 33, torch.zeros(33, dtype=torch.int32), [100] * 33,
+                                     k=4, specs=[(40, 1)] * 33, depth=16, t=512, block=512, n_tiles=1)
+    with pytest.raises(ValueError, match="1 <= m <= 32"):
+        lookup_roundtrip(s33, t=512, w_min=37, w_max=37)
+    with pytest.raises(ValueError, match="1..32 groups"):
+        codes_pair_multi(codes, 4, tuple(range(40, 73)), 1_000, 1_100, 16)
+
+
+def test_many_clusters_sharded_matches_jax(ref_fasta, midpoints):
+    """``ShardedClusterScanEngine`` at 35 clusters over two logical CPU
+    shards inherits the grouping: both routes give the JAX engine's
+    streams."""
+    _cut, clusters = _many(ref_fasta, midpoints, 35)
+    thrs = estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+    codes = _planted_codes(35, 12_000, range(1_000, 11_000, 2_000))
+    want = _jax_engine(clusters.profiles).record_streams(codes, thrs)
+    assert sum(len(s) for _d0, s in want) > 0
+    for fused_min in (1 << 16, 1):  # the split pass, then K3 on each shard
+        eng = ShardedClusterScanEngine(clusters.profiles, k=6, mesh=make_mesh(2, device="cpu"), device="cpu")
+        eng.fused_min_windows = fused_min
+        assert eng.record_streams(codes, thrs) == want

@@ -696,13 +696,49 @@ def test_r1_matches_twin_on_card(cuda_device, rspan):
     """R1 on the edge cases of ``tests/_r1_cases.py``, each one call and
     all single-profile cases in one call together, equal to its plain twin
     (the old torch chain); one launch count a call."""
-    singles = [p for name in R1_CASES if name not in ("m6", "m32") for p in r1_case(name, rspan=rspan, seed=3)]
-    for profiles in [r1_case(name, rspan=rspan, seed=3) for name in R1_CASES] + [singles]:
-        run_reduce_multi.launches = 0
+    cases = [r1_case(name, rspan=rspan, seed=3) for name in R1_CASES]
+    singles = [p for profiles in cases if len(profiles) == 1 for p in profiles]
+    for profiles in cases + [singles]:
+        run_reduce_multi.launches = run_reduce_multi.kernel_launches = 0
         got = run_reduce_multi(*_r1_args(profiles, cuda_device))
         torch.cuda.synchronize()
-        assert run_reduce_multi.launches == 1
+        assert run_reduce_multi.launches == 1 and run_reduce_multi.kernel_launches == 1
         assert torch.equal(got, _run_reduce_multi_plain(*_r1_args(profiles, cuda_device)))
+
+
+@pytest.mark.cuda
+def test_r1_past_one_launch_on_card(cuda_device):
+    """More profiles than one launch's parameters hold (the 84-profile case
+    eight times over, 672 profiles) take one launch for each 510 into the
+    same output; calls of every size in a row on one stream reuse its
+    status buffer, each under its own epoch.  The kernel launches are
+    the C entry point's own count."""
+    big = r1_case("m84", rspan=64, seed=6) * 8
+    run_reduce_multi.launches = run_reduce_multi.kernel_launches = 0
+    got = run_reduce_multi(*_r1_args(big, cuda_device))
+    assert (run_reduce_multi.launches, run_reduce_multi.kernel_launches) == (1, 2)
+    assert torch.equal(got, _run_reduce_multi_plain(*_r1_args(big, cuda_device)))
+    for _ in range(3):
+        for name in ("one_row", "m84", "runs_across_rows"):
+            profiles = r1_case(name, rspan=64, seed=7)
+            assert torch.equal(run_reduce_multi(*_r1_args(profiles, cuda_device)),
+                               _run_reduce_multi_plain(*_r1_args(profiles, cuda_device)))
+
+
+@pytest.mark.cuda
+def test_r1_strided_inputs_on_card(cuda_device):
+    """Distances and starts that are strided views give the twin's output.
+    The wrapper makes each profile's contiguous copy; every copy lives
+    until the launch is queued, so a later profile's copy of the same size
+    never takes an earlier one's memory first."""
+    for name in ("m6", "m33", "m84"):
+        profiles = r1_case(name, rspan=64, seed=8)
+        ds, starts, *rest = _r1_args(profiles, cuda_device)
+        ds_t = [d.t().contiguous().t() for d in ds]  # column-major: not contiguous past one row
+        starts_s = [torch.stack([s, s], dim=1)[:, 0] for s in starts]  # stride 2
+        assert sum(not d.is_contiguous() for d in ds_t) >= 2 and sum(not s.is_contiguous() for s in starts_s) >= 2
+        got = run_reduce_multi(ds_t, starts_s, *rest)
+        assert torch.equal(got, _run_reduce_multi_plain(ds, starts, *rest))
 
 
 @pytest.mark.cuda
@@ -726,3 +762,107 @@ def test_r1_counts_behind_a_spy(cuda_device, monkeypatch):
     eng.record_stream(np.concatenate([codes, codes, codes]), 30.0)
     assert seen == [1] and run_reduce_multi.launches == 1
 
+
+
+def _many_clusters(m: int):
+    """The Alp_V set in m clusters at k = 6 (cutoffs between the sorted
+    distinct distances to the mean profile, as ``tests/test_torch_cluster.py``
+    makes them) and the API's thresholds for them."""
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
+
+    d = np.unique(np.asarray(cluster_ref_api(REF, 6, get_dists=True).dists))
+    mids = [float(x) for x in (d[1:] + d[:-1]) / 2]
+    cut = mids if m == 84 else mids[::2][: m - 2]
+    clusters = eliminate_null_params(cluster_ref_api(REF, 6, cutoffs=cut))
+    assert len(clusters.profiles) == m
+    return cut, clusters, estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [33, 84])
+def test_many_clusters_engine_on_card_matches_cpu(record, cuda_device, m):
+    """Past 32 clusters, both routes on the card give the CPU engine's
+    streams; K3 launches twice for each group of 32 clusters, and R1 once a
+    planned pass for all m."""
+    codes, _p = record
+    _cut, clusters, thrs = _many_clusters(m)
+    for fused_min in (1 << 16, 1 << 30):  # K3 (300 kb), the split pass
+        on_card = ClusterScanEngine(clusters.profiles, k=6, device=cuda_device)
+        on_cpu = ClusterScanEngine(clusters.profiles, k=6, device="cpu")
+        on_card.fused_min_windows = on_cpu.fused_min_windows = fused_min
+        fused_cluster_record_bitmaps.launches = run_reduce_multi.launches = run_reduce_multi.kernel_launches = 0
+        assert on_card.record_streams(codes, thrs) == on_cpu.record_streams(codes, thrs)
+        assert fused_cluster_record_bitmaps.launches == (2 * -(-m // 32) if fused_min == 1 << 16 else 0)
+        assert run_reduce_multi.launches >= 1 and run_reduce_multi.kernel_launches == run_reduce_multi.launches
+
+
+@pytest.mark.cuda
+def test_split_pass_past_32_windowsizes_on_card(cuda_device):
+    """33 clusters at 33 windowsizes (k = 4): two K5 calls, two K3 calls,
+    the streams of the CPU engine on both routes."""
+    wss = list(range(40, 73))
+    profiles, _refs = _random_clusters(4, wss, 33)
+    rng = np.random.default_rng(33)
+    codes = rng.integers(0, 4, 80_000, dtype=np.int8)
+    thrs = [6.0] * len(wss)
+    for fused_min in (1 << 30, 1):
+        on_card = ClusterScanEngine(profiles, k=4, device=cuda_device)
+        on_cpu = ClusterScanEngine(profiles, k=4, device="cpu")
+        on_card.fused_min_windows = on_cpu.fused_min_windows = fused_min
+        codes_pair_multi.launches = fused_cluster_record_bitmaps.launches = 0
+        assert on_card.record_streams(codes, thrs) == on_cpu.record_streams(codes, thrs)
+        assert (codes_pair_multi.launches, fused_cluster_record_bitmaps.launches) == ((2, 0) if fused_min > 1 else (0, 4))
+
+
+@pytest.mark.cuda
+def test_many_clusters_sharded_on_card_matches_cpu(record, cuda_device):
+    """``ShardedClusterScanEngine`` at 35 clusters over two logical shards
+    of the card, both routes, against the CPU engine."""
+    from kmergma_tpu_torch.parallel.mesh import make_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine
+
+    codes, _p = record
+    _cut, clusters, thrs = _many_clusters(35)
+    want = ClusterScanEngine(clusters.profiles, k=6, device="cpu").record_streams(codes, thrs)
+    for fused_min in (1 << 16, 1 << 30):
+        eng = ShardedClusterScanEngine(clusters.profiles, k=6, mesh=make_mesh(devices=[cuda_device] * 2))
+        eng.fused_min_windows = fused_min
+        assert eng.record_streams(codes, thrs) == want
+
+
+@pytest.mark.cuda
+def test_many_clusters_api_and_resume_on_card(cuda_device, tmp_path, monkeypatch):
+    """``find_genes_cluster_mode`` with 35 clusters on Loci.fasta on the
+    card returns the CPU run's hits and loci, uninterrupted and killed on
+    its second record then resumed."""
+    import os
+
+    import kmergma_tpu_torch as kt
+    from kmergma_tpu_torch.ops import scan_cluster as tcluster
+
+    genome = str(Path(REF).parent / "Loci.fasta")
+    cut, _clusters, _thrs = _many_clusters(35)
+    kw = dict(cluster_cutoffs=cut, verbose=False, do_return_hit_loci=True)
+
+    def run(device, **extra):
+        hits, loci = kt.find_genes_cluster_mode(genome, REF, device=device, **kw, **extra)
+        return [(h.description, h.seq) for h in hits], loci
+
+    want = run("cpu")
+    assert want[0] and run(cuda_device) == want
+    scanned = [0]
+    real = tcluster.ClusterScanEngine.record_streams
+
+    def dying(self, *a, **kwargs):
+        scanned[0] += 1
+        if scanned[0] == 2:
+            raise KeyboardInterrupt("simulated kill")
+        return real(self, *a, **kwargs)
+
+    ckpt = str(tmp_path / "many.ckpt")
+    with monkeypatch.context() as mp:
+        mp.setattr(tcluster.ClusterScanEngine, "record_streams", dying)
+        with pytest.raises(KeyboardInterrupt):
+            run(cuda_device, checkpoint_path=ckpt)
+    assert os.path.exists(ckpt)
+    assert run(cuda_device, checkpoint_path=ckpt) == want and not os.path.exists(ckpt)

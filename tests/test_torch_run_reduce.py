@@ -2,9 +2,11 @@
 
 Its plain twin, profile by profile, against the JAX package's below mask
 (``_below_and_words``) and jitted ``_device_run_reduce`` on the edge cases
-of ``tests/_r1_cases.py``; a NumPy model of the kernel's three launches
-(row folds, row carries, row runs, with the kernel's index arithmetic on
-shrunk thread counts) against the twin; ``_planned_streams`` on the CPU
+of ``tests/_r1_cases.py`` (33 and 84 profiles among them); a NumPy model
+of the kernel's one launch (a block a row from a ticket, the row's fold
+published, a decoupled look-back, with the kernel's index arithmetic on
+shrunk thread and lane counts, its blocks interleaved in random orders)
+against the twin; ``_planned_streams`` on the CPU
 cluster engine, one wrapper call a planned pass for all six profiles and
 the JAX engine's streams; and the wrapper's refusals.  The kernel against
 the twin on the card: ``tests/test_torch_kernels.py::
@@ -25,7 +27,7 @@ from kmergma_tpu.ops.reference import cluster_ref_api, eliminate_null_params
 from kmergma_tpu.utils.fasta import as_records
 from kmergma_tpu_torch.ops import scan_cluster as tcluster
 from kmergma_tpu_torch.ops import scan_kernels
-from kmergma_tpu_torch.ops.scan_kernels import _run_reduce_multi_plain, run_reduce_multi, run_reduce_size
+from kmergma_tpu_torch.ops.scan_kernels import _r1_descriptors, _run_reduce_multi_plain, run_reduce_multi, run_reduce_size
 
 from ._r1_cases import R1_CASES, r1_case
 from ._torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
@@ -80,118 +82,167 @@ def test_plain_twin_matches_jax(name):
         assert n_runs[0] >= 6  # a row's border flags never join the next row's
     if name == "runs_over_bucket":
         assert n_runs[0] > profiles[0]["R"]
-    if name in ("m6", "m32"):
+    if name in ("m6", "m32", "m33", "m84"):
         assert len({p["d"].shape[0] for p in profiles}) > 1 and all(n > 0 for n in n_runs)
 
 
-def _r1_model(profiles, row_threads: int, scan_threads: int) -> np.ndarray:
-    """A NumPy model of R1's three launches (``csrc/run_reduce.cu``), with
-    its index arithmetic: each row staged with one flag from each
-    neighbouring row, folded in per-thread chunks of ceil(rspan / threads)
-    columns; each profile's row folds scanned ``scan_threads`` rows at a
-    time with a running carry; each row scanned again from its carry, every
-    fall written at its run's slot when below R; the header and the slots
-    past n_runs from the row-carry pass."""
+def _r1_model(profiles, threads: int, lanes: int = 32, per_launch: int = 510, seed: "int | None" = None) -> np.ndarray:
+    """A NumPy model of R1's one launch (``csrc/run_reduce.cu``), with its
+    index arithmetic: the profiles in launches of ``per_launch``, a block
+    a region row of every profile taking its row from the launch's ticket;
+    rows past a profile's live rows (max(1, min(nvr, n))) leave at once; a
+    live row staged with one flag from each neighbouring row, folded in
+    per-thread chunks of ceil(rspan / threads) columns and a block scan;
+    its fold published (row 0: as its inclusive prefix), then a look-back
+    over the profile's earlier rows ``lanes`` at a time, folding each
+    window up to the nearest row with an inclusive prefix; its inclusive
+    prefix published, then every fall written at its run's slot when below
+    R, and at the last live row the header and the slots past n_runs.
+
+    The blocks are generators that yield at each publication and at each
+    wait for a flag.  ``seed`` None runs them one after another in ticket
+    order; a seed interleaves them at random (a block starts only after
+    the one with the ticket before it), so each look-back finds its own
+    mix of rows with and without an inclusive prefix."""
     def combine(a, b):  # (count, min, arg): b restarts at a rise
         take_b = b[0] > 0 or b[1] < a[1]
         return (a[0] + b[0], b[1] if take_b else a[1], b[2] if take_b else a[2])
 
     ident = (0, INT_MAX, 0)
+    unwritten = -(2**40)
+    blobs = [np.full(run_reduce_size(p["R"]), unwritten, dtype=np.int64) for p in profiles]
+    row_offs = np.cumsum([0] + [p["d"].shape[0] for p in profiles])
+    status: dict = {}  # call row -> (state, payload); 1 the row's fold, 2 its inclusive prefix
 
-    def exclusive(values):
-        out, acc = [], ident
-        for v in values:
-            out.append(acc)
-            acc = combine(acc, v)
-        return out, acc
-
-    blobs = []
-    for p in profiles:
+    def block(pi, row):
+        p = profiles[pi]
         d, starts, nvr, thr, nw, mi, R = (p[k] for k in ("d", "starts", "nvr", "thr", "nw", "mi", "R"))
         n, rspan = d.shape
+        live = max(1, min(nvr, n))
+        if row >= live:
+            return
         nfl = n * rspan
 
-        def flag(row, col):
-            win = int(starts[row]) + col
-            return row < nvr and win < nw and win <= mi and (row | col) != 0 and int(d[row, col]) < thr
+        def flag(r, col):
+            win = int(starts[r]) + col
+            return r < nvr and win < nw and win <= mi and (r | col) != 0 and int(d[r, col]) < thr
 
-        def adjacent(row):
-            return row > 0 and int(starts[row]) == int(starts[row - 1]) + rspan
+        def adjacent(r):
+            return r > 0 and int(starts[r]) == int(starts[r - 1]) + rspan
 
-        def stage(row):
-            fl = [adjacent(row) and flag(row - 1, rspan - 1)] + [flag(row, c) for c in range(rspan)]
-            fl.append(row + 1 < n and adjacent(row + 1) and flag(row + 1, 0))
-            return fl, [int(d[row, c]) if fl[c + 1] else INT_MAX for c in range(rspan)]
+        fl = [adjacent(row) and flag(row - 1, rspan - 1)] + [flag(row, c) for c in range(rspan)]
+        fl.append(row + 1 < n and adjacent(row + 1) and flag(row + 1, 0))
+        base = row * rspan
+        per = -(-rspan // threads)
+        chunks = [range(min(t * per, rspan), min(t * per + per, rspan)) for t in range(threads)]
 
-        per = -(-rspan // row_threads)
-        chunks = [range(t * per, min(t * per + per, rspan)) for t in range(row_threads)]
+        def element(c):
+            return (1 if fl[c + 1] and not fl[c] else 0, int(d[row, c]) if fl[c + 1] else INT_MAX, base + c)
 
-        def element(fl, val, row, c):
-            return (1 if fl[c + 1] and not fl[c] else 0, val[c], row * rspan + c)
+        ex, total = [], ident
+        for cs in chunks:
+            ex.append(total)
+            for c in cs:
+                total = combine(total, element(c))
+        grow = int(row_offs[pi]) + row
+        prefix = ident
+        if row == 0:
+            status[grow] = (2, total)
+        else:
+            status[grow] = (1, total)
+            yield
+            first, hi = grow - row, grow - 1
+            while True:
+                rows_ = [hi - lane for lane in range(lanes)]
+                while not all(j < first or j in status for j in rows_):
+                    yield  # a lane spins on its row's flag
+                seen = [(2, ident) if j < first else status[j] for j in rows_]
+                stop = next((lane for lane, (state, _v) in enumerate(seen) if state == 2), lanes - 1)
+                w = ident
+                for lane in range(stop, -1, -1):  # in row order
+                    w = combine(w, seen[lane][1])
+                prefix = combine(w, prefix)
+                if seen[stop][0] == 2:
+                    break
+                hi -= lanes
+                yield
+            status[grow] = (2, combine(prefix, total))
+        yield
+        out = blobs[pi]
+        dflat = d.reshape(-1)
+        for t, cs in enumerate(chunks):
+            s = combine(prefix, ex[t])
+            for c in cs:
+                s = combine(s, element(c))
+                if not fl[c + 1] or fl[c + 2] or s[0] - 1 >= R:
+                    continue
+                i, arg_row = s[0] - 1, s[2] // rspan
+                win = int(starts[row]) + c
+                out[3 + i] = int(starts[arg_row]) + s[2] - arg_row * rspan
+                out[3 + R + i] = s[1]
+                out[3 + 2 * R + i] = win + 1
+                out[3 + 3 * R + i] = dflat[min(base + c + 1, nfl - 1)]
+                out[3 + 4 * R + i] = (c + 1 < rspan or (row + 1 < n and adjacent(row + 1))) and win + 1 <= mi
+        if row == live - 1:
+            n_runs = combine(prefix, total)[0]
+            out[:3] = nvr, d[0, 0], n_runs
+            for j in range(n_runs, R):
+                out[3 + j] = out[3 + R + j] = out[3 + 2 * R + j] = out[3 + 4 * R + j] = 0
+                out[3 + 3 * R + j] = d[-1, -1]
 
-        def chunk_folds(fl, val, row):
-            folds = []
-            for cs in chunks:
-                s = ident
-                for c in cs:
-                    s = combine(s, element(fl, val, row, c))
-                folds.append(s)
-            return folds
-
-        # (a) row folds
-        rows = [exclusive(chunk_folds(*stage(row), row))[1] for row in range(n)]
-        # (b) row carries, the header and the empty slots
-        carry = ident
-        for r0 in range(0, n, scan_threads):
-            ex, total = exclusive(rows[r0 : r0 + scan_threads])
-            for j, e in enumerate(ex):
-                rows[r0 + j] = combine(carry, e)
-            carry = combine(carry, total)
-        out = np.zeros(run_reduce_size(R), dtype=np.int64)
-        n_runs = carry[0]
-        out[:3] = nvr, d[0, 0], n_runs
-        for j in range(n_runs, R):
-            out[3 + 3 * R + j] = d[-1, -1]
-        # (c) row runs
-        for row in range(n):
-            fl, val = stage(row)
-            ex, _ = exclusive(chunk_folds(fl, val, row))
-            for t, cs in enumerate(chunks):
-                s = combine(rows[row], ex[t])
-                for c in cs:
-                    s = combine(s, element(fl, val, row, c))
-                    if not fl[c + 1] or fl[c + 2] or s[0] - 1 >= R:
-                        continue
-                    i, arg_row = s[0] - 1, s[2] // rspan
-                    win = int(starts[row]) + c
-                    nxt = min(row * rspan + c + 1, nfl - 1)
-                    out[3 + i] = int(starts[arg_row]) + s[2] - arg_row * rspan
-                    out[3 + R + i] = s[1]
-                    out[3 + 2 * R + i] = win + 1
-                    out[3 + 3 * R + i] = d.reshape(-1)[nxt]
-                    out[3 + 4 * R + i] = (c + 1 < rspan or (row + 1 < n and adjacent(row + 1))) and win + 1 <= mi
-        blobs.append(out.astype(np.int32))
-    return np.concatenate(blobs)
+    rng = None if seed is None else np.random.default_rng(seed)
+    for g0 in range(0, len(profiles), per_launch):
+        tickets = [(pi, row) for pi in range(g0, min(g0 + per_launch, len(profiles)))
+                   for row in range(profiles[pi]["d"].shape[0])]
+        gens, started = [], 0
+        while started < len(tickets) or gens:
+            choices = len(gens) + (started < len(tickets))
+            pick = 0 if rng is None else int(rng.integers(choices))
+            if pick == len(gens):  # the next ticket is taken
+                gens.append(block(*tickets[started]))
+                started += 1
+            try:
+                next(gens[pick])
+            except StopIteration:
+                gens.pop(pick)
+    blob = np.concatenate(blobs)
+    assert (blob != unwritten).all(), "a slot of the output was never written"
+    return blob.astype(np.int32)
 
 
 @pytest.mark.parametrize("name", R1_CASES)
-@pytest.mark.parametrize("rspan,row_threads,scan_threads", [(64, 8, 4), (64, 256, 1024), (40, 16, 2)])
-def test_kernel_model_matches_plain_twin(name, rspan, row_threads, scan_threads):
-    """The model of R1's launches equals the plain twin on every case: at
-    the kernel's thread counts (256 a row, 1,024 a profile's rows, more
-    threads than columns), on shrunk ones (several columns a thread,
-    several row blocks a profile), and at a width no thread count divides."""
+@pytest.mark.parametrize("rspan,threads,lanes", [(64, 8, 2), (64, 256, 32), (40, 16, 3)])
+def test_kernel_model_matches_plain_twin(name, rspan, threads, lanes):
+    """The model of R1's launch equals the plain twin on every case: at the
+    kernel's thread and lane counts (256 a row, more threads than columns,
+    32 rows a look-back window), on shrunk ones (several columns a thread,
+    look-back windows of 2 and 3 rows, so the walk crosses windows), at a
+    width no thread count divides, and with the profiles in launches of 5."""
     profiles = r1_case(name, rspan=rspan, seed=1)
     want = run_reduce_multi(*_torch_args(profiles)).numpy()
-    np.testing.assert_array_equal(_r1_model(profiles, row_threads, scan_threads), want)
+    np.testing.assert_array_equal(_r1_model(profiles, threads, lanes), want)
+    np.testing.assert_array_equal(_r1_model(profiles, threads, lanes, per_launch=5), want)
+
+
+@pytest.mark.parametrize("name", ["runs_across_rows", "runs_over_bucket", "regions_over_bucket", "m6", "m84"])
+@pytest.mark.parametrize("seed", range(4))
+def test_kernel_model_any_finishing_order(name, seed):
+    """The model with its blocks interleaved at random, so a look-back finds
+    any mix of earlier rows with only a fold or with an inclusive prefix,
+    gives the plain twin's output whichever row finishes first."""
+    profiles = r1_case(name, rspan=40, seed=5 + seed)
+    want = run_reduce_multi(*_torch_args(profiles)).numpy()
+    np.testing.assert_array_equal(_r1_model(profiles, 16, lanes=3, per_launch=7, seed=seed), want)
 
 
 def test_kernel_model_at_the_main_path_width():
     """The model at the engine's rows of 1,024 windows and the kernel's
-    thread counts, six profiles, against the plain twin."""
+    thread and lane counts, six profiles, against the plain twin, in
+    ticket order and interleaved."""
     profiles = r1_case("m6", rspan=1024, seed=2)
     want = run_reduce_multi(*_torch_args(profiles)).numpy()
-    np.testing.assert_array_equal(_r1_model(profiles, 256, 1024), want)
+    np.testing.assert_array_equal(_r1_model(profiles, 256), want)
+    np.testing.assert_array_equal(_r1_model(profiles, 256, seed=0), want)
 
 
 def test_planned_streams_one_call_a_pass(ref_fasta, monkeypatch):
@@ -236,8 +287,8 @@ def test_wrapper_refuses_what_it_cannot_take():
     args = _torch_args(profiles)
     with pytest.raises(ValueError):
         run_reduce_multi([], [], [], [], [], [], [])
-    with pytest.raises(ValueError):
-        run_reduce_multi(*(a * 6 for a in args))  # 36 profiles
+    many = [a * 6 for a in args]  # 36 profiles: more than 32 are taken
+    np.testing.assert_array_equal(run_reduce_multi(*many).numpy(), np.tile(run_reduce_multi(*args).numpy(), 6))
     with pytest.raises(ValueError):
         run_reduce_multi(args[0][:1], args[1][1:2], *(a[:1] for a in args[2:]))  # starts of another length
     with pytest.raises(ValueError):
@@ -251,3 +302,48 @@ def test_wrapper_refuses_what_it_cannot_take():
     _run_reduce_multi_plain(*args)
     run_reduce_multi(*args)
     assert run_reduce_multi.launches == 0  # CPU tensors take the twin
+
+
+def test_descriptors_point_into_live_copies():
+    """R1's descriptors for strided distances and starts: each pointer is
+    the start of a contiguous copy that the wrapper keeps until the launch
+    call returns, equal to its input, and no two copies share memory (a
+    copy freed early would hand its block to the next profile's); the
+    output offsets, widths and rows are each profile's own."""
+    profiles = r1_case("m6", rspan=64, seed=9)
+    ds, starts, nvrs, thrs, nws, mis, buckets = _torch_args(profiles)
+    ds_t = [d.t().contiguous().t() for d in ds]
+    starts_s = [torch.stack([s, s], dim=1)[:, 0] for s in starts]
+    assert sum(not d.is_contiguous() for d in ds_t) >= 2 and sum(not s.is_contiguous() for s in starts_s) >= 2
+    desc, kept, size, n_rows = _r1_descriptors(ds_t, starts_s, nvrs, thrs, nws, mis, buckets)
+    assert desc.dtype == np.int64 and desc.shape == (6, 9) and len(kept) == 6
+    spans = []
+    for row, (d, st), d_in, st_in, nvr in zip(desc, kept, ds, starts, nvrs):
+        assert d.is_contiguous() and st.is_contiguous() and torch.equal(d, d_in) and torch.equal(st, st_in)
+        assert (row[0], row[1], row[2]) == (d.data_ptr(), st.data_ptr(), nvr.data_ptr())
+        spans += [(d.data_ptr(), d.data_ptr() + 4 * d.numel()), (st.data_ptr(), st.data_ptr() + 8 * st.numel())]
+    spans.sort()
+    assert all(a_end <= b for (_a, a_end), (b, _b_end) in zip(spans, spans[1:]))
+    sizes = [run_reduce_size(R) for R in buckets]
+    assert desc[:, 3].tolist() == [4 * sum(sizes[:i]) for i in range(6)] and size == sum(sizes)
+    assert desc[:, 4:].tolist() == [[nw, mi, thr, R, d.shape[0]] for nw, mi, thr, R, d in zip(nws, mis, thrs, buckets, ds)]
+    assert n_rows == sum(d.shape[0] for d in ds)
+    np.testing.assert_array_equal(run_reduce_multi(ds_t, starts_s, nvrs, thrs, nws, mis, buckets).numpy(),
+                                  run_reduce_multi(ds, starts, nvrs, thrs, nws, mis, buckets).numpy())
+
+
+def test_chip_smoke_r1_alone_on_cpu(capsys):
+    """``chip_smoke.py --r1-alone`` (R1 alone on captured planned passes)
+    on CPU tensors at a small size: every pass captured with its profile
+    count, timed, no device time off the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", DATA.parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.r1_kernels("cpu", label="cpu", contig_bp=60_000)
+    assert {name: v["profiles"] for name, v in out.items()} == {
+        "R1_single_m1": 1, "R1_cluster_m6": 6, "R1_fragment_m6": 6, "R1_many_m35": 35, "R1_many_m84": 84}
+    assert all(v["rows"] >= v["profiles"] and 0 < v["ms_min"] <= v["ms"] for v in out.values())
+    assert all(v["device_ms"] is None and v["device_profiled_ms"] is None for v in out.values())
+    assert "R1_many_m84: R1 alone on 84 profiles" in capsys.readouterr().out
