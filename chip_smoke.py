@@ -1104,12 +1104,10 @@ def cluster_phase(ctx) -> list:
 
     import kmergma_tpu_torch as kt
     from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
-    from kmergma_tpu_torch.ops.scan import _first_window_l0, _k1_halo
     from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
     from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
     from kmergma_tpu_torch.ops.scan_cluster_fused import (
-        _k3_args, _lookup_roundtrip_plain, cluster_launch_shape, cluster_tables_in_smem, fused_cluster_record_bitmaps,
-        fused_cluster_record_bitmaps_plain, lookup_roundtrip,
+        _k3_args, _lookup_roundtrip_plain, cluster_launch_shape, cluster_tables_in_smem, lookup_roundtrip,
     )
     from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
 
@@ -1128,19 +1126,10 @@ def cluster_phase(ctx) -> list:
 
     # --- K3 vs its plain twin: one whole contig, all clusters --------------
     record = contigs[0]
-    nws = [record.shape[0] - ws_c + 1 for ws_c, _r in ceng.specs]
-    cprep = ceng.prepare_codes(record)
-    cthr_ints = [int(e._thr_int(x)) for e, x in zip(ceng.engines, cthrs)]
-    l0s = torch.stack([_first_window_l0(cprep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=depth) for e in ceng.engines])
-    n_tiles = -(-max(nws) // ceng.fused_t)
-    kw3 = dict(k=k, specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block, n_tiles=n_tiles)
-    k3_ms, bm3 = kernel_ms(lambda: fused_cluster_record_bitmaps(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), on_card)
-    k3_plain_ms, bm3_plain = kernel_ms(
-        lambda: fused_cluster_record_bitmaps_plain(cprep, ceng.s_stack, cthr_ints, l0s, nws, **kw3), on_card, reps=1
-    )
-    k3_err = max_err((bm3, bm3_plain))
-    n_win = n_tiles * ceng.fused_t
-    k3_io = (n_win + _k1_halo(max(widths)) + 4 * m * 4**k + 4 * bm3.numel(), (4 * depth + PROFILE_OPS_PER_WINDOW * m) * n_win)
+    k3 = k3_measure(ceng, record, cthrs, on_card)
+    k3_ms, k3_plain_ms, k3_err, k3_io, bm3 = k3["ms"], k3["plain_ms"], k3["err"], k3["io"], k3["bm"]
+    cprep, cthr_ints, l0s, nws, kw3 = k3["prep"], k3["thr_ints"], k3["l0s"], k3["nws"], k3["kw"]
+    n_tiles = kw3["n_tiles"]
     placement = "the plain twin's gather"
     if on_card:
         placement = "shared memory" if cluster_tables_in_smem(m, k, ceng.fused_t, min(widths), max(widths)) else "__ldg"
@@ -1202,7 +1191,7 @@ def cluster_phase(ctx) -> list:
             f"{lib_dev:.5f} ms ({lib_names}), queued {lib_q:.5f} ms, back to back {k8_lib_ms:.4f} ms [{label}]"
         )
     require(k8_err == 0, "K8 read a table entry back wrong")
-    del cprep, bm3, bm3_plain, back, back_plain
+    del cprep, bm3, k3, back, back_plain
 
     # --- K5 vs its plain twin: the split pass's shapes ----------------------
     k5 = k5_measure(ceng, record, (SHORT_CONTIG_BP, FRAGMENT_BP, ctx["whole_bp"]), on_card, label)
@@ -1733,6 +1722,276 @@ def mixed_depth_phase(ctx) -> list:
     ]
 
 
+#: the engine-options phase's cluster depths: two that K3 and K5 take (one
+#: past the default 16), one past MAX_BITMAP_DEPTH (K4 and K6) and exact
+#: mode (None: each group's ws - k, K4 and K6)
+OPTION_DEPTHS = (8, 64, 270, None)
+#: the depth-route shapes the phase times: K4 and K6 at 270 and at the
+#: single profile's full depth ws - k = 283, K3 at 8 and 64, K5 at 64
+OPTION_K46_DEPTHS = (270, 283)
+OPTION_K3_DEPTHS = (8, 64)
+OPTION_K5_DEPTH = 64
+
+
+def option_kernel_shapes(ctx, engines: dict) -> dict:
+    """K4, K6, K3 and K5 against their twins at the shapes the engines'
+    options give them on the first contig (K5 on the short contig): K4 at
+    ``OPTION_K46_DEPTHS`` on the single-profile depth route, K6 there at
+    the exact cluster split pass's span and the single profile's width, K3 at
+    ``OPTION_K3_DEPTHS`` (m = 6) and K5 at ``OPTION_K5_DEPTH``.  Returns
+    {kernel row name: {shape name: {depth, ms, ms_min, plain_ms,
+    max_abs_err, device_ms, bound_ms, bound_by}}}."""
+    from kmergma_tpu_torch.ops.scan import _pair_ab
+    from kmergma_tpu_torch.ops.scan_kernels import (
+        _codes_pair_ab_kcodes_plain, _pair_depth_need, codes_pair_ab_kcodes, pair_ab_from_kcodes,
+    )
+
+    on_card, label, profile = ctx["on_card"], ctx["label"], ctx["profile"]
+    record, cthrs = ctx["contigs"][0], ctx["cthrs"]
+    k, ws = profile.k, profile.windowsize
+    out: dict = {"codes_pair_ab_kcodes[K4]": {}, "pair_ab_from_kcodes": {}, "fused_cluster_record_bitmaps": {},
+                 "codes_pair_multi": {}}
+
+    def row(v, depth) -> dict:
+        b = bound(*v["io"])
+        return {"depth": depth, "ms": float(v["ms"]), "ms_min": v["ms"].min, "plain_ms": float(v["plain_ms"]),
+                "max_abs_err": v["err"], "device_ms": v.get("device_ms"), "bound_ms": b[0], "bound_by": b[1]}
+
+    def show(name, depth, what, v) -> None:
+        dev = "" if v.get("device_ms") is None else f", device {v['device_ms']:.5f} ms"
+        print(f"{name} at depth {depth}, {what}: {v['ms']:.4f} ms (fastest window {v['ms'].min:.4f}){dev}, plain twin "
+              f"{v['plain_ms']:.3f} ms, bound {bound(*v['io'])[0]:.4f} ms ({bound(*v['io'])[1]}), "
+              f"bit-identical={v['err'] == 0} [{label}]")
+        require(v["err"] == 0, f"{name} at depth {depth} differs from its plain twin")
+
+    # K4 on the single-profile depth route: w = ws - k + 1, every window
+    w = ws - k + 1
+    prep = engines["single_exact"].prepare_codes(record)
+    nw = record.shape[0] - ws + 1
+    nt, nkc = nw - 1, nw + w - 1
+    for depth in OPTION_K46_DEPTHS:
+        args = (prep, k, w, nt, nkc, depth)
+        ms, (ab, kc) = kernel_ms(lambda: codes_pair_ab_kcodes(*args), on_card)
+        pms, (ab_p, kc_p) = kernel_ms(lambda: _codes_pair_ab_kcodes_plain(*args), on_card, reps=1)
+        v = {"ms": ms, "plain_ms": pms, "err": max_err((ab, ab_p), (kc, kc_p)),
+             "io": (_pair_depth_need(k, w, nt, nkc)[1] + 4 * (nt + nkc), 4 * depth * nt),
+             "device_ms": queued_device_ms(lambda: codes_pair_ab_kcodes(*args)) if on_card else None}
+        show("K4", depth, f"single-profile depth route, {nt} transitions of a {record.shape[0]} bp record", v)
+        out["codes_pair_ab_kcodes[K4]"][f"single_d{depth}"] = row(v, depth)
+    # K6 at the exact cluster split pass's span, at the single profile's width
+    ceng = engines["cluster_exact"]
+    cprep = ceng.prepare_codes(record)
+    nt = ceng._split_span(record.shape[0] - min(e.ws for e in ceng.engines) + 1) - 1
+    kc_g = codes_pair_ab_kcodes(cprep, k, w, nt, nt + w, OPTION_K46_DEPTHS[0])[1]
+    for depth in OPTION_K46_DEPTHS:
+        ms, ab6 = kernel_ms(lambda: pair_ab_from_kcodes(kc_g, w, nt, depth), on_card)
+        pms, ab6_p = kernel_ms(lambda: _pair_ab(kc_g, w, nt, depth), on_card, reps=1)
+        v = {"ms": ms, "plain_ms": pms, "err": max_err((ab6, ab6_p)), "io": (4 * (nt + w) + 4 * nt, 4 * depth * nt),
+             "device_ms": queued_device_ms(lambda: pair_ab_from_kcodes(kc_g, w, nt, depth)) if on_card else None}
+        show("K6", depth, f"cluster split pass's span, ws {ws}, {nt} transitions", v)
+        out["pair_ab_from_kcodes"][f"cluster_d{depth}"] = row(v, depth)
+    del prep, cprep, kc_g
+    # K3 at m = 6 and K5 on the short contig, at the cluster engines' depths
+    for depth in OPTION_K3_DEPTHS:
+        v = k3_measure(engines[f"cluster_d{depth}"], record, cthrs, on_card)
+        show("K3", depth, f"{len(cthrs)} clusters, {record.shape[0]} bp record", v)
+        out["fused_cluster_record_bitmaps"][f"d{depth}"] = row(v, depth)
+    k5 = k5_measure(engines[f"cluster_d{OPTION_K5_DEPTH}"], ctx["short_contig"], (SHORT_CONTIG_BP,), on_card, label)
+    v = k5[SHORT_CONTIG_BP]
+    out["codes_pair_multi"][f"d{OPTION_K5_DEPTH}_{SHORT_CONTIG_BP}"] = row(v, OPTION_K5_DEPTH)
+    return out
+
+
+def engine_options_phase(ctx) -> dict:
+    """The scan engines' depth options at full width, on the first contig
+    and the short contig against the six clusters and the single profile
+    (ws 289, k 6): ``ClusterScanEngine`` at each of ``OPTION_DEPTHS`` (K3 or
+    K5 at 8 and 64, K4 and K6 at 270 and in exact mode), ``ScanEngine`` at
+    270 and in exact mode (K4), ``ShardedScanEngine`` at both over 1 and 4
+    logical shards of the first device (K4 on each shard),
+    ``ShardedClusterScanEngine`` in exact mode over 4, and the strobe span
+    engine bounded at depth 16 (K4 over byte codes).  Every stream equals
+    the default-depth engine's on the same record (a deeper or exact bitmap
+    only narrows the regions), and those equal the int64 host oracles';
+    each call's wall is printed beside the default engine's, and its route
+    is held by its launch counts.  Then the kernels at those shapes
+    (``option_kernel_shapes``).  Returns {"launches": every kernel's
+    launches over the phase's counted calls, "shapes": the kernel rows'
+    new shapes}."""
+    import torch
+
+    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
+    from kmergma_tpu_torch.ops.scan_host import HostScanEngine
+    from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
+    from kmergma_tpu_torch.parallel.mesh import make_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
+
+    device, on_card, sync, label, launches = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"], ctx["launches"]
+    profile, thr, clusters, cthrs = ctx["profile"], ctx["thr"], ctx["clusters"], list(map(float, ctx["cthrs"]))
+    k, ws, r = profile.k, profile.windowsize, profile.n_records
+    records = [ctx["contigs"][0], ctx["short_contig"]]
+    total = dict.fromkeys(launches.read(), 0)
+
+    def call(fn):
+        """(launch counts, wall ms, result) of one call of ``fn``, after one
+        warm-up call on the card; the counts are added to the phase's."""
+        if on_card:
+            fn()
+        launches.reset()
+        ms, out = clock(fn, sync)
+        got = launches.read()
+        for name, n in got.items():
+            total[name] += n
+        return got, ms, out
+
+    def route(got) -> str:
+        names = (("K1", "fused_record_bitmaps"), ("K3", "fused_cluster_record_bitmaps"), ("K5", "codes_pair_multi"),
+                 ("K4", "codes_pair_ab_kcodes"), ("K6", "pair_ab_from_kcodes"), ("K2", "match_counts"),
+                 ("R1", "run_reduce_multi"))
+        return ", ".join(f"{short} {got[name]}" for short, name in names)
+
+    # --- the default-depth engines' streams, held against the int64 oracles ---
+    host = HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r)
+    coracle = HostClusterOracle(clusters.profiles, k)
+    cone = ClusterScanEngine(clusters.profiles, k=k, device=device)
+    one = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
+    base = []
+    for codes in records:
+        n = codes.shape[0]
+        _got, cms, cwant = call(lambda: cone.record_streams(codes, cthrs))
+        _got, sms, swant = call(lambda: one.record_stream(codes, thr)[:2])
+        d = host._dists(codes)
+        require(cwant == coracle.minimal_streams(codes, cthrs, cone.max_ws),
+                f"the default cluster engine's streams differ from the int64 host oracle's on a {n} bp record")
+        require(swant == (float(d[0]) / host.scale, minimal_stream(d, host.scale, thr, n - ws)),
+                f"the default ScanEngine's stream differs from the int64 host oracle's on a {n} bp record")
+        require(len(swant[1]) > 0 and any(s for _d0, s in cwant), f"no stream entries on the {n} bp record")
+        base.append({"cluster": (cms, cwant), "single": (sms, swant)})
+        print(f"engine options, {n} bp record: the default-depth (16) engines' streams equal the int64 host oracles' "
+              f"(ClusterScanEngine {cms:.3f} ms, {[len(s) for _d0, s in cwant]} entries; ScanEngine {sms:.3f} ms, "
+              f"{len(swant[1])} entries) [{label}]")
+
+    def check(what, i, got, ms, out, kind, want_route: dict) -> None:
+        n = records[i].shape[0]
+        base_ms, want = base[i][kind]
+        require(out == want, f"{what} on the {n} bp record: streams differ from the default-depth engine's")
+        print(f"{what}, {n} bp record: {ms:.3f} ms (default depth 16: {base_ms:.3f} ms), streams equal the default "
+              f"engine's and the int64 host oracle's; launches {route(got)} [{label}]")
+        if on_card:
+            wrong = {name: got[name] for name, n_l in want_route.items() if got[name] != n_l}
+            require(not wrong and got["match_counts"] > 0 and got["run_reduce_multi"] > 0,
+                    f"{what} on the {n} bp record did not take its route: {route(got)}")
+
+    # --- ClusterScanEngine at each depth ----------------------------------------
+    engines = {}
+    none = {"fused_cluster_record_bitmaps": 0, "codes_pair_multi": 0, "codes_pair_ab_kcodes": 0,
+            "pair_ab_from_kcodes": 0, "fused_record_bitmaps": 0}
+    for depth in OPTION_DEPTHS:
+        eng = ClusterScanEngine(clusters.profiles, k=k, device=device, bound_depth=depth)
+        engines["cluster_exact" if depth is None else f"cluster_d{depth}"] = eng
+        name = "exact" if depth is None else depth
+        for i, codes in enumerate(records):
+            got, ms, out = call(lambda: eng.record_streams(codes, cthrs))
+            if eng.shared_depth is None:
+                want_route = {**none, "codes_pair_ab_kcodes": 1, "pair_ab_from_kcodes": len(eng.groups) - 1}
+            elif max(codes.shape[0] - e.ws + 1 for e in eng.engines) >= eng.fused_min_windows:
+                want_route = {**none, "fused_cluster_record_bitmaps": 2 * len(eng.k3_groups)}  # two a call
+            else:
+                want_route = {**none, "codes_pair_multi": 1}
+            check(f"ClusterScanEngine bound_depth {name} (groups {[(g[0], g[1]) for g in eng.groups]})", i, got, ms,
+                  out, "cluster", want_route)
+
+    # --- ScanEngine and ShardedScanEngine on the depth route --------------------
+    first = device if device.type == "cpu" else torch.device("cuda", 0)
+    meshes = {n_dev: make_mesh(devices=[first] * n_dev) for n_dev in (1, 4)}
+    for depth in (270, None):
+        name = "exact" if depth is None else depth
+        eng = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device, bound_depth=depth)
+        if depth is None:
+            engines["single_exact"] = eng
+        for i, codes in enumerate(records):
+            got, ms, out = call(lambda: eng.record_stream(codes, thr)[:2])
+            check(f"ScanEngine bound_depth {name}", i, got, ms, out, "single", {**none, "codes_pair_ab_kcodes": 1})
+        for n_dev, mesh in meshes.items():
+            sh = ShardedScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, mesh=mesh, bound_depth=depth)
+            for i, codes in enumerate(records):
+                got, ms, out = call(lambda: sh.record_stream(codes, thr)[:2])
+                check(f"ShardedScanEngine bound_depth {name} over {n_dev} logical shards of {first}", i, got, ms, out,
+                      "single", {**none, "codes_pair_ab_kcodes": n_dev})
+    csh = ShardedClusterScanEngine(clusters.profiles, k=k, mesh=meshes[4], bound_depth=None)
+    for i, codes in enumerate(records):
+        got, ms, out = call(lambda: csh.record_streams(codes, cthrs))
+        check(f"ShardedClusterScanEngine bound_depth exact over 4 logical shards of {first}", i, got, ms, out, "cluster",
+              {**none, "codes_pair_ab_kcodes": 4, "pair_ab_from_kcodes": 4 * (len(csh.groups) - 1)})
+
+    # --- the strobe span engine bounded at depth 16 ------------------------------
+    sprof = gen_strobe_ref_ws_cons(REF)
+    sthr, sw = 30.0, sprof.windowsize - sprof.k
+    sscale = 2.0 * sprof.k * sprof.n_records**2
+    for codes in records:
+        n = codes.shape[0]
+        n_steps = n - sprof.windowsize - 1
+        sc = strobe_2_mer_codes_torch(torch.from_numpy(codes).to(device), sprof.s, sprof.w_min, sprof.w_max, sprof.q)
+        sc = sc[: n_steps + sw]
+        xstar = int(sc[sw])
+        exact = StrobeSpanEngine(sprof, xstar, device=device)
+        bounded = StrobeSpanEngine(sprof, xstar, bound_depth=16, device=device)
+        _got, ems, ewant = call(lambda: exact.record_stream(sc, sthr)[:2])
+        got, ms, out = call(lambda: bounded.record_stream(sc, sthr)[:2])
+        d = strobe_distances_i64(sc.cpu().numpy(), sprof.sum_kfv, sw, sprof.n_records)
+        require(ewant == (float(d[0]) / sscale, minimal_stream(d, sscale, sthr, n_steps)),
+                f"the exact strobe span engine's stream differs from the int64 host oracle's on the {n} bp record")
+        require(out == ewant, f"the strobe span engine at depth 16 differs from the exact engine on the {n} bp record")
+        print(f"StrobeSpanEngine bound_depth 16, {n} bp record: {ms:.3f} ms (exact mode, the default: {ems:.3f} ms), "
+              f"stream equal to the exact engine's and the int64 host oracle's, {len(out[1])} entries; launches "
+              f"{route(got)} [{label}]")
+        if on_card:
+            require(got["codes_pair_ab_kcodes"] == 1 and got["fused_record_bitmaps"] == 0 and got["match_counts"] > 0,
+                    f"the bounded strobe engine did not take K4: {route(got)}")
+
+    shapes = option_kernel_shapes(ctx, engines)
+    return {"launches": total, "shapes": shapes}
+
+
+def engine_options_cards(contig, devices: list, label: str) -> None:
+    """``ShardedScanEngine`` in exact mode and at depth 270 over the cards
+    in ``devices`` (``--mesh-cards``: four), each shard's bitmap from K4 on
+    its own card: the stream equals the one-device default engine's, with
+    one K4 launch a card; each wall beside the one-device engine's."""
+    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
+    from kmergma_tpu_torch.ops.scan import ScanEngine
+    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold
+    from kmergma_tpu_torch.parallel.mesh import make_mesh
+    from kmergma_tpu_torch.parallel.sharded_scan import ShardedScanEngine
+
+    import torch
+
+    sync = torch.cuda.synchronize if devices[0].type == "cuda" else (lambda: None)
+    profile = gen_ref_ws_cons(REF, 6)
+    thr = estimate_optimal_threshold(profile.mean_kfv, profile.windowsize, buffer=8.0)
+    kw = dict(k=profile.k, ws=profile.windowsize, r=profile.n_records)
+    one = ScanEngine(profile.sum_kfv, device=devices[0], **kw)
+    one.record_stream(contig, thr)
+    one_ms, want = clock(lambda: one.record_stream(contig, thr)[:2], sync)
+    launches = Launches()
+    for depth in (None, 270):
+        sh = ShardedScanEngine(profile.sum_kfv, mesh=make_mesh(devices=devices), bound_depth=depth, **kw)
+        sh.record_stream(contig, thr)
+        launches.reset()
+        ms, got = clock(lambda: sh.record_stream(contig, thr)[:2], sync)
+        n = launches.read()
+        require(got == want, f"ShardedScanEngine bound_depth {depth} over {len(devices)} devices differs from ScanEngine")
+        on_k4 = n["codes_pair_ab_kcodes"] == len(devices) and n["fused_record_bitmaps"] == 0
+        require(devices[0].type != "cuda" or on_k4,
+                f"ShardedScanEngine bound_depth {depth} over {len(devices)} devices: K4 {n['codes_pair_ab_kcodes']}, "
+                f"K1 {n['fused_record_bitmaps']}")
+        print(f"ShardedScanEngine bound_depth {'exact' if depth is None else depth} over {len(devices)} devices "
+              f"{[str(d) for d in devices]}, {contig.shape[0]} bp record: {ms:.3f} ms (one-device default engine "
+              f"{one_ms:.3f} ms), stream equal, K4 {n['codes_pair_ab_kcodes']} launches [{label}]")
+
+
 def k5_measure(ceng, record, n_bps, on_card: bool, label: str, time_plain: bool = True) -> dict:
     """K5 against its twin at the split pass's shapes on the first ``n_bp``
     bp of ``record`` for each of ``n_bps``: {n_bp: {ms, plain_ms, err, io,
@@ -2018,6 +2277,34 @@ def queued_device_ms(call, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k3_measure(ceng, record, thrs, on_card: bool) -> dict:
+    """K3 against its plain twin on one whole record at the cluster
+    engine's shapes and depth (``shared_depth``): {ms, plain_ms, err, io,
+    bm, and the call's prep, thr_ints, l0s, nws and kw}, wrapper ms from
+    ``kernel_ms``."""
+    import torch
+
+    from kmergma_tpu_torch.ops.scan import _first_window_l0, _k1_halo
+    from kmergma_tpu_torch.ops.scan_cluster_fused import fused_cluster_record_bitmaps, fused_cluster_record_bitmaps_plain
+
+    k, m, depth = ceng.k, len(ceng.engines), ceng.groups[0][1]
+    widths = [ws_c - k + 1 for ws_c, _r in ceng.specs]
+    nws = [record.shape[0] - ws_c + 1 for ws_c, _r in ceng.specs]
+    prep = ceng.prepare_codes(record)
+    thr_ints = [int(e._thr_int(x)) for e, x in zip(ceng.engines, thrs)]
+    l0s = torch.stack([_first_window_l0(prep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=depth) for e in ceng.engines])
+    n_tiles = -(-max(nws) // ceng.fused_t)
+    kw = dict(k=k, specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block, n_tiles=n_tiles)
+    ms, bm = kernel_ms(lambda: fused_cluster_record_bitmaps(prep, ceng.s_stack, thr_ints, l0s, nws, **kw), on_card)
+    plain_ms, bm_plain = kernel_ms(
+        lambda: fused_cluster_record_bitmaps_plain(prep, ceng.s_stack, thr_ints, l0s, nws, **kw), on_card, reps=1
+    )
+    n_win = n_tiles * ceng.fused_t
+    io = (n_win + _k1_halo(max(widths)) + 4 * m * 4**k + 4 * bm.numel(), (4 * depth + PROFILE_OPS_PER_WINDOW * m) * n_win)
+    return {"ms": ms, "plain_ms": plain_ms, "err": max_err((bm, bm_plain)), "io": io, "bm": bm, "prep": prep,
+            "thr_ints": thr_ints, "l0s": l0s, "nws": nws, "kw": kw}
 
 
 def k3_twin_err(ceng, codes, thrs) -> tuple[int, int]:
@@ -3168,6 +3455,8 @@ def mesh_cards(device, label: str = "", contig_bp: int = 16_000_000, runs: int =
         print(f"two-axis step over four cards, thresholds {case}: " + "; ".join(
             f"{what} {v:.4f} s ({v / one:.2f}x one card's {one:.4f} s)"
             for (c, what), v in out["walls"].items() if c == case and not what.startswith("1 x 1")) + f" [{label}]")
+    if on_card:
+        engine_options_cards(contigs[0], [torch.device("cuda", i) for i in range(4)], label)
 
 
 def build_kernels(label: str) -> None:
@@ -3451,10 +3740,14 @@ def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: in
         two_axis = two_axis_phase(ctx)
     paired_spectrum_check(ctx)
     kernels += mixed_depth_phase(ctx)
+    options = engine_options_phase(ctx)
     kernels += bench_phase(ctx) + [a1]
-    for row in kernels:  # each kernel's launches on the long-record and sharded path, and on the two-axis step's
+    for row in kernels:  # each kernel's launches on the long-record and sharded path, the two-axis step's, the options'
         row["long_path_launches"] = long_launches[row["name"].split("[")[0]]
         row["two_axis_launches"] = two_axis["launches"][row["name"].split("[")[0]]
+        row["options_launches"] = options["launches"][row["name"].split("[")[0]]
+        if row["name"] in options["shapes"]:
+            row["depth_shapes"] = options["shapes"][row["name"]]
         if row["name"] == "match_counts":
             row["two_axis"] = two_axis["k2"]
     return {"kernels": kernels}

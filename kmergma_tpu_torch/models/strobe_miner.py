@@ -7,9 +7,9 @@ advancing ``GenomePos``, as the reference's ``continue`` does):
   1. device: the record's int8 genome codes cross once (or are already
      there, ``genome_dev``), the randstrobe codes are extracted on the card
      (``strobe_2_mer_codes_torch``), and the span engine of the record's x*
-     (``StrobeSpanEngine``, exact mode: K4 at depth ws - k, then the
-     single-profile planned pass with K2) emits the sparse candidate stream
-     without the codes leaving the card,
+     (``StrobeSpanEngine``, exact mode by default: K4 at depth ws - k, then
+     the single-profile planned pass with K2) emits the sparse candidate
+     stream without the codes leaving the card,
   2. host: exact replay of the minima state machine (``replay_single``,
      CMI = the raw step index),
   3. host: the batched alignment trim with StrobeGMA's score model and its
@@ -95,19 +95,23 @@ class StrobeSpanEngine(ScanEngine):
 
     - a plain width-w sliding spectrum distance against the modified profile
     S - r e_x, so the single-profile engine applies with k = 1 over the
-    strobemer code alphabet.  It runs in exact mode (``bound_depth=None``):
-    with only 4^(2s) = 256 strobe values at s = 2, equal pairs are so common
-    that a depth-16 bound prunes almost nothing, while the exact distances
-    of K4 at depth ws - k prune perfectly.  Strobe codes cross as uint8 up
-    to 256 codes and as int32 beyond (s = 3: 4096 codes).
+    strobemer code alphabet.  It runs in exact mode (``bound_depth=None``)
+    by default: with only 4^(2s) = 256 strobe values at s = 2, equal pairs
+    are so common that a depth-16 bound prunes almost nothing, while the
+    exact distances of K4 at depth ws - k prune perfectly.  A bounded
+    engine (``bound_depth=16``, as the JAX engine takes it) runs K4 at that
+    depth: K1 reads 2-bit codes, and a strobe code is a byte or more.
+    Strobe codes cross as uint8 up to 256 codes and as int32 beyond (s = 3:
+    4096 codes).  ``chunk_windows`` is ``ScanEngine``'s.
     """
 
-    def __init__(self, strobe_profile: StrobeProfile, xstar: int, device: "str | torch.device" = "cuda"):
+    def __init__(self, strobe_profile: StrobeProfile, xstar: int, chunk_windows: int | None = None, bound_depth: int | None = None, device: "str | torch.device" = "cuda"):
         p = strobe_profile
         w = p.windowsize - p.k  # the reference's effective rolling width
         s_mod = p.sum_kfv.astype(np.int64).copy()
         s_mod[xstar] -= p.n_records
-        super().__init__(s_mod, k=1, ws=w, r=p.n_records, device=device, bound_depth=None)
+        super().__init__(s_mod, k=1, ws=w, r=p.n_records, device=device, bound_depth=bound_depth,
+                         chunk_windows=chunk_windows)
         self.codes_dtype = np.uint8 if 4 ** (2 * p.s) <= 256 else np.int32
         # distances are reported in the reference's 1/(2 k_eff r^2) unit
         self.scale = 2.0 * p.k * p.n_records * p.n_records
@@ -125,9 +129,10 @@ def strobe_mine_genome(
     do_return_dists: bool = False,
     do_return_align: bool = False,
     get_hit_loci: bool = False,
+    chunk_windows: int | None = None,
     checkpoint_path: str | None = None,
     genome_dev: "list | None" = None,
-    device_extract: bool = True,
+    device_extract: bool | None = None,
     engine_cache: "dict | None" = None,
     device: "str | torch.device" = "cuda",
     engine_factory=None,
@@ -135,28 +140,32 @@ def strobe_mine_genome(
     """Mine a genome with the strobemer span engine on ``device`` (the card
     unless the caller asks for the CPU).
 
-    With ``device_extract`` (the default) each record crosses to the device
-    as int8 genome codes and the strobemer extraction feeds the span engine
-    there; ``device_extract=False`` extracts on the host and ships the
-    strobe codes.  ``genome_dev[i]``, where given, is record i's int8
-    genome codes already on the device (at least the record's length; the
-    bench's synthetic genomes): the extraction reads it and nothing
-    crosses to the device.  ``engine_cache`` is the caller's dict of span
-    engines by x*, kept across calls (at most 16 engines; a full cache is
-    emptied before the next is added).  ``engine_factory(profile, xstar)``
-    builds the span engine of one x* (by default ``StrobeSpanEngine``); any
-    object with its ``record_stream(codes, thr, collect_dists)`` may take
-    its place, such as an exact int64 host oracle (with
-    ``device_extract=False``).  ``checkpoint_path`` checkpoints and
+    With ``device_extract`` each record crosses to the device as int8
+    genome codes and the strobemer extraction feeds the span engine there;
+    ``device_extract=False`` extracts on the host and ships the strobe
+    codes.  The default, None, extracts on the device when ``device`` is a
+    card or ``genome_dev`` is given (the JAX rule: on the accelerator).
+    ``genome_dev[i]``, where given, is record i's int8 genome codes already
+    on the device (at least the record's length; the bench's synthetic
+    genomes): the extraction reads it and nothing crosses to the device.
+    ``engine_cache`` is the caller's dict of span engines by x*, kept
+    across calls (at most 16 engines; a full cache is emptied before the
+    next is added).  ``engine_factory(profile, xstar)`` builds the span
+    engine of one x* (by default ``StrobeSpanEngine`` with
+    ``chunk_windows``); any object with its ``record_stream(codes, thr,
+    collect_dists)`` may take its place, such as an exact int64 host
+    oracle (with ``device_extract=False``).  ``checkpoint_path`` checkpoints and
     resumes per record, as ``mine_genome``'s does (a record too short to
     scan does not advance ``GenomePos``)."""
     from ..ops.scan_strobe import strobe_scan_from_codes
     from .state_machine import candidate_stream_from_dists, replay_single
 
     dev = resolve_device(device)
+    if device_extract is None:
+        device_extract = dev.type == "cuda" or genome_dev is not None
     if engine_factory is None:
         def engine_factory(p, xstar):
-            return StrobeSpanEngine(p, xstar, device=dev)
+            return StrobeSpanEngine(p, xstar, chunk_windows=chunk_windows, device=dev)
 
     s, w_min, w_max, q = profile.s, profile.w_min, profile.w_max, profile.q
     k = profile.k

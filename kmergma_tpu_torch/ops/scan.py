@@ -12,8 +12,9 @@ wrapping intermediates agree too).
 The plain functions here are the contracts and the plain twins of the
 hand-written kernels (ops/scan_fused.py: K1, ops/scan_kernels.py: K2 and
 K4).  ``ScanEngine.record_stream`` runs one planned pass per record: the
-block bitmap (K1's lower bounds at pair depth 16, or in exact mode K4's
-full-depth distances) -> device region plan -> K2 exact region recompute ->
+block bitmap (K1's lower bounds at pair depth 16, or on the depth route K4's
+lower bounds at a depth past K1's, or its full-depth distances in exact
+mode) -> device region plan -> K2 exact region recompute ->
 R1, the below mask and run reduce of every profile in one call -> one
 device-to-host copy.  A long record of host codes
 builds its bitmap a segment at a time, and the planned pass then cuts its
@@ -29,8 +30,9 @@ import torch
 
 from .reference import RefProfile
 
-#: the largest pair depth of K1's and K3's bitmap kernel, which keeps its
-#: pair counts as bytes
+#: the largest pair depth of the kernels that keep per-position pair
+#: counts as bytes: K1's and K3's bitmap kernel and K5; a deeper bound
+#: takes K4 (and K6 for the other windowsizes of a cluster set)
 MAX_BITMAP_DEPTH = 255
 
 _INT32_MAX = 2**31 - 1
@@ -649,18 +651,20 @@ class ScanEngine:
     unless the caller asks for the CPU); the output is the sparse candidate
     stream that the exact host replay (``models.state_machine.
     replay_single``) consumes.  The pass's block bitmap comes from K1's
-    certified lower bounds at ``bound_depth`` (16 by default), or with
-    ``bound_depth=None`` (exact mode, the strobemer span engine) from the
-    exact distances of K4's full-depth pair counts.  A ``bound_depth``
-    above K1's ``MAX_BITMAP_DEPTH`` that reaches the window's full depth
-    ws - k takes exact mode; one that stops short of it raises.
+    certified lower bounds at ``bound_depth`` (16 by default, any depth up
+    to ``MAX_BITMAP_DEPTH``), or from the depth route
+    (``_depth_bitmap``): K4's lower bounds at a deeper ``bound_depth``, or
+    with ``bound_depth=None`` (exact mode) K4's exact distances at the
+    window's full depth ws - k.  A depth at or past ws - k is clamped to
+    it, and past ``MAX_BITMAP_DEPTH`` that is exact mode.  Codes other
+    than 2-bit genome codes (the strobemer span engine's) take the depth
+    route at any depth, since K1 reads 2-bit codes.
 
     A record of host codes with more than 2 x ``chunk_windows`` windows is
     segmented (``_segmented_bitmaps``): its bitmap is built a segment at a
     time, so device memory does not grow with the record, and the planned
-    pass then takes its region rows from the host codes.  Exact mode never
-    segments, as in the JAX package, whose strobemer miner scans whole
-    records.
+    pass then takes its region rows from the host codes.  Every depth
+    segments, as in the JAX package.
     """
 
     #: miners may copy the next record to the device before scanning the
@@ -678,18 +682,12 @@ class ScanEngine:
         check_int32_headroom(s_profile, ws, k, r)
         self.k, self.ws, self.r = k, ws, r
         self.s_dev = self._place_profile(np.asarray(s_profile, dtype=np.int32))
-        # K1 flags blocks from certified lower bounds at this pair depth,
-        # 16 by default as in the JAX engine (equality at depth = W - 1, so
-        # clamping keeps short windows exact); None = exact mode
+        # the bitmap flags blocks from certified lower bounds at this pair
+        # depth, 16 by default as in the JAX engine (equality at depth =
+        # W - 1, so clamping keeps short windows exact); None = exact mode
         depth = None if bound_depth is None else min(bound_depth, ws - k)
-        if depth is not None and depth > MAX_BITMAP_DEPTH:
-            if depth < ws - k:
-                raise ValueError(
-                    f"ScanEngine: bound_depth {bound_depth} is above K1's {MAX_BITMAP_DEPTH} and below the "
-                    f"window's full depth {ws - k}; use at most {MAX_BITMAP_DEPTH}, or the full depth (exact mode)"
-                )
-            # the bounds at full depth are the exact distances, which exact
-            # mode computes without K1's byte counts
+        if depth is not None and depth == ws - k and depth > MAX_BITMAP_DEPTH:
+            # the bounds at full depth are the exact distances
             depth = None
         self.bound_depth = depth
         self.scale = 2.0 * k * r * r
@@ -734,14 +732,22 @@ class ScanEngine:
             t += 1
         return np.int32(t)
 
+    @property
+    def on_k1(self) -> bool:
+        """Whether the bitmap pass runs K1: 2-bit genome codes at a bound
+        depth of at most ``MAX_BITMAP_DEPTH``; else it takes the depth
+        route (``_depth_bitmap``, K4)."""
+        return (self.bound_depth is not None and self.bound_depth <= MAX_BITMAP_DEPTH
+                and np.dtype(self.codes_dtype) == np.int8)
+
     def _padded_len(self, n: int) -> int:
         """Codes the record's passes read: K1's tiles and halo (or K4's
-        tiles in exact mode) and region rows near the record end."""
+        tiles on the depth route) and region rows near the record end."""
         from .scan_kernels import _pair_depth_need
 
         nw = n - self.ws + 1
         w = self.ws - self.k + 1
-        if self.bound_depth is None:
+        if not self.on_k1:
             bitmap_need = _pair_depth_need(self.k, w, max(nw - 1, 1), nw + w - 1)[1]
         else:
             bitmap_need = max(1, -(-nw // self.fused_t)) * self.fused_t + _k1_halo(w)
@@ -772,8 +778,7 @@ class ScanEngine:
         nw = n - self.ws + 1
         if nw < 1:
             raise ValueError(f"record of {n} bp is shorter than the windowsize {self.ws}")
-        if (codes_dev is None and not collect_dists and self.bound_depth is not None
-                and not torch.is_tensor(codes) and nw > 2 * self.chunk):
+        if codes_dev is None and not collect_dists and not torch.is_tensor(codes) and nw > 2 * self.chunk:
             codes = np.asarray(codes, dtype=self.codes_dtype)
             flat = self._segmented_bitmaps(codes, nw, int(self._thr_int(thr)), seg_tracker)
             dist0, stream = _planned_streams([self], codes, [flat], [nw], [thr], [nw - 1])[0]
@@ -877,15 +882,16 @@ class ScanEngine:
 
     def _record_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int, s_dev: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
         """The record's block bitmap: K1 over the whole record (flat
-        bool[n_tiles * t / block]), or in exact mode ``_exact_bitmap``.
+        bool[n_tiles * t / block]), or off K1 (``on_k1``) the depth route
+        ``_depth_bitmap`` at the bound depth, ws - k in exact mode.
         ``s_dev`` is the profile on ``prep``'s device (the engine's by
         default); ``fits_out`` defers K1's int32 check to the caller."""
-        if self.bound_depth is None:
-            return self._exact_bitmap(prep, nw, thr_int)
+        s_dev = self.s_dev if s_dev is None else s_dev
+        depth = self.ws - self.k if self.bound_depth is None else self.bound_depth
+        if not self.on_k1:
+            return self._depth_bitmap(prep, nw, thr_int, depth, s_dev)
         from .scan_fused import fused_record_bitmaps
 
-        s_dev = self.s_dev if s_dev is None else s_dev
-        depth = self.bound_depth
         l0 = _first_window_l0(prep, s_dev, k=self.k, ws=self.ws, r=self.r, depth=depth)
         bm = fused_record_bitmaps(
             prep, s_dev, thr_int, l0, nw,
@@ -894,16 +900,18 @@ class ScanEngine:
         )
         return bm.reshape(-1).bool()
 
-    def _exact_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int) -> torch.Tensor:
-        """Exact mode: K4 at depth ws - k gives the pair deltas and the K
-        codes in one launch, then the profile lookup, the first-window
-        base and the int32 cumsum give every window's exact distance (the
-        bound at full depth is the distance), thresholded at ``thr_int``,
-        masked to p < nw and reduced per block: flat bool[ceil(nw / rspan)
-        * rspan / block]."""
+    def _depth_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int, depth: int, s_dev: torch.Tensor) -> torch.Tensor:
+        """The depth route: K4 at ``depth`` gives the pair deltas and the K
+        codes in one launch, then the lookup in ``s_dev`` (the profile on
+        ``prep``'s device), the first-window base and the int32 cumsum give
+        every window's lower bound at that depth (at ws - k, exact mode,
+        its exact distance), thresholded at ``thr_int``, masked to p < nw
+        and reduced per block: flat bool[ceil(nw / rspan) * rspan /
+        block].  K4 counts in int32, so any depth below the window width
+        runs here."""
         from .scan_kernels import scan_window_lower_bounds_codes
 
-        d = scan_window_lower_bounds_codes(prep, self.s_dev, self.k, self.ws, self.r, self.ws - self.k, nw=nw)
+        d = scan_window_lower_bounds_codes(prep, s_dev, self.k, self.ws, self.r, depth, nw=nw)
         n_win = -(-nw // self.rspan) * self.rspan
         below = torch.zeros(n_win, dtype=torch.bool, device=prep.device)
         below[:nw] = d < thr_int
@@ -922,7 +930,7 @@ class ScanEngine:
         return _scan_rows_d(rows, self.s_dev, self.k, self.ws, self.r)
 
     def _planned_record(self, prep: torch.Tensor, nw: int, thr: float):
-        """One planned pass: the block bitmap (K1, or K4 in exact mode),
+        """One planned pass: the block bitmap (K1, or K4 on the depth route),
         device region plan, K2 exact region recompute, device run reduce,
         and a single device-to-host copy (``_planned_streams``).  Returns
         (dist0, stream)."""

@@ -9,17 +9,21 @@ clusters, three groups).  Per record the engine builds the m activity
 bitmaps by one of two routes:
 
   * records with at least ``fused_min_windows`` windows in the largest
-    cluster, in a set whose clusters share one pair depth: K3, the fused
-    multi-cluster bitmap kernel (``ops/scan_cluster_fused.py``); the first
-    such record of an engine also runs K8, which checks K3's table staging
-    and raises on a mismatch;
-  * shorter records, and every record of a set that mixes pair depths (a
-    cluster whose windowsize is below k + 16 clamps its depth to ws - k):
-    the split pass (``_cluster_record_bitmaps``), whose pair counts come
-    from K5 (``ops/scan_kernels.codes_pair_multi``) in one launch for up to
-    32 windowsize groups at one depth, or for mixed depths from K4
-    (``codes_pair_ab_kcodes``: group 0's pair deltas and all K codes) and
-    K6 (``pair_ab_from_kcodes``: every other group's at its own depth).
+    cluster, in a set whose clusters share one pair depth of at most
+    ``MAX_BITMAP_DEPTH`` (``shared_depth``): K3, the fused multi-cluster
+    bitmap kernel (``ops/scan_cluster_fused.py``); the first such record
+    of an engine also runs K8, which checks K3's table staging and raises
+    on a mismatch;
+  * shorter records, and every record of any other set: the split pass
+    (``_cluster_record_bitmaps``), whose pair counts come from K5
+    (``ops/scan_kernels.codes_pair_multi``) in one launch for up to 32
+    windowsize groups at a shared depth of at most ``MAX_BITMAP_DEPTH``,
+    or else from K4 (``codes_pair_ab_kcodes``: group 0's pair deltas and
+    all K codes) and K6 (``pair_ab_from_kcodes``: every other group's at
+    its own depth), which count in int32 at any depth: a set that mixes
+    depths (a cluster whose windowsize is below k + ``bound_depth``
+    clamps its depth to ws - k; exact mode, where each group's depth is
+    its ws - k), or shares one past ``MAX_BITMAP_DEPTH``.
 
 K3 and K8 take at most ``MAX_CLUSTERS`` (32) profiles a call, so the
 engine runs them on consecutive groups of that many clusters, in cluster
@@ -39,6 +43,7 @@ import torch
 
 from .reference import RefProfile
 from .scan import (
+    MAX_BITMAP_DEPTH,
     ScanEngine,
     _check_record_len,
     _cumsum32,
@@ -78,11 +83,12 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
     thr_ints / n_valids: int32[m] conservative thresholds and window
     counts on the device.  The K codes and every group's pair deltas come
     from one K5 call for every 32 groups when the groups share one depth
-    (one call for any set of up to 32 windowsizes), else from K4 (group
-    0, with all K codes) and K6 (each other group at its own depth); the
-    pair kernels read zeros past the end of ``codes_dev``.  All m lookups
-    come from one gather; each group's clusters then run their delta,
-    prefix sum, threshold, validity mask and block any() together."""
+    of at most ``MAX_BITMAP_DEPTH`` (one call for any set of up to 32
+    windowsizes), else from K4 (group 0, with all K codes) and K6 (each
+    other group at its own depth); the pair kernels read zeros past the
+    end of ``codes_dev``.  All m lookups come from one gather; each
+    group's clusters then run their delta, prefix sum, threshold,
+    validity mask and block any() together."""
     from .scan_kernels import MAX_PAIR_GROUPS, codes_pair_ab_kcodes, codes_pair_multi, pair_ab_from_kcodes
 
     s2 = (s_stack.to(torch.int64) ** 2).sum(dim=1)
@@ -90,8 +96,7 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
     nt = span - 1
     max_w = max(g[0] for g in groups) - k + 1
     nkc = span + max_w - 1
-    depths = {g[1] for g in groups}
-    if len(depths) == 1:
+    if _shared_depth(groups) is not None:
         # K5 takes at most MAX_PAIR_GROUPS windowsizes a call: a set with
         # more takes one call for each run of that many, in group order
         abs_ = []
@@ -124,6 +129,14 @@ def _cluster_record_bitmaps(codes_dev: torch.Tensor, n_valids: torch.Tensor, s_s
     return torch.stack(bitmaps)
 
 
+def _shared_depth(groups: tuple) -> int | None:
+    """The one pair depth of every windowsize group, where they share one
+    of at most ``MAX_BITMAP_DEPTH`` (the depth K3 and K5 take), else None."""
+    depths = {g[1] for g in groups}
+    depth = next(iter(depths))
+    return depth if len(depths) == 1 and depth <= MAX_BITMAP_DEPTH else None
+
+
 class ClusterScanEngine:
     """Scans whole records against m cluster profiles on ``device`` (the
     card unless the caller asks for the CPU).
@@ -131,9 +144,12 @@ class ClusterScanEngine:
     Holds one ``ScanEngine`` per cluster, which supply the thresholds, the
     scale, the planned pass after the bitmap and the whole-record
     distances; the cluster engine replaces their m bitmap passes with one
-    (``record_streams``).  A cluster whose window is shorter than k + 16
-    clamps its pair depth to ws - k; a set that mixes depths takes the
-    split pass on every record.  This engine scans every record in one
+    (``record_streams``).  Every cluster's bound takes ``bound_depth`` (16
+    by default, any depth, or None for exact mode, the depth ws - k of its
+    group), as the JAX engine's do; a cluster whose window is shorter than
+    k + ``bound_depth`` clamps its pair depth to ws - k.  A set whose
+    clusters do not share one depth of at most ``MAX_BITMAP_DEPTH`` takes
+    the split pass on every record.  This engine scans every record in one
     pass, as the JAX one does: ``chunk_windows`` only sets the miner's
     prefetch limit and the sharded engine's span."""
 
@@ -141,12 +157,13 @@ class ClusterScanEngine:
     #: current one (``prepare_codes``)
     prefetch_h2d = True
 
-    def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda", chunk_windows: int | None = None):
+    def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda", chunk_windows: int | None = None, bound_depth: int | None = 16):
         if not profiles:
             raise ValueError("cluster mode takes at least one profile")
         self.k = k
         self.engines = [
-            ScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records, device=device, chunk_windows=chunk_windows)
+            ScanEngine(p.sum_kfv, k=k, ws=p.windowsize, r=p.n_records, device=device, chunk_windows=chunk_windows,
+                       bound_depth=bound_depth)
             for p in profiles
         ]
         e0 = self.engines[0]
@@ -156,18 +173,25 @@ class ClusterScanEngine:
         self.s_stack, self.specs = profiles_to_torch(profiles, self.device)
         by_key: dict[tuple[int, int], list[int]] = {}
         for ci, e in enumerate(self.engines):
-            by_key.setdefault((e.ws, e.bound_depth), []).append(ci)
+            # exact mode (depth None) counts the pairs at depth ws - k,
+            # where the lower bound equals the distance
+            depth = e.ws - k if e.bound_depth is None else e.bound_depth
+            by_key.setdefault((e.ws, depth), []).append(ci)
         #: (ws, pair depth, cluster indices, r per cluster) per windowsize
         #: group, in the JAX engine's order
         self.groups = tuple(
             (ws, depth, tuple(cis), tuple(self.engines[ci].r for ci in cis))
             for (ws, depth), cis in sorted(by_key.items())
         )
-        #: whether the clusters share one pair depth (else no K3)
+        #: whether the clusters share one pair depth
         self.one_depth = len({g[1] for g in self.groups}) == 1
+        #: the one depth K3 and K5 run at, or None where the set mixes
+        #: depths or shares one past MAX_BITMAP_DEPTH (then no K3, and the
+        #: split pass takes K4 and K6)
+        self.shared_depth = _shared_depth(self.groups)
         #: records whose largest cluster has at least this many windows go
-        #: through K3 in a one-depth set; shorter ones, and every record of
-        #: a mixed-depth set, through the split pass (tests change it)
+        #: through K3 where ``shared_depth`` is set; shorter ones, and every
+        #: record of any other set, through the split pass (tests change it)
         self.fused_min_windows = 1 << 16
         #: K3's and K8's calls: consecutive clusters, at most MAX_CLUSTERS each
         self.k3_groups = tuple(
@@ -184,8 +208,8 @@ class ClusterScanEngine:
     def prepare_codes(self, codes: "np.ndarray | torch.Tensor") -> torch.Tensor:
         """The record's int8 codes on the device, zero-padded for the widest
         cluster: for K3's tiles and halo, the split pass's span and its pair
-        kernel's tiles (K5's, or K4's for mixed depths), and region rows
-        near the record end (``scan.pad_to_device``)."""
+        kernel's tiles (K5's, or K4's without a ``shared_depth``), and
+        region rows near the record end (``scan.pad_to_device``)."""
         n = codes.shape[0]
         _check_record_len(n)
         return pad_to_device(codes, self._padded_len(n), np.int8, self.device)
@@ -198,7 +222,7 @@ class ClusterScanEngine:
         max_w = self.max_ws - self.k + 1
         n_tiles = -(-nw_max // self.fused_t)
         span = self._split_span(nw_max)
-        if self.one_depth:
+        if self.shared_depth is not None:
             split_need = _pair_multi_need(tuple(g[0] for g in self.groups), span - 1, span + max_w - 1)[1]
         else:
             w0 = self.groups[0][0] - self.k + 1
@@ -234,11 +258,11 @@ class ClusterScanEngine:
 
     def _bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
         """The m bitmaps of the record in ``prep``, by its route: K3 when
-        the set has one pair depth and the largest cluster has at least
+        the set has a ``shared_depth`` and the largest cluster has at least
         ``fused_min_windows`` windows, else the split pass.  ``s_stack`` is
         the profile stack on ``prep``'s device (the engine's by default);
         ``fits_out`` defers K3's int32 check to the caller."""
-        if self.one_depth and max(nws) >= self.fused_min_windows:
+        if self.shared_depth is not None and max(nws) >= self.fused_min_windows:
             return self._fused_bitmaps(prep, nws, thr_ints, s_stack, fits_out)
         return self._split_bitmaps(prep, nws, thr_ints, s_stack)
 
@@ -253,11 +277,11 @@ class ClusterScanEngine:
         )
 
     def _fused_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None, fits_out: list | None = None) -> torch.Tensor:
-        """K3 over the whole record: bool[m, n_tiles * t // block], one K3
-        call for each of ``k3_groups`` (its own bounds, thresholds and
-        window counts, every group at the record's n_tiles), the groups'
-        bitmaps joined in cluster order; with ``fits_out`` each call
-        appends its own int32 check.  The engine's first K3 record runs K8
+        """K3 over the whole record at ``shared_depth``: bool[m, n_tiles *
+        t // block], one K3 call for each of ``k3_groups`` (its own bounds,
+        thresholds and window counts, every group at the record's
+        n_tiles), the groups' bitmaps joined in cluster order; with
+        ``fits_out`` each call appends its own int32 check.  The engine's first K3 record runs K8
         on every group first and raises on a mismatch."""
         from .scan_cluster_fused import fused_cluster_record_bitmaps, lookup_roundtrip
 
@@ -277,7 +301,7 @@ class ClusterScanEngine:
         bms = [
             fused_cluster_record_bitmaps(
                 prep, s_stack[g], thr_ints[g], l0s[g], nws[g],
-                k=self.k, specs=self.specs[g], depth=self.groups[0][1], t=t, block=self.block,
+                k=self.k, specs=self.specs[g], depth=self.shared_depth, t=t, block=self.block,
                 n_tiles=n_tiles, fits_out=fits_out,
             )
             for g in self.k3_groups

@@ -237,7 +237,9 @@ def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc:
     """Net pair deltas of every windowsize group plus the K codes, one pass.
 
     codes: int8[n] 2-bit codes (read as zeros past their end); ws_tuple:
-    the G group windowsizes; one pair ``depth`` < every window width.
+    the G group windowsizes; one pair ``depth`` < every window width and
+    at most ``MAX_BITMAP_DEPTH`` (K5 keeps its pair counts as bytes; the
+    cluster engine routes deeper sets to K4 and K6 before any launch).
     Returns (ab int32[G, nt], kcodes int32[nkc]), ab[g] bit-identical to
     ``_pair_ab(K, ws_tuple[g] - k + 1, nt, depth)``.  Launches K5 on a CUDA
     tensor, the plain twin on a CPU tensor; K5's ab is a view of rows
@@ -247,9 +249,9 @@ def codes_pair_multi(codes: torch.Tensor, k: int, ws_tuple: tuple, nt: int, nkc:
     w_min = min(ws_tuple) - k + 1
     if codes.dim() != 1 or codes.dtype != torch.int8:
         raise ValueError(f"codes_pair_multi wants int8[n] codes, got {codes.dtype}{tuple(codes.shape)}")
-    if not 1 <= len(ws_tuple) <= MAX_PAIR_GROUPS or not 0 <= depth < w_min or depth > 255:
+    if not 1 <= len(ws_tuple) <= MAX_PAIR_GROUPS or not 0 <= depth < w_min or depth > scan.MAX_BITMAP_DEPTH:
         raise ValueError(
-            f"codes_pair_multi: need 1..{MAX_PAIR_GROUPS} groups, 0 <= depth < min(w) and depth <= 255 "
+            f"codes_pair_multi: need 1..{MAX_PAIR_GROUPS} groups, 0 <= depth < min(w) and depth <= {scan.MAX_BITMAP_DEPTH} "
             f"(groups={len(ws_tuple)}, depth={depth}, w_min={w_min})"
         )
     if codes.device.type == "cpu":

@@ -8,10 +8,11 @@ A record's window axis is cut into n_data contiguous shards of equal span,
 shard d owns windows [d span, (d + 1) span).  Its codes, with a ws - 1 halo,
 cross to its device through a pinned staging buffer, and the one-device
 bitmap pass runs there with its carry seeded from the shard's own first
-window, so each shard's bitmap is a certified superset on its own (K1 for one
-profile; for clusters K3, K5's split pass or K4 and K6, by the shard's
-length and the set's depths).  Every shard's pass is queued before any is
-read back, so N cards run at once.  The shards' bitmaps come back to the
+window, so each shard's bitmap is a certified superset on its own (for one
+profile K1, or K4 on the depth route: exact mode and depths past
+``MAX_BITMAP_DEPTH``; for clusters K3, K5's split pass or K4 and K6, by
+the shard's length and the set's depths).  Every shard's pass is queued
+before any is read back, so N cards run at once.  The shards' bitmaps come back to the
 host, are all-gathered across processes as packed words, and one planned
 pass then runs on the mesh's first device with its region rows cut from
 the record's host codes (``ops/scan._planned_streams``): no device holds
@@ -148,8 +149,11 @@ class ShardedScanEngine(ScanEngine):
     """``ScanEngine`` whose bitmap pass runs sharded over a mesh's data
     axis: the same (dist0, stream) contract, bit-identical to the
     one-device engine.  The planned pass, and ``collect_dists``, run on
-    the mesh's first device.  Exact mode (``bound_depth=None``) does not
-    shard."""
+    the mesh's first device.  Each shard's bitmap takes the one-device
+    engine's route at ``bound_depth`` on its own card with its own copy of
+    the profile: K1, or the depth route (K4) in exact mode
+    (``bound_depth=None``) and past ``MAX_BITMAP_DEPTH``, each shard's
+    codes padded for that route's kernel."""
 
     prefetch_h2d = False  # each shard's codes cross inside record_stream
 
@@ -159,8 +163,6 @@ class ShardedScanEngine(ScanEngine):
     def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         mesh = make_mesh(device=device) if mesh is None else mesh
         super().__init__(s_profile, k, ws, r, device=mesh.first, bound_depth=bound_depth, chunk_windows=chunk_windows)
-        if self.bound_depth is None:
-            raise ValueError("ShardedScanEngine: exact mode (bound_depth=None) scans whole records on one device")
         self.mesh = mesh
         self._s_on = {self.device: self.s_dev}
 
@@ -237,21 +239,23 @@ class ShardedScanEngine(ScanEngine):
 
 class ShardedClusterScanEngine(ClusterScanEngine):
     """``ClusterScanEngine`` whose m-profile bitmap pass runs sharded over a
-    mesh's data axis (profiles replicated on every shard's device).  Each
-    shard takes the one-device routes on its own codes: K3 when the set
-    has one pair depth and the shard has at least ``fused_min_windows``
-    windows, else the split pass (K5, or K4 and K6 for mixed depths).  K8
-    runs once per engine.  The streams, cut at the cluster loop's bound,
-    are bit-identical to the one-device engine's."""
+    mesh's data axis (profiles replicated on every shard's device), at
+    ``bound_depth`` as the one-device engine.  Each shard takes the
+    one-device routes on its own codes: K3 when the set has a
+    ``shared_depth`` and the shard has at least ``fused_min_windows``
+    windows, else the split pass (K5, or K4 and K6 for mixed depths and
+    depths past ``MAX_BITMAP_DEPTH``).  K8 runs once per engine.  The
+    streams, cut at the cluster loop's bound, are bit-identical to the
+    one-device engine's."""
 
     prefetch_h2d = False  # each shard's codes cross inside record_streams
 
     #: spans per shard in one segment batch on the checkpointed path
     _seg_spd = 4
 
-    def __init__(self, profiles: list[RefProfile], k: int, mesh: Mesh | None = None, chunk_windows: int | None = None, device: "str | torch.device" = "cuda"):
+    def __init__(self, profiles: list[RefProfile], k: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         mesh = make_mesh(device=device) if mesh is None else mesh
-        super().__init__(profiles, k, device=mesh.first, chunk_windows=chunk_windows)
+        super().__init__(profiles, k, device=mesh.first, chunk_windows=chunk_windows, bound_depth=bound_depth)
         self.mesh = mesh
         self._stacks = {self.device: self.s_stack}
 

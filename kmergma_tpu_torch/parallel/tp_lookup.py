@@ -110,7 +110,7 @@ class TPScanEngine(ScanEngine):
     No whole table lives on a device (``s_dev`` is None): the engine
     overrides every ``ScanEngine`` method that reads it (``_record_bitmap``,
     ``_rows_d``, ``_chunk_distances``), its ``record_stream`` never takes
-    the segmented path, and ``_exact_bitmap`` raises."""
+    the segmented path, and ``_depth_bitmap`` raises."""
 
     prefetch_h2d = False
 
@@ -182,8 +182,8 @@ class TPScanEngine(ScanEngine):
             out.append(below.view(-1, self.block).any(dim=1))
         return torch.cat(out)
 
-    def _exact_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int) -> torch.Tensor:
-        raise NotImplementedError("TPScanEngine holds no whole table: its exact mode runs in _record_bitmap")
+    def _depth_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int, depth: int, s_dev) -> torch.Tensor:
+        raise NotImplementedError("TPScanEngine holds no whole table: every depth runs in _record_bitmap")
 
     def _rows_d(self, rows: torch.Tensor) -> torch.Tensor:
         kc = rolling_kmer_codes(rows, self.k)

@@ -281,7 +281,8 @@ def test_chip_smoke_phases_on_cpu(capsys):
     """chip_smoke.run drives every phase of every path (single profile,
     cluster mode, strobemers, the device aligner, checkpoint/resume of the
     three miners, long records and shards, the profile-sharded engine, the
-    two-axis step, the paired spectrum, the mixed-depth cluster set, the bench), the
+    two-axis step, the paired spectrum, the mixed-depth cluster set, the engines' depth
+    options, the bench), the
     stage breakdowns and the busy shares included, on CPU tensors at a
     small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
@@ -301,12 +302,12 @@ def test_chip_smoke_phases_on_cpu(capsys):
         "align_dp",
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "long_path_launches", "two_axis_launches"}
+            "long_path_launches", "two_axis_launches", "options_launches"}
     # each median time with its fastest window beside it; K1's and K3's stages on the card; device
     # times (K2, K4, K6), K2's whole-record rows, K6's prefix depth and K4r's s = 3 route
     extra = {"ms_min", "plain_ms_min", "library_ms_min", "stages_ms", "device_ms", "whole_record", "prefix_depth", "s3",
              "shapes", "fragmented", "native_one_window_ms", "native_threads_ms", "overflowed", "two_axis", "phase_launches",
-             "synthetic_calls", "kernel_launches"}
+             "synthetic_calls", "kernel_launches", "depth_shapes"}
     assert all(keys | {"ms_min", "plain_ms_min"} <= set(k) <= keys | extra for k in report["kernels"])
     assert all(k["ms_min"] <= k["ms"] and k["plain_ms_min"] <= k["plain_ms"] for k in report["kernels"])
     assert [k["name"] for k in report["kernels"] if "stages_ms" in k] == ["fused_record_bitmaps", "fused_cluster_record_bitmaps"]
@@ -337,6 +338,16 @@ def test_chip_smoke_phases_on_cpu(capsys):
     k2 = next(k for k in report["kernels"] if k["name"] == "match_counts")
     k6 = next(k for k in report["kernels"] if k["name"] == "pair_ab_from_kcodes")
     assert k2["whole_record"]["rows"] > 0 and k6["prefix_depth"]["depth"] == 14
+    # the engines' depth options: every option's streams equal the default engine's and the int64 oracles', and
+    # K4, K6, K3 and K5 against their twins at the options' shapes
+    shapes = {k["name"]: k["depth_shapes"] for k in report["kernels"] if "depth_shapes" in k}
+    assert {name: sorted(v) for name, v in shapes.items()} == {
+        "fused_cluster_record_bitmaps": ["d64", "d8"], "codes_pair_multi": ["d64_60000"],
+        "codes_pair_ab_kcodes[K4]": ["single_d270", "single_d283"], "pair_ab_from_kcodes": ["cluster_d270", "cluster_d283"],
+    }
+    assert all(s["max_abs_err"] == 0 and s["bound_ms"] > 0 for v in shapes.values() for s in v.values())
+    assert out.count("streams equal the default engine's and the int64 host oracle's") == 2 * (4 + 2 + 4 + 1)
+    assert out.count("StrobeSpanEngine bound_depth 16, ") == 2 and "stream equal to the exact engine's and the int64" in out
     # the two-axis step on four meshes in both threshold cases against the int64 host oracle, K2 at its shape, and
     # the hybrid mesh over a one-rank group
     assert k2["two_axis"]["rows"] == 25 and k2["two_axis"]["max_abs_err"] == 0

@@ -190,12 +190,22 @@ def test_depth_past_bitmap_kernel_takes_exact_mode(bound_depth):
 
 
 def test_depth_past_bitmap_kernel_short_of_full_depth_raises():
-    """A bound_depth above MAX_BITMAP_DEPTH but below ws - k has neither K1
-    nor exact mode to run it: the engine refuses it when built."""
-    s, _codes = _planted(6, n=1_000, k=6, ws=289, r=5)
-    with pytest.raises(ValueError, match="full depth 283"):
-        tscan.ScanEngine(s, k=6, ws=289, r=5, device="cpu", bound_depth=tscan.MAX_BITMAP_DEPTH + 1)
-    assert tscan.ScanEngine(s, k=6, ws=289, r=5, device="cpu", bound_depth=tscan.MAX_BITMAP_DEPTH).bound_depth == 255
+    """A bound_depth above MAX_BITMAP_DEPTH but below ws - k is past K1's
+    byte counts, whose wrapper still raises at it; the engine keeps the
+    depth and routes its bitmap to K4 (the depth route) instead, and up to
+    MAX_BITMAP_DEPTH it stays on K1.  Streams at such depths against the
+    JAX engine: tests/test_torch_engine_options.py."""
+    from kmergma_tpu_torch.ops.scan_fused import fused_record_bitmaps
+
+    s, codes = _planted(6, n=1_000, k=6, ws=289, r=5)
+    deep = tscan.ScanEngine(s, k=6, ws=289, r=5, device="cpu", bound_depth=tscan.MAX_BITMAP_DEPTH + 1)
+    edge = tscan.ScanEngine(s, k=6, ws=289, r=5, device="cpu", bound_depth=tscan.MAX_BITMAP_DEPTH)
+    assert deep.bound_depth == 256 and not deep.on_k1
+    assert edge.bound_depth == 255 and edge.on_k1
+    prep = edge.prepare_codes(codes)  # padded for K1's tiles
+    with pytest.raises(ValueError, match="depth <= 255"):
+        fused_record_bitmaps(prep, deep.s_dev, 0, torch.zeros((), dtype=torch.int32), 712, k=6, ws=289, r=5,
+                             depth=256, t=4096, block=512, n_tiles=1)
 
 
 def test_k10_on_one_device_matches_jax_host_engine():

@@ -327,8 +327,8 @@ def test_engine_on_card_matches_cpu(record, cuda_device):
     np.testing.assert_array_equal(a[2], b[2])
 
 
-def _k3_inputs(profiles, k, codes, thrs, device):
-    eng = ClusterScanEngine(profiles, k=k, device=device)
+def _k3_inputs(profiles, k, codes, thrs, device, bound_depth=16):
+    eng = ClusterScanEngine(profiles, k=k, device=device, bound_depth=bound_depth)
     prep = eng.prepare_codes(codes)
     nws = [codes.shape[0] - ws + 1 for ws, _r in eng.specs]
     thr_ints = [int(e._thr_int(x)) for e, x in zip(eng.engines, thrs)]
@@ -616,6 +616,70 @@ def test_k6_matches_twin_on_card(record, cuda_device, w, depth):
     assert pair_ab_from_kcodes.launches == before + 1
     assert torch.equal(ab, tscan._pair_ab(kc, w, nt, depth))
     assert torch.equal(ab, pair_ab_from_kcodes(kc[: nt + w].clone(), w, nt, depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [270, 283])
+def test_depth_route_k4_and_k6_match_twins_on_card(record, alp_clusters, cuda_device, depth):
+    """The depth route at 270 and at the Alp_V profile's full depth 283:
+    K4 at the single-profile engine's shapes (its padded codes, every
+    window) and K6 on those K codes (a ragged last tile), one launch each
+    and bit-identical to their twins; the single-profile and cluster
+    engines at that depth (283: exact mode, and K4 and K6 for the mixed
+    cluster depths) give the CPU's streams, with one K4 launch a record."""
+    codes, p = record
+    k, ws = 6, p.windowsize
+    w = ws - k + 1
+    eng = tscan.ScanEngine(p.sum_kfv, k=k, ws=ws, r=p.n_records, device=cuda_device, bound_depth=depth)
+    assert not eng.on_k1
+    prep, nw = eng.prepare_codes(codes), codes.shape[0] - ws + 1
+    args = (prep, k, w, nw - 1, nw + w - 1, depth)
+    before = codes_pair_ab_kcodes.launches
+    ab, kc = codes_pair_ab_kcodes(*args)
+    torch.cuda.synchronize()
+    assert codes_pair_ab_kcodes.launches == before + 1
+    ab_p, kc_p = _codes_pair_ab_kcodes_plain(*args)
+    assert torch.equal(ab, ab_p) and torch.equal(kc, kc_p) and int(ab.abs().sum()) > 0
+    nt = nw - 1 - 333
+    before = pair_ab_from_kcodes.launches
+    ab6 = pair_ab_from_kcodes(kc[: nt + w], w, nt, depth)
+    torch.cuda.synchronize()
+    assert pair_ab_from_kcodes.launches == before + 1
+    assert torch.equal(ab6, tscan._pair_ab(kc, w, nt, depth))
+    cpu = tscan.ScanEngine(p.sum_kfv, k=k, ws=ws, r=p.n_records, device="cpu", bound_depth=depth)
+    before = codes_pair_ab_kcodes.launches
+    assert eng.record_stream(codes, 30.0) == cpu.record_stream(codes, 30.0)
+    assert codes_pair_ab_kcodes.launches == before + 1
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+    card = ClusterScanEngine(alp_clusters, k=6, device=cuda_device, bound_depth=depth)
+    before = (codes_pair_ab_kcodes.launches, pair_ab_from_kcodes.launches, fused_cluster_record_bitmaps.launches)
+    got = card.record_streams(codes, thrs)
+    assert card.shared_depth is None and (
+        codes_pair_ab_kcodes.launches, pair_ab_from_kcodes.launches, fused_cluster_record_bitmaps.launches
+    ) == (before[0] + 1, before[1] + len(card.groups) - 1, before[2])
+    assert got == ClusterScanEngine(alp_clusters, k=6, device="cpu", bound_depth=depth).record_streams(codes, thrs)
+
+
+@pytest.mark.cuda
+def test_k3_at_depth_64_matches_twin_on_card(record, alp_clusters, cuda_device):
+    """K3 at depth 64 for the six Alp_V clusters (the cluster engine's
+    bound_depth=64, a depth K3's byte counts take): one call (two
+    launches), bit-identical to its twin; the engine's streams on both
+    routes equal the CPU's."""
+    codes, _p = record
+    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
+    eng, prep, nws, thr_ints, l0s, kw = _k3_inputs(alp_clusters, 6, codes, thrs, cuda_device, bound_depth=64)
+    assert eng.shared_depth == kw["depth"] == 64
+    before = fused_cluster_record_bitmaps.launches
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    torch.cuda.synchronize()
+    assert fused_cluster_record_bitmaps.launches == before + 2  # totals, then the bitmap
+    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
+    assert all(int(got[c].sum()) > 0 for c in range(6))
+    cpu = ClusterScanEngine(alp_clusters, k=6, device="cpu", bound_depth=64)
+    for fused_min in (1, 1 << 30):  # K3, then the split pass (K5 at depth 64)
+        eng.fused_min_windows = cpu.fused_min_windows = fused_min
+        assert eng.record_streams(codes, thrs) == cpu.record_streams(codes, thrs)
 
 
 @pytest.mark.cuda
