@@ -929,8 +929,8 @@ def single_profile_phase(ctx) -> list:
     n_tiles = -(-nw // engine.fused_t)
     l0 = _first_window_l0(prep, engine.s_dev, k=k, ws=ws, r=r, depth=depth)
     kw = dict(k=k, ws=ws, r=r, depth=depth, t=engine.fused_t, block=engine.block, n_tiles=n_tiles)
-    k1_ms, bm = kernel_ms(lambda: fused_record_bitmaps(prep, engine.s_dev, thr_int, l0, nw, **kw), on_card)
-    k1_plain_ms, bm_plain = kernel_ms(lambda: fused_record_bitmaps_plain(prep, engine.s_dev, thr_int, l0, nw, **kw), on_card, reps=3)
+    k1_ms, bm = kernel_ms(lambda: fused_record_bitmaps(prep, engine.s_dev, thr=thr_int, l0=l0, nw=nw, **kw), on_card)
+    k1_plain_ms, bm_plain = kernel_ms(lambda: fused_record_bitmaps_plain(prep, engine.s_dev, thr=thr_int, l0=l0, nw=nw, **kw), on_card, reps=3)
     k1_err = max_err((bm, bm_plain))
     n_active = int(bm.sum())
     n_win = n_tiles * engine.fused_t
@@ -1817,7 +1817,15 @@ def engine_options_phase(ctx) -> dict:
     is held by its launch counts.  Then the kernels at those shapes
     (``option_kernel_shapes``).  Returns {"launches": every kernel's
     launches over the phase's counted calls, "shapes": the kernel rows'
-    new shapes}."""
+    new shapes}.
+
+    First, after the default engines, ``ScanEngine(S, k, ws, r, chunk)``
+    and ``ClusterScanEngine(profiles, k, chunk)`` as a JAX caller writes
+    them, ``chunk_windows`` by position and the card by default: with a
+    chunk that cuts the first contig into two segments, ``ScanEngine``
+    takes the segmented route (K1 twice a segment); the cluster engine,
+    which does not segment, launches as the default one."""
+    import numpy as np
     import torch
 
     from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons
@@ -1860,7 +1868,7 @@ def engine_options_phase(ctx) -> dict:
     base = []
     for codes in records:
         n = codes.shape[0]
-        _got, cms, cwant = call(lambda: cone.record_streams(codes, cthrs))
+        cgot, cms, cwant = call(lambda: cone.record_streams(codes, cthrs))
         _got, sms, swant = call(lambda: one.record_stream(codes, thr)[:2])
         d = host._dists(codes)
         require(cwant == coracle.minimal_streams(codes, cthrs, cone.max_ws),
@@ -1868,7 +1876,7 @@ def engine_options_phase(ctx) -> dict:
         require(swant == (float(d[0]) / host.scale, minimal_stream(d, host.scale, thr, n - ws)),
                 f"the default ScanEngine's stream differs from the int64 host oracle's on a {n} bp record")
         require(len(swant[1]) > 0 and any(s for _d0, s in cwant), f"no stream entries on the {n} bp record")
-        base.append({"cluster": (cms, cwant), "single": (sms, swant)})
+        base.append({"cluster": (cms, cwant), "single": (sms, swant), "cluster_launches": cgot})
         print(f"engine options, {n} bp record: the default-depth (16) engines' streams equal the int64 host oracles' "
               f"(ClusterScanEngine {cms:.3f} ms, {[len(s) for _d0, s in cwant]} entries; ScanEngine {sms:.3f} ms, "
               f"{len(swant[1])} entries) [{label}]")
@@ -1883,6 +1891,45 @@ def engine_options_phase(ctx) -> dict:
             wrong = {name: got[name] for name, n_l in want_route.items() if got[name] != n_l}
             require(not wrong and got["match_counts"] > 0 and got["run_reduce_multi"] > 0,
                     f"{what} on the {n} bp record did not take its route: {route(got)}")
+
+    # --- the engines built as a JAX caller writes them: chunk_windows by position --
+    # a chunk that cuts the first record into two segments of 2 x chunk windows
+    nw0 = records[0].shape[0] - ws + 1
+    chunk = 1 << max(10, (nw0 // 3).bit_length() - 1)
+    on_dev = {} if on_card else {"device": device}  # the card by default
+    positional = {"ScanEngine": ScanEngine(profile.sum_kfv, k, ws, r, chunk, **on_dev),
+                  "ClusterScanEngine": ClusterScanEngine(clusters.profiles, k, chunk, **on_dev)}
+    for name, eng in positional.items():
+        require(eng.chunk == chunk and eng.device == one.device and eng.device.index in (None, 0),
+                f"{name} built with chunk_windows {chunk} by position has chunk {eng.chunk} on {eng.device}")
+    for i, codes in enumerate(records):
+        n = codes.shape[0]
+        nw = n - ws + 1
+        n_seg = -(-nw // (2 * chunk))
+        require(isinstance(codes, np.ndarray) and (i > 0 or n_seg == 2), f"the {n} bp record takes no segmented route")
+        got, ms, out = call(lambda: positional["ScanEngine"].record_stream(codes, thr)[:2])
+        base_ms, want = base[i]["single"]
+        require(out == want, f"ScanEngine with chunk_windows {chunk} by position differs on the {n} bp record")
+        print(f"ScanEngine(S, k, ws, r, {chunk}) as a JAX caller writes it, {n} bp record: on {one.device}, "
+              f"{'one pass' if n_seg == 1 else f'{n_seg} segments of {2 * chunk} windows'}, {ms:.3f} ms (default engine: "
+              f"{base_ms:.3f} ms), the same stream as the default engine and the int64 host oracle; launches "
+              f"{route(got)} [{label}]")
+        if on_card:
+            off = ("fused_cluster_record_bitmaps", "codes_pair_multi", "codes_pair_ab_kcodes", "pair_ab_from_kcodes")
+            require(got["fused_record_bitmaps"] == 2 * n_seg and got["match_counts"] > 0 and got["run_reduce_multi"] > 0
+                    and not any(got[name] for name in off),
+                    f"ScanEngine with chunk_windows {chunk} on the {n} bp record: predicted K1 {2 * n_seg}, K2 and R1, "
+                    f"no other kernel; launched {route(got)}")
+        got, ms, out = call(lambda: positional["ClusterScanEngine"].record_streams(codes, cthrs))
+        base_ms, want = base[i]["cluster"]
+        require(out == want, f"ClusterScanEngine with chunk_windows {chunk} by position differs on the {n} bp record")
+        print(f"ClusterScanEngine(profiles, {k}, {chunk}) as a JAX caller writes it, {n} bp record: {ms:.3f} ms "
+              f"(default engine: {base_ms:.3f} ms), the same streams as the default engine and the int64 host oracle "
+              f"(the cluster engine does not segment); launches {route(got)} [{label}]")
+        if on_card:
+            require(got == base[i]["cluster_launches"],
+                    f"ClusterScanEngine with chunk_windows {chunk} on the {n} bp record launched {route(got)}, the "
+                    f"default engine {route(base[i]['cluster_launches'])}")
 
     # --- ClusterScanEngine at each depth ----------------------------------------
     engines = {}
@@ -2207,9 +2254,9 @@ def k1_twin_err(engine, codes, thr: float) -> tuple[int, int]:
     prep = engine.prepare_codes(codes)
     depth = engine.bound_depth
     l0 = _first_window_l0(prep, engine.s_dev, k=engine.k, ws=engine.ws, r=engine.r, depth=depth)
-    args = (prep, engine.s_dev, int(engine._thr_int(thr)), l0, nw)
-    kw = dict(k=engine.k, ws=engine.ws, r=engine.r, depth=depth, t=engine.fused_t, block=engine.block,
-              n_tiles=-(-nw // engine.fused_t))
+    args = (prep, engine.s_dev)
+    kw = dict(thr=int(engine._thr_int(thr)), l0=l0, nw=nw, k=engine.k, ws=engine.ws, r=engine.r, depth=depth,
+              t=engine.fused_t, block=engine.block, n_tiles=-(-nw // engine.fused_t))
     bm = fused_record_bitmaps(*args, **kw)
     return max_err((bm, fused_record_bitmaps_plain(*args, **kw))), int(bm.sum())
 
@@ -2297,9 +2344,9 @@ def k3_measure(ceng, record, thrs, on_card: bool) -> dict:
     l0s = torch.stack([_first_window_l0(prep, e.s_dev, k=k, ws=e.ws, r=e.r, depth=depth) for e in ceng.engines])
     n_tiles = -(-max(nws) // ceng.fused_t)
     kw = dict(k=k, specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block, n_tiles=n_tiles)
-    ms, bm = kernel_ms(lambda: fused_cluster_record_bitmaps(prep, ceng.s_stack, thr_ints, l0s, nws, **kw), on_card)
+    ms, bm = kernel_ms(lambda: fused_cluster_record_bitmaps(prep, ceng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw), on_card)
     plain_ms, bm_plain = kernel_ms(
-        lambda: fused_cluster_record_bitmaps_plain(prep, ceng.s_stack, thr_ints, l0s, nws, **kw), on_card, reps=1
+        lambda: fused_cluster_record_bitmaps_plain(prep, ceng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw), on_card, reps=1
     )
     n_win = n_tiles * ceng.fused_t
     io = (n_win + _k1_halo(max(widths)) + 4 * m * 4**k + 4 * bm.numel(), (4 * depth + PROFILE_OPS_PER_WINDOW * m) * n_win)
@@ -2319,9 +2366,9 @@ def k3_twin_err(ceng, codes, thrs) -> tuple[int, int]:
     prep = ceng.prepare_codes(codes)
     depth = ceng.groups[0][1]
     l0s = torch.stack([_first_window_l0(prep, e.s_dev, k=ceng.k, ws=e.ws, r=e.r, depth=depth) for e in ceng.engines])
-    args = (prep, ceng.s_stack, [int(e._thr_int(x)) for e, x in zip(ceng.engines, thrs)], l0s, nws)
-    kw = dict(k=ceng.k, specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block,
-              n_tiles=-(-max(nws) // ceng.fused_t))
+    args = (prep, ceng.s_stack)
+    kw = dict(thrs=[int(e._thr_int(x)) for e, x in zip(ceng.engines, thrs)], l0s=l0s, nws=nws, k=ceng.k,
+              specs=ceng.specs, depth=depth, t=ceng.fused_t, block=ceng.block, n_tiles=-(-max(nws) // ceng.fused_t))
     bm = fused_cluster_record_bitmaps(*args, **kw)
     return max_err((bm, fused_cluster_record_bitmaps_plain(*args, **kw))), int(bm.sum())
 
@@ -3666,7 +3713,7 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
     prep = engine.prepare_codes(record)
     depth = engine.bound_depth
     l0 = _first_window_l0(prep, engine.s_dev, k=k, ws=ws, r=r, depth=depth)
-    bm = fused_record_bitmaps(prep, engine.s_dev, int(engine._thr_int(thr)), l0, nw, k=k, ws=ws, r=r, depth=depth,
+    bm = fused_record_bitmaps(prep, engine.s_dev, thr=int(engine._thr_int(thr)), l0=l0, nw=nw, k=k, ws=ws, r=r, depth=depth,
                               t=engine.fused_t, block=engine.block, n_tiles=-(-nw // engine.fused_t))
     k2 = k2_measure(engine, prep, bm, nw, whole_bp, on_card, label)
     clusters = eliminate_null_params(cluster_ref_api(REF, 6))

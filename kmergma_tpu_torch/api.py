@@ -68,6 +68,7 @@ def find_genes(
     kmer_dist_threshold_buffer: float = 8.0,
     devices: int | None = None,
     checkpoint_path: str | None = None,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> list:
     """Single-profile homology search on ``device`` (the card unless the
@@ -145,6 +146,7 @@ def find_genes_cluster_mode(
     kmer_dist_threshold_buffer: float = 7.0,
     devices: int | None = None,
     checkpoint_path: str | None = None,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> list:
     """Cluster-mode (multi-profile) homology search on ``device`` (the card
@@ -230,6 +232,7 @@ def strobemer_find_genes(
     do_return_align: bool = False,
     verbose: bool = True,
     checkpoint_path: str | None = None,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> list:
     """Randstrobe-based homology search on ``device`` (the card unless the

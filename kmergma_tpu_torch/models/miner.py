@@ -114,6 +114,7 @@ def record_kmergma(
     gap_open: int = -69,
     gap_extend: int = -1,
     engine: "ScanEngine | HostScanEngine | None" = None,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> list[FastaRecord]:
     """Single-record scan with the MultiThread miner's output format: the
@@ -157,6 +158,7 @@ def mine_genome(
     get_hit_loci: bool = False,
     engine: "ScanEngine | HostScanEngine | None" = None,
     checkpoint_path: str | None = None,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> MineResult:
     """Mine a genome against one profile.  Without ``engine``, the device

@@ -48,6 +48,7 @@ def mine_genome_clusters(
     get_hit_loci: bool = False,
     engine: "ClusterScanEngine | None" = None,
     checkpoint_path: str | None = None,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> MineResult:
     """``engine`` may be any object with the cluster engine's

@@ -105,7 +105,7 @@ class StrobeSpanEngine(ScanEngine):
     4096 codes).  ``chunk_windows`` is ``ScanEngine``'s.
     """
 
-    def __init__(self, strobe_profile: StrobeProfile, xstar: int, chunk_windows: int | None = None, bound_depth: int | None = None, device: "str | torch.device" = "cuda"):
+    def __init__(self, strobe_profile: StrobeProfile, xstar: int, chunk_windows: int | None = None, bound_depth: int | None = None, *, device: "str | torch.device" = "cuda"):
         p = strobe_profile
         w = p.windowsize - p.k  # the reference's effective rolling width
         s_mod = p.sum_kfv.astype(np.int64).copy()
@@ -134,6 +134,7 @@ def strobe_mine_genome(
     genome_dev: "list | None" = None,
     device_extract: bool | None = None,
     engine_cache: "dict | None" = None,
+    *,
     device: "str | torch.device" = "cuda",
     engine_factory=None,
 ) -> MineResult:

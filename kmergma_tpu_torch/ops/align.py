@@ -252,6 +252,7 @@ def align_hits_batch(
     subjects: "list[str | bytes]",
     gap_open: int = -69,
     gap_extend: int = -1,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> "list[AlignResult]":
     """Batch-align a record's hits, bit-identical on every route (the JAX

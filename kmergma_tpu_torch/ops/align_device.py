@@ -438,6 +438,7 @@ def semiglobal_align_device(
     subjects: "list[str | bytes]",
     gap_open: int = -69,
     gap_extend: int = -1,
+    *,
     device: "str | torch.device" = "cuda",
 ) -> "list[AlignResult]":
     """Device-batched ``semiglobal_align``, bit-identical results.

@@ -77,6 +77,7 @@ def exact_match(
     subject: "Query | PathOrRecords",
     overlap: bool = True,
     use_device: bool | None = None,
+    *,
     device: "str | torch.device" = "cuda",
 ):
     """All exact occurrences of ``query`` in ``subject``.
@@ -183,7 +184,7 @@ def _subject_codes(sub: bytes, device: torch.device, cache: SubjectCache) -> tor
     return codes
 
 
-def match_starts_engine(sub: bytes, q: bytes, device: "str | torch.device" = "cuda", cache: SubjectCache | None = None) -> np.ndarray:
+def match_starts_engine(sub: bytes, q: bytes, *, device: "str | torch.device" = "cuda", cache: SubjectCache | None = None) -> np.ndarray:
     """Exact occurrences via the device prefix-register scan on ``device``
     (the card unless the caller asks for the CPU).
 
@@ -234,7 +235,7 @@ def _match_one(q: bytes, sub: bytes, overlap: bool, use_device: bool | None, dev
         return None
     if use_device is None:
         use_device = len(sub) >= _DEVICE_MIN
-    starts = match_starts_engine(sub, q, device) if use_device else match_starts_np(sub, q)
+    starts = match_starts_engine(sub, q, device=device) if use_device else match_starts_np(sub, q)
     if starts.size == 0:
         return None
     return _ranges(starts, len(q), overlap)

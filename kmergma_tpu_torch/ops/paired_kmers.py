@@ -114,7 +114,7 @@ def kmer_pair_count_into(seq, k: int, bins: np.ndarray) -> None:
         np.add.at(bins, idx, 1.0)
 
 
-def kmer_pair_count_device(seq, k: int = 3, device: "str | torch.device" = "cuda") -> np.ndarray:
+def kmer_pair_count_device(seq, k: int = 3, *, device: "str | torch.device" = "cuda") -> np.ndarray:
     """The paired spectrum from histograms on ``device`` (the card unless
     the caller asks for the CPU), bit-identical to ``kmer_pair_count``.
 

@@ -677,7 +677,7 @@ class ScanEngine:
     #: codes as uint8 (256 codes at s = 2) or int32 (s = 3)
     codes_dtype = np.int8
 
-    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, device: "str | torch.device" = "cuda", bound_depth: int | None = 16, chunk_windows: int | None = None):
+    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, chunk_windows: int | None = None, *, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         check_int32_headroom(s_profile, ws, k, r)
         self.k, self.ws, self.r = k, ws, r
@@ -894,7 +894,7 @@ class ScanEngine:
 
         l0 = _first_window_l0(prep, s_dev, k=self.k, ws=self.ws, r=self.r, depth=depth)
         bm = fused_record_bitmaps(
-            prep, s_dev, thr_int, l0, nw,
+            prep, s_dev, thr=thr_int, l0=l0, nw=nw,
             k=self.k, ws=self.ws, r=self.r, depth=depth,
             t=self.fused_t, block=self.block, n_tiles=-(-nw // self.fused_t), fits_out=fits_out,
         )

@@ -157,7 +157,7 @@ class ClusterScanEngine:
     #: current one (``prepare_codes``)
     prefetch_h2d = True
 
-    def __init__(self, profiles: list[RefProfile], k: int, device: "str | torch.device" = "cuda", chunk_windows: int | None = None, bound_depth: int | None = 16):
+    def __init__(self, profiles: list[RefProfile], k: int, chunk_windows: int | None = None, *, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         if not profiles:
             raise ValueError("cluster mode takes at least one profile")
         self.k = k
@@ -300,7 +300,7 @@ class ClusterScanEngine:
         n_tiles = -(-max(nws) // t)
         bms = [
             fused_cluster_record_bitmaps(
-                prep, s_stack[g], thr_ints[g], l0s[g], nws[g],
+                prep, s_stack[g], thrs=thr_ints[g], l0s=l0s[g], nws=nws[g],
                 k=self.k, specs=self.specs[g], depth=self.shared_depth, t=t, block=self.block,
                 n_tiles=n_tiles, fits_out=fits_out,
             )

@@ -42,23 +42,23 @@ from .scan_fused import _THREADS, fused_record_bitmaps_plain
 MAX_CLUSTERS = 32
 
 
-def fused_cluster_record_bitmaps_plain(codes: torch.Tensor, s_stack: torch.Tensor, thrs, l0s: torch.Tensor, nws, *, k: int, specs, depth: int, t: int, block: int, n_tiles: int) -> torch.Tensor:
+def fused_cluster_record_bitmaps_plain(codes_dev: torch.Tensor, s_stack: torch.Tensor, *, thrs, l0s: torch.Tensor, nws, k: int, specs, depth: int, t: int, block: int, n_tiles: int) -> torch.Tensor:
     """The plain PyTorch twin of K3: each cluster's K1 plain twin
     (``fused_record_bitmaps_plain``) with its own (S_c, thr_c, l0_c, nw_c,
     ws_c, r_c).  int32[m, n_tiles * t // block]."""
     return torch.stack([
         fused_record_bitmaps_plain(
-            codes, s_stack[c], int(thrs[c]), l0s[c], int(nws[c]),
+            codes_dev, s_stack[c], thr=int(thrs[c]), l0=l0s[c], nw=int(nws[c]),
             k=k, ws=ws, r=r, depth=depth, t=t, block=block, n_tiles=n_tiles,
         ).reshape(-1)
         for c, (ws, r) in enumerate(specs)
     ])
 
 
-def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thrs, l0s: torch.Tensor, nws, *, k: int, specs, depth: int, t: int = 4096, block: int = 512, n_tiles: int, fits_out: list | None = None) -> torch.Tensor:
+def fused_cluster_record_bitmaps(codes_dev: torch.Tensor, s_stack: torch.Tensor, *, thrs, l0s: torch.Tensor, nws, k: int, specs, depth: int, t: int = 4096, block: int = 512, n_tiles: int, fits_out: list | None = None) -> torch.Tensor:
     """Whole-record fused bitmap pass for m cluster profiles.
 
-    codes: int8[>= n_tiles * t + halo] record codes (0..3), zero-padded;
+    codes_dev: int8[>= n_tiles * t + halo] record codes (0..3), zero-padded;
     s_stack: int32[m, 4^k]; specs: (ws_c, r_c) per cluster; thrs: the
     conservative integer thresholds; l0s: int32[m], each cluster's
     first-window lower bound at ``depth``; nws: the window counts.
@@ -68,10 +68,10 @@ def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thr
     must check it before using the bitmap (``check_fits``)."""
     m = len(specs)
     widths = [ws - k + 1 for ws, _r in specs]
-    if codes.dim() != 1 or codes.dtype != torch.int8 or codes.shape[0] < n_tiles * t + _k1_halo(max(widths)):
+    if codes_dev.dim() != 1 or codes_dev.dtype != torch.int8 or codes_dev.shape[0] < n_tiles * t + _k1_halo(max(widths)):
         raise ValueError(
             f"fused_cluster_record_bitmaps wants int8[>= {n_tiles * t + _k1_halo(max(widths))}] codes, "
-            f"got {codes.dtype}{tuple(codes.shape)}"
+            f"got {codes_dev.dtype}{tuple(codes_dev.shape)}"
         )
     if s_stack.dtype != torch.int32 or s_stack.shape != (m, 4**k) or not 1 <= m <= MAX_CLUSTERS:
         raise ValueError(
@@ -86,13 +86,13 @@ def fused_cluster_record_bitmaps(codes: torch.Tensor, s_stack: torch.Tensor, thr
             f"0 <= depth < min(w), depth <= {MAX_BITMAP_DEPTH} (t={t}, block={block}, depth={depth}, w_min={min(widths)})"
         )
     kw = dict(k=k, specs=specs, depth=depth, t=t, block=block, n_tiles=n_tiles)
-    if codes.device.type == "cpu":
-        return fused_cluster_record_bitmaps_plain(codes, s_stack, thrs, l0s, nws, **kw)
-    if codes.device.type != "cuda":
-        raise ValueError(f"fused_cluster_record_bitmaps: unsupported device {codes.device}")
-    if not (codes.is_contiguous() and s_stack.is_contiguous() and s_stack.device == codes.device):
+    if codes_dev.device.type == "cpu":
+        return fused_cluster_record_bitmaps_plain(codes_dev, s_stack, thrs=thrs, l0s=l0s, nws=nws, **kw)
+    if codes_dev.device.type != "cuda":
+        raise ValueError(f"fused_cluster_record_bitmaps: unsupported device {codes_dev.device}")
+    if not (codes_dev.is_contiguous() and s_stack.is_contiguous() and s_stack.device == codes_dev.device):
         raise ValueError("fused_cluster_record_bitmaps: codes and S must be contiguous on one device")
-    return _k3_run(_k3_args(codes, s_stack, thrs, nws, **kw), l0s, fits_out)
+    return _k3_run(_k3_args(codes_dev, s_stack, thrs, nws, **kw), l0s, fits_out)
 
 
 #: K3 launches (two per call: totals, then bitmap) since the count was

@@ -102,7 +102,7 @@ def joined() -> bool:
     return _JOINED and dist.is_available() and dist.is_initialized()
 
 
-def initialize_distributed(coordinator_address: str | None = None, num_processes: int | None = None, process_id: int | None = None, device: "str | torch.device" = "cuda") -> None:
+def initialize_distributed(coordinator_address: str | None = None, num_processes: int | None = None, process_id: int | None = None, *, device: "str | torch.device" = "cuda") -> None:
     """Join a process group for meshes across processes (idempotent).
 
     ``coordinator_address`` is ``host:port`` (or a ``tcp://`` URL) of
@@ -159,7 +159,7 @@ def _devices(n_devices: int | None, device) -> list:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def make_mesh(n_devices: int | None = None, n_clusters: int = 1, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
+def make_mesh(n_devices: int | None = None, n_clusters: int = 1, *, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
     """A ("clusters", "data") mesh over the first ``n_devices`` cards (all
     of them by default), or over ``devices``; ``device="cpu"`` gives
     ``n_devices`` logical shards on the CPU.  The clusters axis takes
@@ -178,7 +178,7 @@ def make_mesh(n_devices: int | None = None, n_clusters: int = 1, device: "str | 
     return Mesh(tuple(devs), clusters=_cluster_ways(n_clusters, len(devs)))
 
 
-def make_hybrid_mesh(n_clusters: int = 1, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
+def make_hybrid_mesh(n_clusters: int = 1, *, device: "str | torch.device" = "cuda", devices: list | None = None) -> Mesh:
     """A ("clusters", "data") mesh over every process of the process group:
     the clusters axis over this process's local ``devices``
     (``_cluster_ways(n_clusters, L)`` ways), the data axis over the rest

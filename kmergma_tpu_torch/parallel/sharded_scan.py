@@ -160,7 +160,7 @@ class ShardedScanEngine(ScanEngine):
     #: spans per shard in one segment batch on the checkpointed path
     _seg_spd = 4
 
-    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
+    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, mesh: Mesh | None = None, chunk_windows: int | None = None, *, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         mesh = make_mesh(device=device) if mesh is None else mesh
         super().__init__(s_profile, k, ws, r, device=mesh.first, bound_depth=bound_depth, chunk_windows=chunk_windows)
         self.mesh = mesh
@@ -253,7 +253,7 @@ class ShardedClusterScanEngine(ClusterScanEngine):
     #: spans per shard in one segment batch on the checkpointed path
     _seg_spd = 4
 
-    def __init__(self, profiles: list[RefProfile], k: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
+    def __init__(self, profiles: list[RefProfile], k: int, mesh: Mesh | None = None, chunk_windows: int | None = None, *, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         mesh = make_mesh(device=device) if mesh is None else mesh
         super().__init__(profiles, k, device=mesh.first, chunk_windows=chunk_windows, bound_depth=bound_depth)
         self.mesh = mesh

@@ -73,16 +73,16 @@ def _reduce(parts: list, mesh: Mesh) -> torch.Tensor:
     return buf.to(mesh.first)
 
 
-def tp_profile_lookup(kcodes: torch.Tensor, shards: list, mesh: Mesh) -> torch.Tensor:
-    """g = S[K] with S sharded over the mesh's data axis
-    (``shard_profile``): each shard's masked partial lookup
-    where(K - lo in range, S_local[clip(K - lo)], 0) on its device, summed
-    (``_reduce``).  kcodes: int32 of any shape on the mesh's first device,
-    the same in every process; returns int32 of that shape there."""
-    local = shards[0].shape[0]
+def tp_profile_lookup(kcodes: torch.Tensor, s_profile: list, *, mesh: Mesh) -> torch.Tensor:
+    """g = S[K] with S sharded over the mesh's data axis: ``s_profile`` is
+    this process's shards (``shard_profile``), each shard's masked partial
+    lookup where(K - lo in range, S_local[clip(K - lo)], 0) on its device,
+    summed (``_reduce``).  kcodes: int32 of any shape on the mesh's first
+    device, the same in every process; returns int32 of that shape there."""
+    local = s_profile[0].shape[0]
     first = mesh.process_index * len(mesh.local_data)
     parts = []
-    for j, (s_local, dev) in enumerate(zip(shards, mesh.local_data)):
+    for j, (s_local, dev) in enumerate(zip(s_profile, mesh.local_data)):
         idx = kcodes.to(dev) - (first + j) * local
         in_range = (idx >= 0) & (idx < local)
         parts.append(torch.where(in_range, s_local[idx.clamp(0, local - 1)], 0))
@@ -114,7 +114,7 @@ class TPScanEngine(ScanEngine):
 
     prefetch_h2d = False
 
-    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
+    def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, *, device: "str | torch.device" = "cuda"):
         self.mesh = make_mesh(device=device) if mesh is None else mesh
         # exact mode for the base class: its K1 depth limit does not apply
         super().__init__(s_profile, k, ws, r, device=self.mesh.first, bound_depth=None, chunk_windows=chunk_windows)
@@ -175,7 +175,7 @@ class TPScanEngine(ScanEngine):
         for i in range(n_spans):
             start = i * span
             kc = rolling_kmer_codes(prep[start : start + span + ws - 1], k)
-            g = tp_profile_lookup(kc, self.shards, self.mesh)
+            g = tp_profile_lookup(kc, self.shards, mesh=self.mesh)
             l0 = _lower_bound_base_from(kc, g, self.s2, w, r, depth)
             bounds = _lower_bounds_from(kc, g, l0, w, r, depth, span, ab=pair_ab_from_kcodes(kc, w, nt, depth))
             below = (bounds < thr_int) & (pos < nw - start)
@@ -187,7 +187,7 @@ class TPScanEngine(ScanEngine):
 
     def _rows_d(self, rows: torch.Tensor) -> torch.Tensor:
         kc = rolling_kmer_codes(rows, self.k)
-        return _rows_d_from(kc, tp_profile_lookup(kc, self.shards, self.mesh), self.s2, self.k, self.ws, self.r)
+        return _rows_d_from(kc, tp_profile_lookup(kc, self.shards, mesh=self.mesh), self.s2, self.k, self.ws, self.r)
 
     def _chunk_distances(self, codes: torch.Tensor) -> torch.Tensor:
         return self._rows_d(codes[None])[0]

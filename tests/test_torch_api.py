@@ -348,6 +348,11 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert all(s["max_abs_err"] == 0 and s["bound_ms"] > 0 for v in shapes.values() for s in v.values())
     assert out.count("streams equal the default engine's and the int64 host oracle's") == 2 * (4 + 2 + 4 + 1)
     assert out.count("StrobeSpanEngine bound_depth 16, ") == 2 and "stream equal to the exact engine's and the int64" in out
+    # the two engines built as a JAX caller writes them, chunk_windows by position: the first contig in two segments
+    assert out.count(" as a JAX caller writes it, ") == 4
+    assert out.count("the same stream as the default engine and the int64 host oracle") == 2
+    assert out.count("the same streams as the default engine and the int64 host oracle") == 2
+    assert "ScanEngine(S, k, ws, r, 32768) as a JAX caller writes it, 100000 bp record: on cpu, 2 segments of 65536" in out
     # the two-axis step on four meshes in both threshold cases against the int64 host oracle, K2 at its shape, and
     # the hybrid mesh over a one-rank group
     assert k2["two_axis"]["rows"] == 25 and k2["two_axis"]["max_abs_err"] == 0

@@ -133,7 +133,7 @@ def test_k3_twin_and_split_pass_match_jax_split_pass(clusters, seed, t):
         tscan._first_window_l0(prep, e.s_dev, k=6, ws=e.ws, r=e.r, depth=port.groups[0][1]) for e in port.engines
     ])
     got = fused_cluster_record_bitmaps(
-        prep, port.s_stack, thr_ints.tolist(), l0s, nws,
+        prep, port.s_stack, thrs=thr_ints.tolist(), l0s=l0s, nws=nws,
         k=6, specs=port.specs, depth=port.groups[0][1], t=t, block=512, n_tiles=-(-max(nws) // t),
     )
     assert got.dtype == torch.int32 and got.shape[0] == m
@@ -582,7 +582,7 @@ def test_kernel_wrappers_keep_their_limits():
     codes = torch.zeros(20_000, dtype=torch.int8)
     s33 = torch.zeros((33, 4**4), dtype=torch.int32)
     with pytest.raises(ValueError, match="1 <= m <= 32"):
-        fused_cluster_record_bitmaps(codes, s33, [0] * 33, torch.zeros(33, dtype=torch.int32), [100] * 33,
+        fused_cluster_record_bitmaps(codes, s33, thrs=[0] * 33, l0s=torch.zeros(33, dtype=torch.int32), nws=[100] * 33,
                                      k=4, specs=[(40, 1)] * 33, depth=16, t=512, block=512, n_tiles=1)
     with pytest.raises(ValueError, match="1 <= m <= 32"):
         lookup_roundtrip(s33, t=512, w_min=37, w_max=37)

@@ -204,7 +204,7 @@ def test_depth_past_bitmap_kernel_short_of_full_depth_raises():
     assert edge.bound_depth == 255 and edge.on_k1
     prep = edge.prepare_codes(codes)  # padded for K1's tiles
     with pytest.raises(ValueError, match="depth <= 255"):
-        fused_record_bitmaps(prep, deep.s_dev, 0, torch.zeros((), dtype=torch.int32), 712, k=6, ws=289, r=5,
+        fused_record_bitmaps(prep, deep.s_dev, thr=0, l0=torch.zeros((), dtype=torch.int32), nw=712, k=6, ws=289, r=5,
                              depth=256, t=4096, block=512, n_tiles=1)
 
 

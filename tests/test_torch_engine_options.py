@@ -181,10 +181,10 @@ def test_byte_count_kernels_refuse_past_255():
         tkernels.codes_pair_multi(codes, 6, (289, 290), 1000, 1300, depth)
     s = torch.zeros((2, 4**6), dtype=torch.int32)
     with pytest.raises(ValueError, match="depth <= 255"):
-        tfused.fused_cluster_record_bitmaps(codes, s, [1, 1], torch.zeros(2, dtype=torch.int32), [100, 100], k=6,
+        tfused.fused_cluster_record_bitmaps(codes, s, thrs=[1, 1], l0s=torch.zeros(2, dtype=torch.int32), nws=[100, 100], k=6,
                                             specs=[(289, 5), (290, 5)], depth=depth, t=4096, block=512, n_tiles=1)
     with pytest.raises(ValueError, match="depth <= 255"):
-        tk1.fused_record_bitmaps(codes, s[0], 1, torch.zeros((), dtype=torch.int32), 100, k=6, ws=289, r=5,
+        tk1.fused_record_bitmaps(codes, s[0], thr=1, l0=torch.zeros((), dtype=torch.int32), nw=100, k=6, ws=289, r=5,
                                  depth=depth, t=4096, block=512, n_tiles=1)
 
 

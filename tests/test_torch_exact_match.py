@@ -57,7 +57,7 @@ def test_engine_matches_host_on_loci(test_genome):
     sub = rec.seq.upper()
     q = sub[20000:20030]
     for qq in (q, q[::-1], *(sub[1000 : 1000 + n] for n in (3, 7, 15, 16, 17))):
-        got = tem.match_starts_engine(sub, qq, "cpu").tolist()
+        got = tem.match_starts_engine(sub, qq, device="cpu").tolist()
         assert got == tem.match_starts_np(sub, qq).tolist() == jem.match_starts_np(sub, qq).tolist()
 
 
@@ -76,7 +76,7 @@ def test_device_route_equals_bytes_find_with_n():
         q = sub[at : at + qlen]
         if qlen % 7 == 0:
             q = q[: qlen // 2] + b"N" + q[qlen // 2 + 1 :]
-        got = tem.match_starts_engine(sub, q, "cpu")
+        got = tem.match_starts_engine(sub, q, device="cpu")
         assert got.tolist() == tem.match_starts_np(sub, q).tolist(), qlen
         n_hits += got.size
     assert n_hits > 40
@@ -91,12 +91,12 @@ def test_subject_cache_evicts_by_bytes_only():
     subjects = [np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, 20_000)].tobytes() for _ in range(6)]
     cache = tem.SubjectCache(1 << 30)
     for sub in subjects:
-        assert tem.match_starts_engine(sub, sub[100:120], "cpu", cache=cache).tolist()[:1] == [100]
+        assert tem.match_starts_engine(sub, sub[100:120], device="cpu", cache=cache).tolist()[:1] == [100]
     assert len(cache) == 6
     per_entry = cache.held_bytes() // 6
     small = tem.SubjectCache(3 * per_entry)
     for sub in subjects:
-        tem.match_starts_engine(sub, sub[:10], "cpu", cache=small)
+        tem.match_starts_engine(sub, sub[:10], device="cpu", cache=small)
     assert len(small) == 3 and small.held_bytes() <= 3 * per_entry
     assert small.get(tem._subject_key(subjects[-1], "cpu")) is not None
     assert small.get(tem._subject_key(subjects[0], "cpu")) is None
@@ -119,7 +119,7 @@ def test_subject_cache_keys_by_content():
     assert twin == sub and twin is not sub
     cache = CountingCache(1 << 30)
     for s in (sub, twin):
-        assert tem.match_starts_engine(s, sub[700:730], "cpu", cache=cache).tolist() == [700]
+        assert tem.match_starts_engine(s, sub[700:730], device="cpu", cache=cache).tolist() == [700]
     assert len(cache) == 1 and cache.puts == 1
 
 

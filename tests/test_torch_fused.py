@@ -64,7 +64,7 @@ def test_bitmap_matches_blocked_jax_bounds(ref_fasta, profile6, n, t, thr_pct):
     dev = torch.from_numpy(padded)
     s_t = torch.from_numpy(s32)
     l0 = tscan._first_window_l0(dev, s_t, k=k, ws=ws, r=r, depth=depth)
-    got = fused_record_bitmaps(dev, s_t, thr, l0, nw, k=k, ws=ws, r=r, depth=depth, t=t, block=block, n_tiles=n_tiles)
+    got = fused_record_bitmaps(dev, s_t, thr=thr, l0=l0, nw=nw, k=k, ws=ws, r=r, depth=depth, t=t, block=block, n_tiles=n_tiles)
     assert got.dtype == torch.int32 and got.shape == (n_tiles, t // block)
     np.testing.assert_array_equal(got.reshape(-1).numpy().astype(bool), want)
     assert 0 < int(got.sum()) < got.numel()
@@ -78,10 +78,10 @@ def test_bitmap_rejects_bad_shapes(profile6):
     l0 = tscan._first_window_l0(codes, s_t, k=k, ws=ws, r=r, depth=16)
     kw = dict(k=k, ws=ws, r=r, depth=16, block=512, n_tiles=1)
     with pytest.raises(ValueError):  # tile not a multiple of the block
-        fused_record_bitmaps(codes, s_t, 0, l0, 100, t=1000, **kw)
+        fused_record_bitmaps(codes, s_t, thr=0, l0=l0, nw=100, t=1000, **kw)
     with pytest.raises(ValueError):  # codes too short for the tile and halo
-        fused_record_bitmaps(codes[:4096], s_t, 0, l0, 100, t=4096, **kw)
+        fused_record_bitmaps(codes[:4096], s_t, thr=0, l0=l0, nw=100, t=4096, **kw)
     with pytest.raises(ValueError):  # int32 codes
-        fused_record_bitmaps(codes.int(), s_t, 0, l0, 100, t=4096, **kw)
+        fused_record_bitmaps(codes.int(), s_t, thr=0, l0=l0, nw=100, t=4096, **kw)
     with pytest.raises(ValueError, match="depth <= 255"):  # K3's kernel keeps pair counts as bytes
-        fused_record_bitmaps(codes, s_t, 0, l0, 100, t=4096, **{**kw, "depth": 256})
+        fused_record_bitmaps(codes, s_t, thr=0, l0=l0, nw=100, t=4096, **{**kw, "depth": 256})

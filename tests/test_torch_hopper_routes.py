@@ -170,13 +170,13 @@ def test_k1_is_k3_at_one_profile(k, ws, n, t):
     dev, s_t = torch.from_numpy(padded), torch.from_numpy(s)
     l0 = tscan._first_window_l0(dev, s_t, k=k, ws=ws, r=r, depth=depth)
     kw = dict(depth=depth, t=t, block=block, n_tiles=n_tiles)
-    k1 = fused_record_bitmaps_plain(dev, s_t, thr, l0, nw, k=k, ws=ws, r=r, **kw)
-    k3 = fused_cluster_record_bitmaps_plain(dev, s_t[None], [thr], l0.view(1), [nw], k=k, specs=[(ws, r)], **kw)
+    k1 = fused_record_bitmaps_plain(dev, s_t, thr=thr, l0=l0, nw=nw, k=k, ws=ws, r=r, **kw)
+    k3 = fused_cluster_record_bitmaps_plain(dev, s_t[None], thrs=[thr], l0s=l0.view(1), nws=[nw], k=k, specs=[(ws, r)], **kw)
     assert k3.shape == (1, k1.numel())
     np.testing.assert_array_equal(k1.reshape(-1).numpy().astype(bool), want)
     np.testing.assert_array_equal(k3.reshape(-1).numpy(), k1.reshape(-1).numpy())
     # the wrappers' CPU routes are the twins
-    got1 = fused_record_bitmaps(dev, s_t, thr, l0, nw, k=k, ws=ws, r=r, **kw)
-    got3 = fused_cluster_record_bitmaps(dev, s_t[None], [thr], l0.view(1), [nw], k=k, specs=[(ws, r)], **kw)
+    got1 = fused_record_bitmaps(dev, s_t, thr=thr, l0=l0, nw=nw, k=k, ws=ws, r=r, **kw)
+    got3 = fused_cluster_record_bitmaps(dev, s_t[None], thrs=[thr], l0s=l0.view(1), nws=[nw], k=k, specs=[(ws, r)], **kw)
     assert torch.equal(got1, k1) and torch.equal(got3.view_as(k1), k1)
     assert 0 < int(k1.sum()) < k1.numel()

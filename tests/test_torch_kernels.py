@@ -108,7 +108,7 @@ def test_cpu_wrappers_launch_nothing(record, alp_clusters):
         fn.launches = 0
     eng, prep, nw, l0, kw = _bitmap_inputs(codes, p.sum_kfv, 6, p.windowsize, p.n_records, "cpu")
     thr = int(eng._thr_int(30.0))
-    bm = fused_record_bitmaps(prep, eng.s_dev, thr, l0, nw, **kw)
+    bm = fused_record_bitmaps(prep, eng.s_dev, thr=thr, l0=l0, nw=nw, **kw)
     assert int(bm.sum()) > 0
     assert eng.record_stream(codes, 30.0)[1]
     cl = ClusterScanEngine(alp_clusters, k=6, device="cpu")
@@ -130,13 +130,13 @@ def test_wrappers_refuse_other_devices():
     s = torch.zeros(16, dtype=torch.int32, device="meta")
     l0 = torch.zeros((), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_record_bitmaps(codes, s, 0, l0, 100, k=2, ws=20, r=1, depth=4, t=512, block=512, n_tiles=1)
+        fused_record_bitmaps(codes, s, thr=0, l0=l0, nw=100, k=2, ws=20, r=1, depth=4, t=512, block=512, n_tiles=1)
     with pytest.raises(ValueError, match="unsupported device"):
         codes_pair_multi(codes, 2, (20, 22), 100, 120, 4)
     s2 = torch.zeros((2, 16), dtype=torch.int32, device="meta")
     l0s = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_cluster_record_bitmaps(codes, s2, [0, 0], l0s, [100, 98], k=2, specs=[(20, 1), (22, 1)], depth=4, t=512, block=512, n_tiles=1)
+        fused_cluster_record_bitmaps(codes, s2, thrs=[0, 0], l0s=l0s, nws=[100, 98], k=2, specs=[(20, 1), (22, 1)], depth=4, t=512, block=512, n_tiles=1)
     with pytest.raises(ValueError, match="unsupported device"):
         lookup_roundtrip(s2, t=512, w_min=19, w_max=21)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -162,11 +162,11 @@ def test_k1_matches_twin_on_card(record, cuda_device):
     for thr in (int(eng._thr_int(30.0)), int(eng._thr_int(45.0))):
         before = fused_record_bitmaps.launches
         before3 = fused_cluster_record_bitmaps.launches
-        got = fused_record_bitmaps(prep, eng.s_dev, thr, l0, nw, **kw)
+        got = fused_record_bitmaps(prep, eng.s_dev, thr=thr, l0=l0, nw=nw, **kw)
         torch.cuda.synchronize()
         assert fused_record_bitmaps.launches == before + 2
         assert fused_cluster_record_bitmaps.launches == before3  # K1 runs K3's kernel, counted as K1
-        want = fused_record_bitmaps_plain(prep, eng.s_dev, thr, l0, nw, **kw)
+        want = fused_record_bitmaps_plain(prep, eng.s_dev, thr=thr, l0=l0, nw=nw, **kw)
         assert torch.equal(got, want)
         assert int(got.sum()) > 0
 
@@ -187,8 +187,8 @@ def test_k1_table_placements_on_card(k, cuda_device):
     eng, prep, nw, l0, kw = _bitmap_inputs(codes, s, k, ws, r, cuda_device)
     bounds = tscan.scan_window_lower_bounds(prep[: nw + ws - 1], eng.s_dev, k, ws, r, eng.bound_depth)
     thr = int(torch.quantile(bounds.double(), 0.01))
-    got = fused_record_bitmaps(prep, eng.s_dev, thr, l0, nw, **kw)
-    want = fused_record_bitmaps_plain(prep, eng.s_dev, thr, l0, nw, **kw)
+    got = fused_record_bitmaps(prep, eng.s_dev, thr=thr, l0=l0, nw=nw, **kw)
+    want = fused_record_bitmaps_plain(prep, eng.s_dev, thr=thr, l0=l0, nw=nw, **kw)
     assert torch.equal(got, want)
     assert 0 < int(got.sum()) < got.numel()
 
@@ -348,10 +348,10 @@ def test_k3_and_k8_tables_in_shared_memory_on_card(record, alp_clusters, cuda_de
     widths = [ws - 5 for ws, _r in eng.specs]
     assert cluster_tables_in_smem(6, 6, eng.fused_t, min(widths), max(widths))
     before = fused_cluster_record_bitmaps.launches
-    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw)
     torch.cuda.synchronize()
     assert fused_cluster_record_bitmaps.launches == before + 2
-    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
+    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw))
     assert all(int(got[c].sum()) > 0 for c in range(6))
     back = lookup_roundtrip(eng.s_stack, t=eng.fused_t, w_min=min(widths), w_max=max(widths))
     assert torch.equal(back, eng.s_stack) and torch.equal(_lookup_roundtrip_plain(eng.s_stack), eng.s_stack)
@@ -371,8 +371,8 @@ def test_k3_and_k8_tables_through_ldg_on_card(cuda_device):
     assert not cluster_tables_in_smem(6, k, eng.fused_t, min(widths), max(widths))
     bounds = tscan.scan_window_lower_bounds(prep[: nws[0] + wss[0] - 1], eng.s_stack[0], k, wss[0], eng.specs[0][1], eng.groups[0][1])
     thr_ints = [int(torch.quantile(bounds.double(), 0.01))] * 6
-    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
-    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw)
+    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw))
     assert 0 < int(got.sum()) < got.numel()
     back = lookup_roundtrip(eng.s_stack, t=eng.fused_t, w_min=min(widths), w_max=max(widths))
     assert torch.equal(back, eng.s_stack)
@@ -441,10 +441,10 @@ def test_k3_and_k8_persistent_shapes_on_card(case, alp_clusters, cuda_device):
     in_smem = cluster_tables_in_smem(m, k, t, min(widths), max(widths))
     assert in_smem if m <= 6 and t <= 4096 else not in_smem  # 32 tables, or a t = 8192 tile: __ldg
     before = fused_cluster_record_bitmaps.launches
-    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw)
     torch.cuda.synchronize()
     assert fused_cluster_record_bitmaps.launches == before + 2
-    want = fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    want = fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw)
     assert torch.equal(got, want)
     live = [-(-nw // eng.block) for nw in nws]  # blocks holding a window below nw
     if thr_mode == "all":
@@ -596,7 +596,7 @@ def test_k1_and_k3_count_their_own_launches(record, alp_clusters, cuda_device):
     codes, p = record
     eng, prep, nw, l0, kw = _bitmap_inputs(codes, p.sum_kfv, 6, p.windowsize, p.n_records, cuda_device)
     k1, k3 = fused_record_bitmaps.launches, fused_cluster_record_bitmaps.launches
-    fused_record_bitmaps(prep, eng.s_dev, int(eng._thr_int(30.0)), l0, nw, **kw)
+    fused_record_bitmaps(prep, eng.s_dev, thr=int(eng._thr_int(30.0)), l0=l0, nw=nw, **kw)
     assert (fused_record_bitmaps.launches, fused_cluster_record_bitmaps.launches) == (k1 + 2, k3)
     cl = ClusterScanEngine(alp_clusters, k=6, device=cuda_device)
     cl.fused_min_windows = 1
@@ -671,10 +671,10 @@ def test_k3_at_depth_64_matches_twin_on_card(record, alp_clusters, cuda_device):
     eng, prep, nws, thr_ints, l0s, kw = _k3_inputs(alp_clusters, 6, codes, thrs, cuda_device, bound_depth=64)
     assert eng.shared_depth == kw["depth"] == 64
     before = fused_cluster_record_bitmaps.launches
-    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thr_ints, l0s, nws, **kw)
+    got = fused_cluster_record_bitmaps(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw)
     torch.cuda.synchronize()
     assert fused_cluster_record_bitmaps.launches == before + 2  # totals, then the bitmap
-    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thr_ints, l0s, nws, **kw))
+    assert torch.equal(got, fused_cluster_record_bitmaps_plain(prep, eng.s_stack, thrs=thr_ints, l0s=l0s, nws=nws, **kw))
     assert all(int(got[c].sum()) > 0 for c in range(6))
     cpu = ClusterScanEngine(alp_clusters, k=6, device="cpu", bound_depth=64)
     for fused_min in (1, 1 << 30):  # K3, then the split pass (K5 at depth 64)
@@ -741,7 +741,7 @@ def test_exact_match_engine_on_card_matches_host(record, cuda_device):
     codes, _p = record
     sub = np.frombuffer(b"ACGT", dtype=np.uint8)[codes].tobytes()
     for q in (sub[1000:1030], sub[5000:5003], sub[7000:7016], sub[9000:9040], b"ACGTN"):
-        assert match_starts_engine(sub, q, cuda_device).tolist() == match_starts_np(sub, q).tolist()
+        assert match_starts_engine(sub, q, device=cuda_device).tolist() == match_starts_np(sub, q).tolist()
 
 
 def _r1_args(profiles, device):

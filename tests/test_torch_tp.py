@@ -42,7 +42,7 @@ def test_tp_profile_lookup_matches_replicated(n_dev):
     mesh = make_mesh(n_dev, device="cpu")
     shards = shard_profile(s, mesh)
     assert [t.shape[0] for t in shards] == [4**k // n_dev] * n_dev
-    got = tp_profile_lookup(torch.from_numpy(kcodes), shards, mesh)
+    got = tp_profile_lookup(torch.from_numpy(kcodes), shards, mesh=mesh)
     assert got.dtype == torch.int32 and got.tolist() == s[kcodes].tolist()
     assert int(tp_sq_norm(shards, mesh)) == int((s.astype(np.int64) ** 2).sum())
 
@@ -54,7 +54,7 @@ def test_shard_profile_pads_to_the_axis():
     shards = shard_profile(s, make_mesh(3, device="cpu"))
     assert [t.tolist() for t in shards] == [list(range(1, 23)), list(range(23, 45)), list(range(45, 65)) + [0, 0]]
     kc = torch.arange(64, dtype=torch.int32).view(8, 8)
-    assert torch.equal(tp_profile_lookup(kc, shards, make_mesh(3, device="cpu")), torch.from_numpy(s).view(8, 8))
+    assert torch.equal(tp_profile_lookup(kc, shards, mesh=make_mesh(3, device="cpu")), torch.from_numpy(s).view(8, 8))
 
 
 @pytest.fixture(scope="module")
