@@ -27,6 +27,7 @@ from .models.miner import mine_genome
 from .ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
 from .ops.scan import resolve_device
 from .ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
+from .utils import trace
 from .utils.fasta import FastaRecord, write_fasta
 
 logger = logging.getLogger("kmergma_tpu_torch")
@@ -52,6 +53,7 @@ def _warn_helper(k: int, do_return_dists: bool) -> None:
         warnings.warn("Setting do_return_dists to true may be very memory intensive")
 
 
+@trace.api_call
 def find_genes(
     genome_path: str,
     ref_path: str,
@@ -85,16 +87,18 @@ def find_genes(
         logger.info("pre-processing references and parameters...")
     _warn_helper(k, do_return_dists)
 
-    profile = gen_ref_ws_cons(ref_path, k)
-    if k >= profile.windowsize:
-        raise ValueError(
-            f"the average reference sequence length {profile.windowsize} exceeds/is equal to "
-            f"the chosen kmer length {k}. please reduce k. "
-        )
+    with trace.span("prep") as sp:
+        profile = gen_ref_ws_cons(ref_path, k)
+        if k >= profile.windowsize:
+            raise ValueError(
+                f"the average reference sequence length {profile.windowsize} exceeds/is equal to "
+                f"the chosen kmer length {k}. please reduce k. "
+            )
 
-    estimated = estimate_optimal_threshold(
-        profile.mean_kfv, profile.windowsize, buffer=kmer_dist_threshold_buffer
-    )
+        estimated = estimate_optimal_threshold(
+            profile.mean_kfv, profile.windowsize, buffer=kmer_dist_threshold_buffer
+        )
+        sp.add(profiles=1)
     if kmer_dist_thr == 0:
         kmer_dist_thr = estimated
     elif kmer_dist_thr < estimated:
@@ -129,6 +133,7 @@ def find_genes(
     return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
 
 
+@trace.api_call
 def find_genes_cluster_mode(
     genome_path: str,
     ref_path: str,
@@ -168,16 +173,18 @@ def find_genes_cluster_mode(
         logger.info("pre-processing references and parameters...")
     _warn_helper(k, do_return_dists)
 
-    clusters = eliminate_null_params(cluster_ref_api(ref_path, k, cutoffs=cluster_cutoffs))
-    if k >= min(clusters.windowsizes):
-        raise ValueError(
-            "some/all of the average reference sequence lengths exceeds/is equal to "
-            f"the chosen kmer length {k}. please reduce k. "
-        )
+    with trace.span("prep") as sp:
+        clusters = eliminate_null_params(cluster_ref_api(ref_path, k, cutoffs=cluster_cutoffs))
+        if k >= min(clusters.windowsizes):
+            raise ValueError(
+                "some/all of the average reference sequence lengths exceeds/is equal to "
+                f"the chosen kmer length {k}. please reduce k. "
+            )
 
-    estimated = estimate_optimal_thresholds(
-        clusters.kfvs, clusters.windowsizes, buffer=kmer_dist_threshold_buffer
-    )
+        estimated = estimate_optimal_thresholds(
+            clusters.kfvs, clusters.windowsizes, buffer=kmer_dist_threshold_buffer
+        )
+        sp.add(profiles=len(clusters.profiles))
     if kmer_dist_thrs is None or (len(kmer_dist_thrs) and kmer_dist_thrs[0] == 0):
         kmer_dist_thrs = estimated
     else:
@@ -216,6 +223,7 @@ def find_genes_cluster_mode(
     return _outputs(res, do_return_hit_loci, do_return_align, do_return_dists, verbose)
 
 
+@trace.api_call
 def strobemer_find_genes(
     genome_path: str,
     ref_path: str,
@@ -245,7 +253,9 @@ def strobemer_find_genes(
     from .models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
 
     device = resolve_device(device)
-    profile = gen_strobe_ref_ws_cons(ref_path, s=s, w_min=w_min, w_max=w_max, q=q)
+    with trace.span("prep") as sp:
+        profile = gen_strobe_ref_ws_cons(ref_path, s=s, w_min=w_min, w_max=w_max, q=q)
+        sp.add(profiles=1)
     if verbose:
         logger.info("initializing iteration...")
     res = strobe_mine_genome(
@@ -266,7 +276,10 @@ def strobemer_find_genes(
 
 def _outputs(res, do_return_hit_loci: bool, do_return_align: bool, do_return_dists: bool, verbose: bool) -> list:
     """[hits] plus hit loci, alignments and distances, in that order when
-    requested; logs the scan stats when ``verbose``."""
+    requested; logs the scan stats when ``verbose``, and hands them to the
+    ``call`` span when tracing (utils/trace.py)."""
+    if trace.enabled():
+        trace.add_to_call(**dataclasses.asdict(res.stats))
     out: list = [res.hits]
     if do_return_hit_loci:
         out.append(res.hit_loci)

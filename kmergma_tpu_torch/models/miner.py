@@ -16,7 +16,7 @@ Per contig (records shorter than the windowsize are skipped):
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import KW_ONLY, dataclass, field
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from ..ops.scan import ScanEngine
 from ..ops.scan_host import HostScanEngine
 from ..parallel.mesh import joined, make_mesh
 from ..parallel.tp_lookup import TPScanEngine
+from ..utils import trace
 from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .state_machine import replay_single
@@ -40,7 +41,10 @@ def fmt_dist(x: float) -> str:
 
 @dataclass
 class ScanStats:
-    """Counters of a mine run."""
+    """Counters of a mine run (the ``call`` span's, when tracing:
+    utils/trace.py).  ``replay_hits`` counts the hits the replay emitted
+    (in cluster mode the candidates it handed to the overlap checks),
+    ``windows_aligned`` the windows sent to the aligner."""
 
     records_scanned: int = 0
     records_skipped: int = 0
@@ -49,6 +53,9 @@ class ScanStats:
     candidate_windows: int = 0
     hits: int = 0
     wall_seconds: float = 0.0
+    _: KW_ONLY
+    replay_hits: int = 0
+    windows_aligned: int = 0
 
     @property
     def mbp_per_second(self) -> float:
@@ -222,47 +229,53 @@ def mine_genome(
             if ckpt:
                 ckpt.record_done(record_idx, genome_pos, [], [])
             continue
-        codes_dev = prefetched.pop(record_idx, None)
-        _prefetch_after(record_idx)
-        dist0, stream, dists = engine.record_stream(
-            record.codes, thr, collect_dists=do_return_dists, codes_dev=codes_dev,
-            seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
-        )
-        stats.records_scanned += 1
-        stats.bp_scanned += seq_len
-        stats.windows_scanned += seq_len - ws + 1
-        stats.candidate_windows += len(stream)
-        if dists is not None:
-            dist_parts.append(dists[1:])  # the reference records only the iterative phase
-
-        raw_hits = replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=seq_len, buff=buff)
-        alns = None
-        if do_align and raw_hits:
-            windows = [
-                record.seq[h.start - 1 : h.stop].decode("ascii").upper()
-                for h in raw_hits
-            ]
-            alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=device)
-        for hit_i, hit in enumerate(raw_hits):
-            start, stop = hit.start, hit.stop
-            if do_align:
-                # the CIGAR range counts query-only (I) ops too, so the
-                # trimmed range can extend beyond the window, clamped only
-                # at the contig end
-                aln = alns[hit_i]
-                if do_return_align:
-                    res.alignments.append(aln)
-                lo, hi = cigar_to_unitrange(aln)
-                start, stop = max(1, hit.start + lo - 1), min(hit.start + hi - 1, seq_len)
-            desc = (
-                f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
-                f" | MatchPos = {start}:{stop}"
-                f" | GenomePos = {genome_pos}"
-                f" | Len = {stop - start + 1}"
+        with trace.span("record") as sp:
+            codes_dev = prefetched.pop(record_idx, None)
+            _prefetch_after(record_idx)
+            dist0, stream, dists = engine.record_stream(
+                record.codes, thr, collect_dists=do_return_dists, codes_dev=codes_dev,
+                seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
             )
-            res.hits.append(FastaRecord(desc, record.seq[start - 1 : stop].upper()))
-            if get_hit_loci:
-                res.hit_loci.append(start + genome_pos)
+            stats.records_scanned += 1
+            stats.bp_scanned += seq_len
+            stats.windows_scanned += seq_len - ws + 1
+            stats.candidate_windows += len(stream)
+            sp.add(bp=seq_len, windows=seq_len - ws + 1, candidates=len(stream))
+            if dists is not None:
+                dist_parts.append(dists[1:])  # the reference records only the iterative phase
+
+            with trace.span("replay") as sp_replay:
+                raw_hits = replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=seq_len, buff=buff)
+                sp_replay.add(hits=len(raw_hits))
+            stats.replay_hits += len(raw_hits)
+            alns = None
+            if do_align and raw_hits:
+                windows = [
+                    record.seq[h.start - 1 : h.stop].decode("ascii").upper()
+                    for h in raw_hits
+                ]
+                stats.windows_aligned += len(windows)
+                alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=device)
+            for hit_i, hit in enumerate(raw_hits):
+                start, stop = hit.start, hit.stop
+                if do_align:
+                    # the CIGAR range counts query-only (I) ops too, so the
+                    # trimmed range can extend beyond the window, clamped only
+                    # at the contig end
+                    aln = alns[hit_i]
+                    if do_return_align:
+                        res.alignments.append(aln)
+                    lo, hi = cigar_to_unitrange(aln)
+                    start, stop = max(1, hit.start + lo - 1), min(hit.start + hi - 1, seq_len)
+                desc = (
+                    f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
+                    f" | MatchPos = {start}:{stop}"
+                    f" | GenomePos = {genome_pos}"
+                    f" | Len = {stop - start + 1}"
+                )
+                res.hits.append(FastaRecord(desc, record.seq[start - 1 : stop].upper()))
+                if get_hit_loci:
+                    res.hit_loci.append(start + genome_pos)
         genome_pos += seq_len
         if ckpt:
             ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])

@@ -29,6 +29,7 @@ import torch
 from ..ops.align import cigar_to_unitrange, semiglobal_align_batch
 from ..ops.reference import RefProfile
 from ..ops.scan_cluster import ClusterScanEngine
+from ..utils import trace
 from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .miner import MineResult, ScanStats, fmt_dist
@@ -118,70 +119,77 @@ def mine_genome_clusters(
             if ckpt:
                 ckpt.record_done(record_idx, genome_pos, [], [])
             continue
-        stats.records_scanned += 1
-        stats.bp_scanned += seq_len
-        stats.windows_scanned += m * imax
+        with trace.span("record") as sp:
+            stats.records_scanned += 1
+            stats.bp_scanned += seq_len
+            stats.windows_scanned += m * imax
 
-        codes_dev = prefetched.pop(record_idx, None)
-        _prefetch_after(record_idx)
-        if do_return_dists:
-            # every window of every cluster, through each cluster's
-            # whole-record distance scan
-            dist0s, streams = [], []
-            for ind in range(m):
-                d0, stream, dists = cluster_engine.engines[ind].record_stream(
-                    record.codes, thr_vec[ind], collect_dists=True, codes_dev=codes_dev,
+            codes_dev = prefetched.pop(record_idx, None)
+            _prefetch_after(record_idx)
+            if do_return_dists:
+                # every window of every cluster, through each cluster's
+                # whole-record distance scan
+                dist0s, streams = [], []
+                for ind in range(m):
+                    d0, stream, dists = cluster_engine.engines[ind].record_stream(
+                        record.codes, thr_vec[ind], collect_dists=True, codes_dev=codes_dev,
+                    )
+                    dist0s.append(d0)
+                    streams.append(stream)
+                    dist_parts[ind].append(dists[1 : imax + 1])
+            else:
+                pairs = cluster_engine.record_streams(
+                    record.codes, thr_vec, codes_dev=codes_dev,
+                    seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
                 )
-                dist0s.append(d0)
-                streams.append(stream)
-                dist_parts[ind].append(dists[1 : imax + 1])
-        else:
-            pairs = cluster_engine.record_streams(
-                record.codes, thr_vec, codes_dev=codes_dev,
-                seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
-            )
-            dist0s = [p[0] for p in pairs]
-            streams = [p[1] for p in pairs]
-        stats.candidate_windows += sum(len(s) for s in streams)
+                dist0s = [p[0] for p in pairs]
+                streams = [p[1] for p in pairs]
+            candidates = sum(len(s) for s in streams)
+            stats.candidate_windows += candidates
+            sp.add(bp=seq_len, windows=m * imax, candidates=candidates)
 
-        prev_range = (0, 0)  # 1-based inclusive; (0, 0) matches Julia's 0:0
+            prev_range = (0, 0)  # 1-based inclusive; (0, 0) matches Julia's 0:0
 
-        def process(ev: OmnHitEvent) -> bool:
-            nonlocal prev_range
-            cmi = ev.cmi
-            if prev_range[0] <= cmi <= prev_range[1]:
-                return False
-            ws_i = windowsizes[ev.cluster]
-            rng = (max(cmi - buff, 1), min(cmi + ws_i - 1 + buff, seq_len))
-            if do_align:
-                # against the stored cluster consensus as it is (truncated
-                # to ws for real clusters, full length for the appended
-                # average cluster; OmnGenomeMiner.jl:131)
-                lo, hi = rng
-                window = record.seq[lo - 1 : hi].decode("ascii").upper()
-                aln = semiglobal_align_batch(profiles[ev.cluster].consensus, [window], gap_open, gap_extend)[0]
-                if do_return_align:
-                    # collected before the second overlap check
-                    # (OmnGenomeMiner.jl:132)
-                    res.alignments.append(aln)
-                alo, ahi = cigar_to_unitrange(aln)
-                rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
-            if not (rng[1] < prev_range[0] or rng[0] > prev_range[1]):
-                return False
-            desc = (
-                f"{record.identifier} | Dist = {fmt_dist(ev.dist)}"
-                f" | KFV = {ev.cluster + 1}"
-                f" | MatchPos = {rng[0]}:{rng[1]}"
-                f" | GenomePos = {genome_pos}"
-                f" | Len = {rng[1] - rng[0] + 1}"
-            )
-            res.hits.append(FastaRecord(desc, record.seq[rng[0] - 1 : rng[1]].upper()))
-            if get_hit_loci:
-                res.hit_loci.append(rng[0] + genome_pos)
-            prev_range = rng
-            return True
+            def process(ev: OmnHitEvent) -> bool:
+                nonlocal prev_range
+                stats.replay_hits += 1
+                cmi = ev.cmi
+                if prev_range[0] <= cmi <= prev_range[1]:
+                    return False
+                ws_i = windowsizes[ev.cluster]
+                rng = (max(cmi - buff, 1), min(cmi + ws_i - 1 + buff, seq_len))
+                if do_align:
+                    # against the stored cluster consensus as it is (truncated
+                    # to ws for real clusters, full length for the appended
+                    # average cluster; OmnGenomeMiner.jl:131)
+                    lo, hi = rng
+                    window = record.seq[lo - 1 : hi].decode("ascii").upper()
+                    stats.windows_aligned += 1
+                    aln = semiglobal_align_batch(profiles[ev.cluster].consensus, [window], gap_open, gap_extend)[0]
+                    if do_return_align:
+                        # collected before the second overlap check
+                        # (OmnGenomeMiner.jl:132)
+                        res.alignments.append(aln)
+                    alo, ahi = cigar_to_unitrange(aln)
+                    rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
+                if not (rng[1] < prev_range[0] or rng[0] > prev_range[1]):
+                    return False
+                desc = (
+                    f"{record.identifier} | Dist = {fmt_dist(ev.dist)}"
+                    f" | KFV = {ev.cluster + 1}"
+                    f" | MatchPos = {rng[0]}:{rng[1]}"
+                    f" | GenomePos = {genome_pos}"
+                    f" | Len = {rng[1] - rng[0] + 1}"
+                )
+                res.hits.append(FastaRecord(desc, record.seq[rng[0] - 1 : rng[1]].upper()))
+                if get_hit_loci:
+                    res.hit_loci.append(rng[0] + genome_pos)
+                prev_range = rng
+                return True
 
-        replay_omn(streams, dist0s, thr_vec, k, windowsizes, seq_len, process)
+            with trace.span("replay") as sp_replay:
+                replay_omn(streams, dist0s, thr_vec, k, windowsizes, seq_len, process)
+                sp_replay.add(hits=len(res.hits) - hits_before)
         genome_pos += seq_len
         if ckpt:
             ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])

@@ -32,6 +32,7 @@ from ..ops.align import align_hits_batch, cigar_to_unitrange
 from ..ops.consensus import Profile
 from ..ops.scan import ScanEngine, resolve_device
 from ..ops.strobemers import strobe_2_mer_codes, strobe_2_mer_codes_torch, ungapped_strobe_2_mer_count_into
+from ..utils import trace
 from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records
 from .miner import MineResult, ScanStats, fmt_dist
@@ -205,74 +206,80 @@ def strobe_mine_genome(
             if ckpt:
                 ckpt.record_done(record_idx, genome_pos, [], [])
             continue
-        n_steps = seq_len - ws - 1
-        if n_steps < 1:
-            # degenerate record: only the init window exists
-            sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
-            sprof = torch.as_tensor(profile.sum_kfv.astype(np.int32), device=dev)
-            d_scaled = strobe_scan_from_codes(
-                torch.as_tensor(sc.astype(np.int32), device=dev), sprof, w, r, max(n_steps, 0)
-            ).cpu().numpy()
-            dists = d_scaled.astype(np.float64) / scale
-            dist0, stream = float(dists[0]), list(candidate_stream_from_dists(dists, thr))
-        else:
-            if device_extract:
-                # the record crosses as int8 genome codes (or is already on
-                # the device); the strobe codes feed the span engine without
-                # leaving the device
-                if genome_dev is not None:
-                    gcodes = genome_dev[record_idx][:seq_len]
-                else:
-                    gcodes = torch.from_numpy(record.codes).to(dev)
-                sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
-            else:
+        with trace.span("record") as sp:
+            n_steps = seq_len - ws - 1
+            if n_steps < 1:
+                # degenerate record: only the init window exists
                 sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
-            xstar = int(sc[w])
-            eng = engines.get(xstar)
-            if eng is None:
-                if len(engines) > 16:
-                    engines.clear()
-                eng = engines[xstar] = engine_factory(profile, xstar)
-            dist0, stream, dists = eng.record_stream(sc[: n_steps + w], thr, collect_dists=do_return_dists)
-        stats.records_scanned += 1
-        stats.bp_scanned += seq_len
-        stats.windows_scanned += n_steps + 1
-        stats.candidate_windows += len(stream)
-        if do_return_dists:
-            dist_parts.append(np.asarray(dists[1:]) if dists is not None else np.empty(0))
+                sprof = torch.as_tensor(profile.sum_kfv.astype(np.int32), device=dev)
+                d_scaled = strobe_scan_from_codes(
+                    torch.as_tensor(sc.astype(np.int32), device=dev), sprof, w, r, max(n_steps, 0)
+                ).cpu().numpy()
+                dists = d_scaled.astype(np.float64) / scale
+                dist0, stream = float(dists[0]), list(candidate_stream_from_dists(dists, thr))
+            else:
+                if device_extract:
+                    # the record crosses as int8 genome codes (or is already on
+                    # the device); the strobe codes feed the span engine without
+                    # leaving the device
+                    if genome_dev is not None:
+                        gcodes = genome_dev[record_idx][:seq_len]
+                    else:
+                        gcodes = torch.from_numpy(record.codes).to(dev)
+                    sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
+                else:
+                    sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
+                xstar = int(sc[w])
+                eng = engines.get(xstar)
+                if eng is None:
+                    if len(engines) > 16:
+                        engines.clear()
+                    eng = engines[xstar] = engine_factory(profile, xstar)
+                dist0, stream, dists = eng.record_stream(sc[: n_steps + w], thr, collect_dists=do_return_dists)
+            stats.records_scanned += 1
+            stats.bp_scanned += seq_len
+            stats.windows_scanned += n_steps + 1
+            stats.candidate_windows += len(stream)
+            sp.add(bp=seq_len, windows=n_steps + 1, candidates=len(stream))
+            if do_return_dists:
+                dist_parts.append(np.asarray(dists[1:]) if dists is not None else np.empty(0))
 
-        raw_hits = replay_single(
-            stream, dist0, thr,
-            k=k, ws=ws, seq_len=seq_len, buff=buff, cmi_offset=0,
-        )
+            with trace.span("replay") as sp_replay:
+                raw_hits = replay_single(
+                    stream, dist0, thr,
+                    k=k, ws=ws, seq_len=seq_len, buff=buff, cmi_offset=0,
+                )
+                sp_replay.add(hits=len(raw_hits))
+            stats.replay_hits += len(raw_hits)
 
-        alns = None
-        if do_align and raw_hits:
-            windows = [
-                record.seq[h.start - 1 : h.stop].decode("ascii").upper()
-                for h in raw_hits
-            ]
-            alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=dev)
-        for hit_i, hit in enumerate(raw_hits):
-            lo, hi = hit.start, hit.stop
-            rng = (lo, hi)
-            if do_align:
-                aln = alns[hit_i]
-                if aln.score < score_threshold:
-                    continue  # ref Alignment.jl:96-98 score filter
-                if do_return_align:
-                    res.alignments.append(aln)
-                alo, ahi = cigar_to_unitrange(aln)
-                rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
-            desc = (
-                f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
-                f" | MatchPos = {rng[0]}:{rng[1]}"
-                f" | GenomePos = {genome_pos}"
-                f" | Len = {rng[1] - rng[0] + 1}"
-            )
-            res.hits.append(FastaRecord(desc, record.seq[rng[0] - 1 : rng[1]].upper()))
-            if get_hit_loci:
-                res.hit_loci.append(rng[0] + genome_pos)
+            alns = None
+            if do_align and raw_hits:
+                windows = [
+                    record.seq[h.start - 1 : h.stop].decode("ascii").upper()
+                    for h in raw_hits
+                ]
+                stats.windows_aligned += len(windows)
+                alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=dev)
+            for hit_i, hit in enumerate(raw_hits):
+                lo, hi = hit.start, hit.stop
+                rng = (lo, hi)
+                if do_align:
+                    aln = alns[hit_i]
+                    if aln.score < score_threshold:
+                        continue  # ref Alignment.jl:96-98 score filter
+                    if do_return_align:
+                        res.alignments.append(aln)
+                    alo, ahi = cigar_to_unitrange(aln)
+                    rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
+                desc = (
+                    f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
+                    f" | MatchPos = {rng[0]}:{rng[1]}"
+                    f" | GenomePos = {genome_pos}"
+                    f" | Len = {rng[1] - rng[0] + 1}"
+                )
+                res.hits.append(FastaRecord(desc, record.seq[rng[0] - 1 : rng[1]].upper()))
+                if get_hit_loci:
+                    res.hit_loci.append(rng[0] + genome_pos)
         genome_pos += seq_len
         if ckpt:
             ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])

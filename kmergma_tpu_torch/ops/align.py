@@ -27,6 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import trace
+
 # ---------------------------------------------------------------------------
 # EDNAFULL / NUC.4.4 over the 15 IUPAC letters (order as in the EMBOSS file).
 # ---------------------------------------------------------------------------
@@ -145,10 +147,16 @@ def semiglobal_align_batch(
     hit x 100 hits of pure per-call overhead).  Subjects are grouped by
     length internally (buffered hit windows share one length except at
     record edges); the per-hit traceback stays sequential - it is O(m+n)
-    per hit, not O(m*n).
+    per hit, not O(m*n).  Runs in an ``align`` span (utils/trace.py).
     """
     if not subjects:
         return []
+    with trace.span("align") as sp:
+        sp.add(windows=len(subjects))
+        return _semiglobal_align_batch(query, subjects, gap_open, gap_extend)
+
+
+def _semiglobal_align_batch(query, subjects, gap_open: int, gap_extend: int) -> "list[AlignResult]":
     a = _seq_to_idx(query)
     bs = [_seq_to_idx(s) for s in subjects]
     m = a.shape[0]
@@ -263,7 +271,8 @@ def align_hits_batch(
     caller's (on the CPU its plain twins); ``=0`` forbids it.  Unset, the
     threaded native host DP runs when its library is present; otherwise
     the device aligner when ``device`` is a CUDA device, CUDA is present
-    and there are at least 16 subjects, else the NumPy batch wavefront."""
+    and there are at least 16 subjects, else the NumPy batch wavefront.
+    Either route runs in one ``align`` span (utils/trace.py)."""
     if not subjects:
         return []
     import os
@@ -279,7 +288,9 @@ def align_hits_batch(
     if use_device:
         from .align_device import semiglobal_align_device
 
-        return semiglobal_align_device(query, subjects, gap_open, gap_extend, device=device)
+        with trace.span("align") as sp:
+            sp.add(windows=len(subjects))
+            return semiglobal_align_device(query, subjects, gap_open, gap_extend, device=device)
     return semiglobal_align_batch(query, subjects, gap_open, gap_extend)
 
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .reference import RefProfile
 
 #: the largest pair depth of the kernels that keep per-position pair
@@ -293,11 +294,18 @@ class PinnedStaging:
 
     def to_device(self, dst: torch.Tensor, fill, shape: tuple, dtype) -> None:
         """Copy an array of ``shape`` and numpy ``dtype`` into ``dst``:
-        ``fill(view)`` writes it into a staging buffer's numpy view."""
+        ``fill(view)`` writes it into a staging buffer's numpy view.  Runs
+        in a ``stage`` span (utils/trace.py), which counts the bytes, a
+        wait on a copy still reading the buffer, and a buffer grown."""
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
-        i, buf = self._buffer(nbytes)
-        fill(buf.numpy().view(dtype).reshape(shape))
-        self.events[i] = self._copy(dst, buf.view(dst.dtype).view(dst.shape))
+        with trace.span("stage") as sp:
+            if sp:
+                event, held = self.events[self.turn], self.buffers[self.turn]
+                sp.add(bytes=nbytes, waits=int(event is not None and not event.query()),
+                       grown=int(held is None or held.numel() < nbytes))
+            i, buf = self._buffer(nbytes)
+            fill(buf.numpy().view(dtype).reshape(shape))
+            self.events[i] = self._copy(dst, buf.view(dst.dtype).view(dst.shape))
 
 
 _STAGING: dict = {}
@@ -329,9 +337,11 @@ def pad_to_device(codes: "np.ndarray | torch.Tensor", total: int, dtype, device:
         padded[:n] = codes
         return padded
     if device.type != "cuda":
-        padded = np.zeros(total, dtype=dtype)
-        padded[:n] = codes
-        return torch.from_numpy(padded).to(device)
+        with trace.span("stage") as sp:
+            padded = np.zeros(total, dtype=dtype)
+            padded[:n] = codes
+            sp.add(bytes=padded.nbytes)
+            return torch.from_numpy(padded).to(device)
     out = torch.empty(total, dtype=_torch_dtype(dtype), device=device)
     out[n:].zero_()
 
@@ -355,9 +365,11 @@ def host_region_rows(codes: np.ndarray, starts: np.ndarray, width: int, device: 
         view[idx >= n] = 0
 
     if device.type != "cuda":
-        rows = np.empty(idx.shape, dtype=codes.dtype)
-        fill(rows)
-        return torch.from_numpy(rows).to(device)
+        with trace.span("stage") as sp:
+            rows = np.empty(idx.shape, dtype=codes.dtype)
+            fill(rows)
+            sp.add(bytes=rows.nbytes)
+            return torch.from_numpy(rows).to(device)
     out = torch.empty(idx.shape, dtype=_torch_dtype(codes.dtype), device=device)
     staging(device).to_device(out, fill, idx.shape, codes.dtype)
     return out
@@ -371,7 +383,15 @@ def _region_rows(source: "torch.Tensor | np.ndarray", starts: torch.Tensor, widt
     if torch.is_tensor(source):
         offs = torch.arange(width, device=source.device)
         return source[starts[:, None] + offs[None, :]]
-    return host_region_rows(source, starts.cpu().numpy(), width, starts.device)
+    return host_region_rows(source, fetch(starts), width, starts.device)
+
+
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as a numpy array: the engines' blocking copies
+    back, each in a ``fetch`` span (utils/trace.py)."""
+    with trace.span("fetch") as sp:
+        sp.add(bytes=t.numel() * t.element_size())
+        return t.cpu().numpy()
 
 
 def pack_bitmap_words(flat: np.ndarray) -> np.ndarray:
@@ -590,6 +610,8 @@ def _planned_streams(engines: list, source: "torch.Tensor | np.ndarray", flats: 
     """The planned pass after the bitmap, for one or more profiles of one
     record (the cluster engines pass one ``ScanEngine`` per cluster).
 
+    Runs in a ``plan`` span (utils/trace.py), which counts the K2 rows
+    computed, the valid regions, and the reruns of each bucket.
     ``source`` gives the region rows (``_region_rows``): the record's
     zero-padded codes on the device, or its host codes (the segmented
     records and the sharded engines, where no device holds the whole
@@ -606,42 +628,48 @@ def _planned_streams(engines: list, source: "torch.Tensor | np.ndarray", flats: 
     order."""
     from .scan_kernels import run_reduce_multi, run_reduce_size
 
-    rspan = engines[0].rspan
-    thr_exact = [int(e._thr_exact(t)) for e, t in zip(engines, thrs)]
-    # a record never holds more regions than rspan-grid cells
-    n_regions = [min(e.plan_regions, -(-nw // rspan)) for e, nw in zip(engines, nws)]
-    buckets = [e.run_bucket for e in engines]
-    outs: list = [None] * len(engines)
-    kept: list = [None] * len(engines)
-    todo = list(range(len(engines)))
-    while todo:
-        for i in todo:
-            kept[i] = engines[i]._regions(source, flats[i], nws[i], n_regions[i])
-        host = run_reduce_multi(
-            [kept[i][2] for i in todo], [kept[i][0] for i in todo], [kept[i][1] for i in todo],
-            [thr_exact[i] for i in todo], [nws[i] for i in todo], [mis[i] for i in todo], [buckets[i] for i in todo],
-        ).cpu().numpy()
-        again = []
-        off = 0
-        for i in todo:
-            out = host[off : off + run_reduce_size(buckets[i])]
-            off += out.shape[0]
-            if int(out[0]) > n_regions[i]:
-                n_regions[i] = _next_pow2(int(out[0]))
-                again.append(i)
-            else:
-                outs[i] = out
-        todo = again
-    result = []
-    for i, eng in enumerate(engines):
-        dist0 = float(np.int64(outs[i][1])) / eng.scale
-        red_np, R = outs[i][2:], buckets[i]
-        if int(red_np[0]) > R:
-            R = _next_pow2(int(red_np[0]))
-            starts, nvr, d = kept[i]
-            red_np = run_reduce_multi([d], [starts], [nvr], [thr_exact[i]], [nws[i]], [mis[i]], [R]).cpu().numpy()[2:]
-        result.append((dist0, eng._stream_from_device_reduce(red_np, dist0, R)))
-    return result
+    with trace.span("plan") as sp:
+        rspan = engines[0].rspan
+        thr_exact = [int(e._thr_exact(t)) for e, t in zip(engines, thrs)]
+        # a record never holds more regions than rspan-grid cells
+        n_regions = [min(e.plan_regions, -(-nw // rspan)) for e, nw in zip(engines, nws)]
+        buckets = [e.run_bucket for e in engines]
+        outs: list = [None] * len(engines)
+        kept: list = [None] * len(engines)
+        todo = list(range(len(engines)))
+        while todo:
+            for i in todo:
+                kept[i] = engines[i]._regions(source, flats[i], nws[i], n_regions[i])
+            sp.add(k2_rows=sum(n_regions[i] for i in todo))
+            host = fetch(run_reduce_multi(
+                [kept[i][2] for i in todo], [kept[i][0] for i in todo], [kept[i][1] for i in todo],
+                [thr_exact[i] for i in todo], [nws[i] for i in todo], [mis[i] for i in todo], [buckets[i] for i in todo],
+            ))
+            again = []
+            off = 0
+            for i in todo:
+                out = host[off : off + run_reduce_size(buckets[i])]
+                off += out.shape[0]
+                if int(out[0]) > n_regions[i]:
+                    n_regions[i] = _next_pow2(int(out[0]))
+                    again.append(i)
+                else:
+                    outs[i] = out
+            sp.add(region_reruns=len(again))
+            todo = again
+        result = []
+        run_reruns = 0
+        for i, eng in enumerate(engines):
+            dist0 = float(np.int64(outs[i][1])) / eng.scale
+            red_np, R = outs[i][2:], buckets[i]
+            if int(red_np[0]) > R:
+                R = _next_pow2(int(red_np[0]))
+                starts, nvr, d = kept[i]
+                red_np = fetch(run_reduce_multi([d], [starts], [nvr], [thr_exact[i]], [nws[i]], [mis[i]], [R]))[2:]
+                run_reruns += 1
+            result.append((dist0, eng._stream_from_device_reduce(red_np, dist0, R)))
+        sp.add(rspan=rspan, regions_valid=sum(int(o[0]) for o in outs), run_reruns=run_reruns)
+        return result
 
 
 class ScanEngine:
@@ -828,7 +856,7 @@ class ScanEngine:
             si, bm, fits = pending.pop(0)
             if fits:
                 check_fits(fits[0], fused_record_bitmaps.__name__)
-            host = fit_blocks(bm.cpu().numpy(), blocks_per_seg)
+            host = fit_blocks(fetch(bm), blocks_per_seg)
             out.append(host)
             if tracker is not None:
                 tracker.done_segment(si, pack_bitmap_words(host), fp)
@@ -863,7 +891,7 @@ class ScanEngine:
         prev_below = False
         for start in range(0, nw, self.dists_chunk):
             t = min(self.dists_chunk, nw - start)
-            d = self._chunk_distances(prep[start : start + t + self.ws - 1]).cpu().numpy()
+            d = fetch(self._chunk_distances(prep[start : start + t + self.ws - 1]))
             full_dists[start : start + t] = d / self.scale
             self._stream_from_full(d, start, prev_below, thr_int, stream)
             prev_below = bool(d[t - 1] < thr_int)
@@ -885,20 +913,23 @@ class ScanEngine:
         bool[n_tiles * t / block]), or off K1 (``on_k1``) the depth route
         ``_depth_bitmap`` at the bound depth, ws - k in exact mode.
         ``s_dev`` is the profile on ``prep``'s device (the engine's by
-        default); ``fits_out`` defers K1's int32 check to the caller."""
+        default); ``fits_out`` defers K1's int32 check to the caller.  Runs
+        in a ``bitmap`` span (utils/trace.py)."""
         s_dev = self.s_dev if s_dev is None else s_dev
         depth = self.ws - self.k if self.bound_depth is None else self.bound_depth
-        if not self.on_k1:
-            return self._depth_bitmap(prep, nw, thr_int, depth, s_dev)
-        from .scan_fused import fused_record_bitmaps
+        with trace.span("bitmap") as sp:
+            sp.add(profiles=1, windows=nw)
+            if not self.on_k1:
+                return self._depth_bitmap(prep, nw, thr_int, depth, s_dev)
+            from .scan_fused import fused_record_bitmaps
 
-        l0 = _first_window_l0(prep, s_dev, k=self.k, ws=self.ws, r=self.r, depth=depth)
-        bm = fused_record_bitmaps(
-            prep, s_dev, thr=thr_int, l0=l0, nw=nw,
-            k=self.k, ws=self.ws, r=self.r, depth=depth,
-            t=self.fused_t, block=self.block, n_tiles=-(-nw // self.fused_t), fits_out=fits_out,
-        )
-        return bm.reshape(-1).bool()
+            l0 = _first_window_l0(prep, s_dev, k=self.k, ws=self.ws, r=self.r, depth=depth)
+            bm = fused_record_bitmaps(
+                prep, s_dev, thr=thr_int, l0=l0, nw=nw,
+                k=self.k, ws=self.ws, r=self.r, depth=depth,
+                t=self.fused_t, block=self.block, n_tiles=-(-nw // self.fused_t), fits_out=fits_out,
+            )
+            return bm.reshape(-1).bool()
 
     def _depth_bitmap(self, prep: torch.Tensor, nw: int, thr_int: int, depth: int, s_dev: torch.Tensor) -> torch.Tensor:
         """The depth route: K4 at ``depth`` gives the pair deltas and the K

@@ -41,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .reference import RefProfile
 from .scan import (
     MAX_BITMAP_DEPTH,
@@ -261,10 +262,13 @@ class ClusterScanEngine:
         the set has a ``shared_depth`` and the largest cluster has at least
         ``fused_min_windows`` windows, else the split pass.  ``s_stack`` is
         the profile stack on ``prep``'s device (the engine's by default);
-        ``fits_out`` defers K3's int32 check to the caller."""
-        if self.shared_depth is not None and max(nws) >= self.fused_min_windows:
-            return self._fused_bitmaps(prep, nws, thr_ints, s_stack, fits_out)
-        return self._split_bitmaps(prep, nws, thr_ints, s_stack)
+        ``fits_out`` defers K3's int32 check to the caller.  Runs in a
+        ``bitmap`` span (utils/trace.py)."""
+        with trace.span("bitmap") as sp:
+            sp.add(profiles=len(nws), windows=sum(nws))
+            if self.shared_depth is not None and max(nws) >= self.fused_min_windows:
+                return self._fused_bitmaps(prep, nws, thr_ints, s_stack, fits_out)
+            return self._split_bitmaps(prep, nws, thr_ints, s_stack)
 
     def _split_bitmaps(self, prep: torch.Tensor, nws: list[int], thr_ints: list[int], s_stack: "torch.Tensor | None" = None) -> torch.Tensor:
         """The split pass (K5, or K4 and K6): bool[m, n_blocks]."""
@@ -291,7 +295,10 @@ class ClusterScanEngine:
             for g in self.k3_groups:
                 widths = [ws - self.k + 1 for ws, _r in self.specs[g]]
                 got = lookup_roundtrip(self.s_stack[g], t=t, w_min=min(widths), w_max=max(widths))
-                if not torch.equal(got, self.s_stack[g]):
+                with trace.span("fetch") as sp:  # the host reads the comparison back
+                    sp.add(bytes=1)
+                    same = torch.equal(got, self.s_stack[g])
+                if not same:
                     raise RuntimeError("K8: a profile table entry came back wrong through K3's lookup")
             self._lookup_checked = True
         head = rolling_kmer_codes(prep[: self.max_ws], self.k)

@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from ..utils import trace
 from .scan import MAX_BITMAP_DEPTH, _k1_halo, profile_lookup_multi
 from .scan_fused import _THREADS, fused_record_bitmaps_plain
 
@@ -170,8 +171,12 @@ def _k3_run(args: dict, l0s: torch.Tensor, fits_out: list | None = None) -> torc
 
 def check_fits(fits: torch.Tensor, what: str) -> None:
     """Raise unless K1's or K3's tile bases all fitted int32 (``fits``, a
-    0-dim bool on the card, read here)."""
-    if not bool(fits):
+    0-dim bool on the card, read here: the host waits for it in a ``fetch``
+    span, utils/trace.py)."""
+    with trace.span("fetch") as sp:
+        sp.add(bytes=fits.element_size())
+        fitted = bool(fits)
+    if not fitted:
         raise OverflowError(f"{what}: a tile base overflows int32")
 
 

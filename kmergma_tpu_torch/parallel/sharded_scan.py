@@ -49,6 +49,7 @@ from ..ops.scan import (
     _rows_d_from,
     _sq_norm,
     check_int32_headroom,
+    fetch,
     fit_blocks,
     pack_bitmap_words,
     pad_to_device,
@@ -137,7 +138,7 @@ def _fetch(pending: list, n_blocks: int, what: str, m: int | None = None) -> np.
         bm, fits = item
         for fit in fits:  # one a K1 or K3 call: cluster mode makes one a group of 32 clusters
             check_fits(fit, what)
-        host = bm.cpu().numpy()
+        host = fetch(bm)
         if m is None:
             parts.append(fit_blocks(host, n_blocks))
         else:

@@ -24,6 +24,7 @@ from typing import Iterable, Iterator, Union
 import numpy as np
 
 from ..consts import encode_seq
+from . import trace
 
 
 @dataclass
@@ -81,7 +82,16 @@ def as_records(source: PathOrRecords) -> list[FastaRecord]:
 
     Paths go through the native C++ loader when available (fused parse +
     2-bit encode in one sweep, utils/native.py) with the pure-Python parser
-    as fallback - identical records either way (tests/test_native.py)."""
+    as fallback - identical records either way (tests/test_native.py).
+    Runs in a ``parse`` span (utils/trace.py)."""
+    with trace.span("parse") as sp:
+        recs = _as_records(source)
+        if sp:
+            sp.add(records=len(recs), bytes=sum(len(r.seq) for r in recs))
+        return recs
+
+
+def _as_records(source: PathOrRecords) -> list[FastaRecord]:
     if isinstance(source, (str, os.PathLike)):
         native = read_fasta_native(source)
         if native is not None:
