@@ -29,7 +29,7 @@ from ..parallel.mesh import joined, make_mesh
 from ..parallel.tp_lookup import TPScanEngine
 from ..utils import trace
 from ..utils.checkpoint import ScanCheckpoint
-from ..utils.fasta import FastaRecord, PathOrRecords, as_records
+from ..utils.fasta import FastaRecord, PathOrRecords, as_records, seq_slice
 from .state_machine import replay_single
 
 
@@ -139,7 +139,7 @@ def record_kmergma(
     for hit in replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=seq_len, buff=buff):
         start, stop = hit.start, hit.stop
         if do_align:
-            window = record.seq[start - 1 : stop].decode("ascii").upper()
+            window = seq_slice(record, start - 1, stop).decode("ascii").upper()
             aln = semiglobal_align(profile.consensus_ws, window, gap_open, gap_extend)
             lo, hi = cigar_to_unitrange(aln)
             start, stop = max(1, hit.start + lo - 1), min(hit.start + hi - 1, seq_len)
@@ -148,7 +148,7 @@ def record_kmergma(
             f" | MatchPos = {start}:{stop}"
             f" | Len = {stop - start + 1}"
         )
-        hits.append(FastaRecord(desc, record.seq[start - 1 : stop].upper()))
+        hits.append(FastaRecord(desc, seq_slice(record, start - 1, stop).upper()))
     return hits
 
 
@@ -251,7 +251,7 @@ def mine_genome(
             alns = None
             if do_align and raw_hits:
                 windows = [
-                    record.seq[h.start - 1 : h.stop].decode("ascii").upper()
+                    seq_slice(record, h.start - 1, h.stop).decode("ascii").upper()
                     for h in raw_hits
                 ]
                 stats.windows_aligned += len(windows)
@@ -273,7 +273,7 @@ def mine_genome(
                     f" | GenomePos = {genome_pos}"
                     f" | Len = {stop - start + 1}"
                 )
-                res.hits.append(FastaRecord(desc, record.seq[start - 1 : stop].upper()))
+                res.hits.append(FastaRecord(desc, seq_slice(record, start - 1, stop).upper()))
                 if get_hit_loci:
                     res.hit_loci.append(start + genome_pos)
         genome_pos += seq_len

@@ -31,7 +31,7 @@ from ..ops.reference import RefProfile
 from ..ops.scan_cluster import ClusterScanEngine
 from ..utils import trace
 from ..utils.checkpoint import ScanCheckpoint
-from ..utils.fasta import FastaRecord, PathOrRecords, as_records
+from ..utils.fasta import FastaRecord, PathOrRecords, as_records, seq_slice
 from .miner import MineResult, ScanStats, fmt_dist
 from .state_machine import OmnHitEvent, replay_omn
 
@@ -163,7 +163,7 @@ def mine_genome_clusters(
                     # to ws for real clusters, full length for the appended
                     # average cluster; OmnGenomeMiner.jl:131)
                     lo, hi = rng
-                    window = record.seq[lo - 1 : hi].decode("ascii").upper()
+                    window = seq_slice(record, lo - 1, hi).decode("ascii").upper()
                     stats.windows_aligned += 1
                     aln = semiglobal_align_batch(profiles[ev.cluster].consensus, [window], gap_open, gap_extend)[0]
                     if do_return_align:
@@ -181,7 +181,7 @@ def mine_genome_clusters(
                     f" | GenomePos = {genome_pos}"
                     f" | Len = {rng[1] - rng[0] + 1}"
                 )
-                res.hits.append(FastaRecord(desc, record.seq[rng[0] - 1 : rng[1]].upper()))
+                res.hits.append(FastaRecord(desc, seq_slice(record, rng[0] - 1, rng[1]).upper()))
                 if get_hit_loci:
                     res.hit_loci.append(rng[0] + genome_pos)
                 prev_range = rng

@@ -34,7 +34,7 @@ from ..ops.scan import ScanEngine, resolve_device
 from ..ops.strobemers import strobe_2_mer_codes, strobe_2_mer_codes_torch, ungapped_strobe_2_mer_count_into
 from ..utils import trace
 from ..utils.checkpoint import ScanCheckpoint
-from ..utils.fasta import FastaRecord, PathOrRecords, as_records
+from ..utils.fasta import FastaRecord, PathOrRecords, as_records, seq_slice
 from .miner import MineResult, ScanStats, fmt_dist
 
 
@@ -255,7 +255,7 @@ def strobe_mine_genome(
             alns = None
             if do_align and raw_hits:
                 windows = [
-                    record.seq[h.start - 1 : h.stop].decode("ascii").upper()
+                    seq_slice(record, h.start - 1, h.stop).decode("ascii").upper()
                     for h in raw_hits
                 ]
                 stats.windows_aligned += len(windows)
@@ -277,7 +277,7 @@ def strobe_mine_genome(
                     f" | GenomePos = {genome_pos}"
                     f" | Len = {rng[1] - rng[0] + 1}"
                 )
-                res.hits.append(FastaRecord(desc, record.seq[rng[0] - 1 : rng[1]].upper()))
+                res.hits.append(FastaRecord(desc, seq_slice(record, rng[0] - 1, rng[1]).upper()))
                 if get_hit_loci:
                     res.hit_loci.append(rng[0] + genome_pos)
         genome_pos += seq_len

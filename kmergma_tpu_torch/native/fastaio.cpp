@@ -1,22 +1,50 @@
-// Native FASTA ingestion: fused parse + 2-bit encode in one pass.
+// Native FASTA ingestion: a threaded parse + 2-bit encode of the mapped
+// file, in place.
 //
-// The framework's data-loader hot path (SURVEY.md section 7 phase 0 item 1):
-// for multi-gigabase genomes the Python parser pays one pass to strip
-// newlines and another to LUT-encode; this C++ path does both in a single
-// sweep over the mmap'd file buffer and writes the int8 code tensor
-// (A=0, C=1, G=2, T=3, N=3 - the reference's encoding contract,
-// KmerGMA.jl src/Consts.jl:22-28) directly into a caller-provided
-// buffer ready for device transfer.
+// The framework's data-loader hot path (SURVEY.md section 7 phase 0 item 1).
+// The file is mapped read-only and never copied.  It is cut into chunks
+// that each start just after a '\n', so that every chunk starts in
+// sequence mode (a header runs from '>' to the end of its line).  Two
+// passes run one thread a chunk:
+//
+//   fasta_plan: each thread counts its chunk's lines, records (where each
+//     '>' is, and the sequence bytes before it in the chunk), header bytes
+//     and sequence bytes, and finds the chunk's first invalid byte;
+//   fasta_fill: after a prefix sum over the chunks, each thread writes the
+//     int8 codes (A=0, C=1, G=2, T=3, N=3 - the reference's encoding
+//     contract, KmerGMA.jl src/Consts.jl:22-28), the raw sequence bytes and
+//     the headers into its own disjoint range of the caller's arrays.
+//
+// A sequence line of letters only (ACGTN in either case, a trailing '\r'
+// allowed) takes the fast path: one check a line, an OR of byte compares
+// in GCC vector extensions, then an encode loop without a branch a byte
+// that -O3 vectorises; both on plain SSE2, no -march.  Any other line (whitespace inside it,
+// a '>' after column 0, an invalid byte) goes byte by byte through LUT.
+//
+// The bytes the parse keeps and skips are those of the one-pass parser it
+// replaced: '\n', '\r', ' ' and '\t' are skipped in sequence; '>' anywhere
+// in sequence starts a header, which runs to the next '\n' with every '\r'
+// dropped; sequence bytes before the first header are written first and
+// belong to no record.
 //
 // C ABI (ctypes-bound from kmergma_tpu_torch/utils/native.py):
-//   fasta_stats(buf, n, &n_records, &total_seq_bytes)
-//   fasta_parse(buf, n, codes_out, seq_out, rec_offsets, rec_lens,
-//               desc_out, desc_cap, desc_lens, max_records)
-// Returns 0 on success, -1 on malformed input, -2 on invalid nucleotide
-// (position reported via rec_offsets[0] in that case).
+//   plan = fasta_plan(fd, n, n_threads, min_chunk, info)
+//     maps the file and runs pass 1; NULL if the file cannot be mapped.
+//     info[0..7] = records, sequence bytes, header bytes, first invalid
+//     byte (-1 for none), lines, slow lines, chunks (threads) used, and 1
+//     if the file holds a record (a chunk stops counting at its first
+//     invalid byte, so info[0] may then miss some; only the 1 is kept).
+//   fasta_fill(plan, codes_out, seq_out, rec_offsets, rec_lens,
+//              desc_out, desc_lens)
+//     runs pass 2 into arrays sized from info.
+//   fasta_free(plan) unmaps the file.
+
+#include <sys/mman.h>
 
 #include <cstdint>
 #include <cstring>
+#include <thread>
+#include <vector>
 
 namespace {
 
@@ -39,74 +67,230 @@ struct LutInit {
     }
 } lut_init;
 
+// True when every byte is one of ACGTNacgtn: an OR of byte compares a
+// line, 16 bytes a step (GCC vector extensions: SSE2 on x86-64, NEON on
+// AArch64), with no branch a byte.
+typedef unsigned char v16u __attribute__((vector_size(16)));
+
+inline unsigned char not_letter(unsigned char x) {
+    const unsigned char l = x | 0x20;
+    return (unsigned char)((l != 'a') & (l != 'c') & (l != 'g') & (l != 't') & (l != 'n'));
+}
+
+inline bool letters_only(const unsigned char* p, long n) {
+    v16u bad = {};
+    long j = 0;
+    for (; j + 16 <= n; j += 16) {
+        v16u x;
+        std::memcpy(&x, p + j, 16);
+        const v16u l = x | 0x20;
+        bad |= (v16u)((l != 'a') & (l != 'c') & (l != 'g') & (l != 't') & (l != 'n'));
+    }
+    unsigned char acc = 0;
+    for (int k = 0; k < 16; ++k) acc |= bad[k];
+    for (; j < n; ++j) acc |= not_letter(p[j]);
+    return acc == 0;
+}
+
+// Codes of a line of letters only: bits 1-2 of the byte give A 0, C 1,
+// G 2, T 3 in either case ((x >> 1) ^ (x >> 2), two low bits), and N is
+// set to 3.
+inline void encode_letters(const unsigned char* p, long n, signed char* codes, unsigned char* seq) {
+    std::memcpy(seq, p, (size_t)n);
+    for (long j = 0; j < n; ++j) {
+        const unsigned char x = p[j];
+        const unsigned char c = (unsigned char)(((x >> 1) ^ (x >> 2)) & 3);
+        codes[j] = (signed char)(c | ((x | 0x20) == 'n' ? 3 : 0));
+    }
+}
+
+struct Chunk {
+    long begin = 0, end = 0;
+    // pass 1
+    long seq = 0, hdr = 0, lines = 0, slow = 0;
+    long bad = -1;            // first invalid byte, or -1
+    bool gt_after_bad = false;  // a '>' (so a record) after it
+    std::vector<long> at;      // each header's '>'
+    std::vector<long> before;  // sequence bytes in the chunk before it
+    std::vector<long> hlen;    // its bytes, without '>' and '\r'
+    // pass 2
+    long seq_at = 0, hdr_at = 0;  // where the chunk's output starts
+};
+
+struct Plan {
+    const unsigned char* buf = nullptr;
+    long n = 0;
+    std::vector<Chunk> chunks;
+    long records = 0, seq = 0, hdr = 0;
+};
+
+inline long header_bytes(const unsigned char* p, long n) {
+    long cr = 0;
+    for (long j = 0; j < n; ++j) cr += p[j] == '\r';
+    return n - cr;
+}
+
+// The end of the line that starts at i: its '\n', or the chunk's end.
+inline long line_end(const unsigned char* buf, long i, long end) {
+    const void* nl = std::memchr(buf + i, '\n', (size_t)(end - i));
+    return nl ? (long)((const unsigned char*)nl - buf) : end;
+}
+
+void count_chunk(const unsigned char* buf, Chunk& c) {
+    const long end = c.end;
+    auto header = [&](long h, long e) {
+        c.at.push_back(h);
+        c.before.push_back(c.seq);
+        const long len = header_bytes(buf + h + 1, e - h - 1);
+        c.hlen.push_back(len);
+        c.hdr += len;
+    };
+    for (long i = c.begin; i < end;) {
+        const long e = line_end(buf, i, end);
+        ++c.lines;
+        if (buf[i] == '>') {
+            header(i, e);
+        } else {
+            const long le = (e > i && buf[e - 1] == '\r') ? e - 1 : e;
+            if (letters_only(buf + i, le - i)) {
+                c.seq += le - i;
+            } else {
+                ++c.slow;
+                for (long j = i; j < e; ++j) {
+                    const signed char v = LUT[buf[j]];
+                    if (v >= 0) {
+                        ++c.seq;
+                    } else if (buf[j] == '>') {
+                        header(j, e);
+                        break;
+                    } else if (v == -1) {
+                        c.bad = j;
+                        c.gt_after_bad = std::memchr(buf + j, '>', (size_t)(end - j)) != nullptr;
+                        return;
+                    }
+                }
+            }
+        }
+        i = e + 1;
+    }
+}
+
+void fill_chunk(const unsigned char* buf, const Chunk& c, signed char* codes, unsigned char* seq,
+                unsigned char* desc) {
+    long w = c.seq_at, dw = c.hdr_at;
+    auto header = [&](long h, long e) {
+        for (long j = h + 1; j < e; ++j)
+            if (buf[j] != '\r') desc[dw++] = buf[j];
+    };
+    for (long i = c.begin; i < c.end;) {
+        const long e = line_end(buf, i, c.end);
+        if (buf[i] == '>') {
+            header(i, e);
+        } else {
+            const long le = (e > i && buf[e - 1] == '\r') ? e - 1 : e;
+            if (letters_only(buf + i, le - i)) {
+                encode_letters(buf + i, le - i, codes + w, seq + w);
+                w += le - i;
+            } else {
+                for (long j = i; j < e; ++j) {
+                    const signed char v = LUT[buf[j]];
+                    if (v >= 0) {
+                        seq[w] = buf[j];
+                        codes[w++] = v;
+                    } else if (buf[j] == '>') {
+                        header(j, e);
+                        break;
+                    }
+                }
+            }
+        }
+        i = e + 1;
+    }
+}
+
+template <class F>
+void each_chunk(std::vector<Chunk>& chunks, F f) {
+    if (chunks.size() == 1) {
+        f(chunks[0]);
+        return;
+    }
+    std::vector<std::thread> ts;
+    for (auto& c : chunks) ts.emplace_back([&f, &c] { f(c); });
+    for (auto& t : ts) t.join();
+}
+
 }  // namespace
 
 extern "C" {
 
-// First pass: count records and total sequence bytes (excluding whitespace).
-int fasta_stats(const char* buf, long n, long* n_records, long* total_seq) {
-    long nr = 0, ts = 0;
-    long i = 0;
-    while (i < n) {
-        if (buf[i] == '>') {
-            ++nr;
-            while (i < n && buf[i] != '\n') ++i;  // skip header line
-            ++i;
-        } else {
-            signed char c = LUT[(unsigned char)buf[i]];
-            if (c >= 0) ++ts;
-            ++i;
-        }
+void* fasta_plan(int fd, long n, int n_threads, long min_chunk, long* info) {
+    void* m = mmap(nullptr, (size_t)n, PROT_READ, MAP_PRIVATE, fd, 0);
+    if (m == MAP_FAILED) return nullptr;
+    auto* plan = new Plan;
+    plan->buf = (const unsigned char*)m;
+    plan->n = n;
+    const unsigned char* buf = plan->buf;
+    long t_max = min_chunk > 0 ? n / min_chunk : n;
+    long nt = n_threads < 1 ? 1 : n_threads;
+    if (nt > t_max) nt = t_max > 1 ? t_max : 1;
+    // chunk t starts one past the first '\n' at or after byte n * t / nt
+    std::vector<long> starts{0};
+    for (long t = 1; t < nt; ++t) {
+        long target = (long)((__int128)n * t / nt);
+        if (target < starts.back()) target = starts.back();
+        const long e = line_end(buf, target, n);
+        starts.push_back(e < n ? e + 1 : n);
     }
-    *n_records = nr;
-    *total_seq = ts;
-    return nr > 0 ? 0 : -1;
+    starts.push_back(n);
+    plan->chunks.resize(nt);
+    for (long t = 0; t < nt; ++t) {
+        plan->chunks[t].begin = starts[t];
+        plan->chunks[t].end = starts[t + 1];
+    }
+    each_chunk(plan->chunks, [buf](Chunk& c) { count_chunk(buf, c); });
+    long bad = -1, lines = 0, slow = 0;
+    bool any_record = false;
+    for (auto& c : plan->chunks) {
+        c.seq_at = plan->seq;
+        c.hdr_at = plan->hdr;
+        plan->seq += c.seq;
+        plan->hdr += c.hdr;
+        plan->records += (long)c.at.size();
+        lines += c.lines;
+        slow += c.slow;
+        if (c.bad >= 0 && bad < 0) bad = c.bad;
+        any_record = any_record || !c.at.empty() || c.gt_after_bad;
+    }
+    info[0] = plan->records;
+    info[1] = plan->seq;
+    info[2] = plan->hdr;
+    info[3] = bad;
+    info[4] = lines;
+    info[5] = slow;
+    info[6] = nt;
+    info[7] = any_record;
+    return plan;
 }
 
-// Second pass: encode all records' sequences contiguously into codes_out;
-// rec_offsets[r] / rec_lens[r] locate record r inside codes_out;
-// headers (without '>') are packed back-to-back into desc_out with
-// per-record lengths in desc_lens.
-int fasta_parse(const char* buf, long n, signed char* codes_out,
-                char* seq_out, long* rec_offsets, long* rec_lens,
-                char* desc_out, long desc_cap, long* desc_lens,
-                long max_records) {
-    long r = -1;
-    long w = 0;       // write cursor in codes_out
-    long dw = 0;      // write cursor in desc_out
-    long i = 0;
-    while (i < n) {
-        if (buf[i] == '>') {
-            if (r >= 0) rec_lens[r] = w - rec_offsets[r];
-            ++r;
-            if (r >= max_records) return -1;
-            rec_offsets[r] = w;
-            ++i;
-            long d0 = dw;
-            while (i < n && buf[i] != '\n') {
-                char ch = buf[i];
-                if (ch != '\r') {
-                    if (dw >= desc_cap) return -1;
-                    desc_out[dw++] = ch;
-                }
-                ++i;
-            }
-            desc_lens[r] = dw - d0;
-            ++i;
-        } else {
-            signed char c = LUT[(unsigned char)buf[i]];
-            if (c >= 0) {
-                seq_out[w] = buf[i];  // raw byte, case preserved (N stays N)
-                codes_out[w++] = c;
-            } else if (c == -1) {
-                rec_offsets[0] = i;  // report offending byte position
-                return -2;
-            }
-            ++i;
+void fasta_fill(void* p, signed char* codes_out, unsigned char* seq_out, long* rec_offsets, long* rec_lens,
+                unsigned char* desc_out, long* desc_lens) {
+    auto* plan = (Plan*)p;
+    long r = 0;
+    for (const auto& c : plan->chunks)
+        for (size_t k = 0; k < c.at.size(); ++k, ++r) {
+            rec_offsets[r] = c.seq_at + c.before[k];
+            desc_lens[r] = c.hlen[k];
         }
-    }
-    if (r >= 0) rec_lens[r] = w - rec_offsets[r];
-    return 0;
+    for (long i = 0; i < plan->records; ++i)
+        rec_lens[i] = (i + 1 < plan->records ? rec_offsets[i + 1] : plan->seq) - rec_offsets[i];
+    const unsigned char* buf = plan->buf;
+    each_chunk(plan->chunks, [&](Chunk& c) { fill_chunk(buf, c, codes_out, seq_out, desc_out); });
+}
+
+void fasta_free(void* p) {
+    auto* plan = (Plan*)p;
+    munmap((void*)plan->buf, (size_t)plan->n);
+    delete plan;
 }
 
 // Standalone encoder: ASCII sequence -> int8 codes.  Returns 0, or the

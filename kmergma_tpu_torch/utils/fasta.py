@@ -10,8 +10,13 @@ A ``FastaRecord`` carries:
     (FASTX ``FASTA.identifier`` semantics),
   * ``description`` - the full header line minus '>'
     (FASTX ``FASTA.description`` semantics),
-  * ``seq`` - uppercase ASCII bytes, and lazily, ``codes`` - the int8
-    2-bit-code array (A=0,C=1,G=2,T=3,N=3).
+  * ``seq`` - the sequence bytes as read, case preserved, whitespace
+    stripped, and ``codes`` - the int8 2-bit-code array (A=0,C=1,G=2,T=3,
+    N=3), encoded on first access unless the loader gave it.
+
+A record from the native loader views the loader's one sequence array and
+one code array: its ``seq`` is built as ``bytes`` on first access and
+kept; ``len(record)`` and ``seq_slice(record, start, stop)`` read the view.
 """
 
 from __future__ import annotations
@@ -30,15 +35,22 @@ from . import trace
 @dataclass
 class FastaRecord:
     description: str
-    seq: bytes  # raw sequence bytes as read (case preserved)
+    seq: bytes  # raw sequence bytes as read (case preserved); a property, below
     _codes: np.ndarray | None = field(default=None, repr=False)
+
+    @classmethod
+    def _viewing(cls, description: str, seq: np.ndarray, codes: np.ndarray) -> "FastaRecord":
+        """A record over a uint8 view of its sequence bytes and its codes."""
+        rec = cls(description, b"", codes)
+        rec._seq, rec._view = None, seq
+        return rec
 
     @property
     def identifier(self) -> str:
         return self.description.split(None, 1)[0] if self.description else ""
 
     def __len__(self) -> int:
-        return len(self.seq)
+        return len(self._view) if self._seq is None else len(self._seq)
 
     @property
     def codes(self) -> np.ndarray:
@@ -48,6 +60,29 @@ class FastaRecord:
 
     def seq_str(self) -> str:
         return self.seq.decode("ascii")
+
+
+def _get_seq(self: FastaRecord) -> bytes:
+    if self._seq is None:
+        self._seq, self._view = self._view.tobytes(), None
+    return self._seq
+
+
+def _set_seq(self: FastaRecord, value: bytes) -> None:
+    self._seq, self._view = value, None
+
+
+def seq_slice(record, start: int, stop: int) -> bytes:
+    """``record.seq[start:stop]``; from a record that views the native
+    loader's buffer, without building its ``seq``.  Any record with a
+    ``seq`` is taken (the JAX package's too)."""
+    view = getattr(record, "_view", None)
+    return record.seq[start:stop] if view is None else view[start:stop].tobytes()
+
+
+# set after the dataclass is made, so that ``seq`` stays its second field
+# (``__init__``, ``__eq__`` and ``__repr__`` go through the property)
+FastaRecord.seq = property(_get_seq, _set_seq, doc="raw sequence bytes as read (case preserved)")
 
 
 PathOrRecords = Union[str, os.PathLike, Iterable[FastaRecord]]
@@ -83,17 +118,19 @@ def as_records(source: PathOrRecords) -> list[FastaRecord]:
     Paths go through the native C++ loader when available (fused parse +
     2-bit encode in one sweep, utils/native.py) with the pure-Python parser
     as fallback - identical records either way (tests/test_native.py).
-    Runs in a ``parse`` span (utils/trace.py)."""
+    Runs in a ``parse`` span (utils/trace.py), which the native loader's
+    ``threads``, ``lines`` and ``slow_lines`` join."""
     with trace.span("parse") as sp:
-        recs = _as_records(source)
+        counters: dict = {}
+        recs = _as_records(source, counters)
         if sp:
-            sp.add(records=len(recs), bytes=sum(len(r.seq) for r in recs))
+            sp.add(records=len(recs), bytes=sum(len(r) for r in recs), **counters)
         return recs
 
 
-def _as_records(source: PathOrRecords) -> list[FastaRecord]:
+def _as_records(source: PathOrRecords, counters: dict) -> list[FastaRecord]:
     if isinstance(source, (str, os.PathLike)):
-        native = read_fasta_native(source)
+        native = read_fasta_native(source, counters=counters)
         if native is not None:
             return native
         return list(read_fasta(source))
@@ -173,21 +210,21 @@ def load_contigs(source: PathOrRecords) -> ContigSet:
     return ContigSet(as_records(source))
 
 
-def read_fasta_native(path: str | os.PathLike) -> "list[FastaRecord] | None":
+def read_fasta_native(path: str | os.PathLike, *, counters: "dict | None" = None) -> "list[FastaRecord] | None":
     """Fast path: parse + encode with the native C++ loader (utils/native.py).
 
-    Returns records with their code tensors pre-populated and the raw
+    Returns records that view the loader's code array and its raw
     (case-preserved) sequence bytes, or None when the native library is
-    unavailable - callers fall back to ``read_fasta``.
+    unavailable - callers fall back to ``read_fasta``.  The loader's
+    counters are added to ``counters`` when it is given.
     """
     from .native import load_fasta_native
 
     out = load_fasta_native(str(path))
     if out is None:
         return None
-    codes, seq_bytes, offsets, lengths, descs = out
-    records = []
-    for r in range(len(descs)):
-        lo, hi = int(offsets[r]), int(offsets[r]) + int(lengths[r])
-        records.append(FastaRecord(descs[r], seq_bytes[lo:hi].tobytes(), _codes=codes[lo:hi]))
-    return records
+    codes, seq_bytes, offsets, lengths, descs, stats = out
+    if counters is not None:
+        counters.update(stats)
+    ends = (offsets + lengths).tolist()
+    return [FastaRecord._viewing(d, seq_bytes[lo:hi], codes[lo:hi]) for d, lo, hi in zip(descs, offsets.tolist(), ends)]

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import mmap
 import os
 import subprocess
 import threading
@@ -27,6 +26,10 @@ _LIB: "ctypes.CDLL | None | bool" = None  # None = not tried, False = unavailabl
 _SRC = Path(__file__).resolve().parent.parent / "native" / "fastaio.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kmergma_tpu_torch"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
+#: a parse of a smaller file runs on one thread (``parse_threads``)
+PARALLEL_MIN_BYTES = 4 << 20
+#: the least bytes a parse thread takes
+MIN_CHUNK_BYTES = 1 << 20
 
 
 def _so_path() -> Path:
@@ -50,21 +53,16 @@ def _build_lib() -> "ctypes.CDLL | None":
             )
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(str(so_path))
-        lib.semiglobal_batch  # newest symbol check (stale .so -> AttributeError)
+        lib.fasta_plan, lib.semiglobal_batch  # newest symbols check (stale .so -> AttributeError)
     except (OSError, subprocess.SubprocessError, AttributeError):
         return None
 
-    lib.fasta_stats.restype = ctypes.c_int
-    lib.fasta_stats.argtypes = [
-        ctypes.c_char_p, ctypes.c_long,
-        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
-    ]
-    lib.fasta_parse.restype = ctypes.c_int
-    lib.fasta_parse.argtypes = [
-        ctypes.c_char_p, ctypes.c_long,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
-    ]
+    lib.fasta_plan.restype = ctypes.c_void_p
+    lib.fasta_plan.argtypes = [ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
+    lib.fasta_fill.restype = None
+    lib.fasta_fill.argtypes = [ctypes.c_void_p] * 7
+    lib.fasta_free.restype = None
+    lib.fasta_free.argtypes = [ctypes.c_void_p]
     lib.encode_seq.restype = ctypes.c_long
     lib.encode_seq.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p]
     lib.pack_quarters.restype = None
@@ -139,63 +137,65 @@ def get_lib() -> "ctypes.CDLL | None":
     return _LIB or None
 
 
-def load_fasta_native(path: str):
-    """Parse a fasta file with the native library.
+def parse_threads(n_bytes: int) -> int:
+    """Threads for a parse of ``n_bytes``: one below ``PARALLEL_MIN_BYTES``,
+    where starting threads costs more than the parse, else as many as the
+    process may run on, up to 8 (as the aligner takes)."""
+    if n_bytes < PARALLEL_MIN_BYTES:
+        return 1
+    cpus = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    return min(8, cpus or 1)
 
-    Returns (codes, seq_bytes, offsets, lengths, descriptions) where
-    ``codes`` is one contiguous int8 array of all records' 2-bit codes and
+
+def load_fasta_native(path: str, *, _threads: "int | None" = None, _min_chunk: int = MIN_CHUNK_BYTES):
+    """Parse a fasta file with the native library, in place and threaded.
+
+    Returns (codes, seq_bytes, offsets, lengths, descriptions, counters)
+    where ``codes`` is one contiguous int8 array of all records' 2-bit codes and
     ``seq_bytes`` the raw (case-preserved, whitespace-stripped) sequence
     bytes at the same offsets, or None if the native path is unavailable.
-    Raises ValueError on invalid nucleotides (matching the Python parser).
+    ``counters`` holds ``threads`` (chunks parsed in parallel), ``lines``
+    and ``slow_lines`` (lines that failed the one-check-a-line fast path).
+    Raises ValueError on a file with no record, else on an invalid
+    nucleotide, naming the first in file order.
+
+    The file is mapped, not copied.  ``_threads`` (else ``parse_threads``)
+    chunks of at least ``_min_chunk`` bytes are parsed at once; chunk t
+    starts one past the first '\\n' at or after byte n * t / T.
     """
     lib = get_lib()
     if lib is None:
         return None
     with open(path, "rb") as fh:
+        n = os.fstat(fh.fileno()).st_size
+        if n == 0:
+            empty = np.zeros(0, np.int64)
+            return np.zeros(0, np.int8), np.zeros(0, np.uint8), empty, empty, [], {"threads": 0, "lines": 0, "slow_lines": 0}
+        threads = parse_threads(n) if _threads is None else _threads
+        info = np.zeros(8, np.int64)
+        plan = lib.fasta_plan(fh.fileno(), n, threads, _min_chunk, info.ctypes.data)
+        if not plan:
+            raise OSError(f"cannot map {path}")
         try:
-            buf = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
-        except ValueError:  # empty file
-            return np.zeros(0, np.int8), np.zeros(0, np.uint8), np.zeros(0, np.int64), np.zeros(0, np.int64), []
-        try:
-            n = len(buf)
-            n_records = ctypes.c_long()
-            total_seq = ctypes.c_long()
-            cbuf = (ctypes.c_char * n).from_buffer_copy(buf)
+            nr, n_seq, n_desc, bad, lines, slow, used, any_record = (int(v) for v in info)
+            if not any_record:
+                raise ValueError(f"no fasta records found in {path}")
+            if bad >= 0:
+                raise ValueError(f"invalid nucleotide character at byte {bad} of {path} (only A/C/G/T/N supported)")
+            codes = np.empty(n_seq, dtype=np.int8)
+            seq_bytes = np.empty(n_seq, dtype=np.uint8)
+            offsets = np.empty(nr, dtype=np.int64)
+            lengths = np.empty(nr, dtype=np.int64)
+            desc_buf = np.empty(n_desc, dtype=np.uint8)
+            desc_lens = np.empty(nr, dtype=np.int64)
+            lib.fasta_fill(plan, *(a.ctypes.data for a in (codes, seq_bytes, offsets, lengths, desc_buf, desc_lens)))
         finally:
-            buf.close()
+            lib.fasta_free(plan)
+    raw = desc_buf.tobytes()
+    ends = np.cumsum(desc_lens).tolist()
+    descs = [raw[e - d : e].decode("ascii") for e, d in zip(ends, desc_lens.tolist())]
+    return codes, seq_bytes, offsets, lengths, descs, {"threads": used, "lines": lines, "slow_lines": slow}
 
-    rc = lib.fasta_stats(cbuf, n, ctypes.byref(n_records), ctypes.byref(total_seq))
-    if rc != 0:
-        raise ValueError(f"no fasta records found in {path}")
-    nr = n_records.value
-    codes = np.empty(total_seq.value, dtype=np.int8)
-    seq_bytes = np.empty(total_seq.value, dtype=np.uint8)
-    offsets = np.empty(nr, dtype=np.int64)
-    lengths = np.empty(nr, dtype=np.int64)
-    desc_buf = ctypes.create_string_buffer(n)
-    desc_lens = np.empty(nr, dtype=np.int64)
-    rc = lib.fasta_parse(
-        cbuf, n,
-        codes.ctypes.data_as(ctypes.c_void_p),
-        seq_bytes.ctypes.data_as(ctypes.c_void_p),
-        offsets.ctypes.data_as(ctypes.c_void_p),
-        lengths.ctypes.data_as(ctypes.c_void_p),
-        desc_buf, n,
-        desc_lens.ctypes.data_as(ctypes.c_void_p),
-        nr,
-    )
-    if rc == -2:
-        raise ValueError(
-            f"invalid nucleotide character at byte {offsets[0]} of {path} (only A/C/G/T/N supported)"
-        )
-    if rc != 0:
-        raise ValueError(f"malformed fasta file {path}")
-    descs, d = [], 0
-    raw = desc_buf.raw
-    for r in range(nr):
-        descs.append(raw[d : d + int(desc_lens[r])].decode("ascii"))
-        d += int(desc_lens[r])
-    return codes, seq_bytes, offsets, lengths, descs
 
 def pack_quarters_native(codes: np.ndarray, total: int) -> "np.ndarray | None":
     """Quarter-wise 2-bit pack of ``codes`` zero-padded to ``total`` bases.

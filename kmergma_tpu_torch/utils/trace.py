@@ -20,7 +20,9 @@ The spans, by where they open:
 - ``call``: ``api.find_genes``, ``find_genes_cluster_mode``,
   ``strobemer_find_genes`` (``api_call``): the call's ``ScanStats``, and
   ``launches``, each kernel wrapper's launches over the call (``KERNELS``);
-- ``parse``: ``utils/fasta.as_records``: records, bp;
+- ``parse``: ``utils/fasta.as_records``: records, bp; from the native
+  loader also threads (chunks parsed at once), lines and slow_lines (lines
+  that failed the one-check-a-line fast path);
 - ``prep``: the API's preparation (profile or clusters, thresholds): profiles;
 - ``record``: a miner's work on one record: bp, windows, candidates;
 - ``stage``: a copy of host codes to the device through pinned staging
