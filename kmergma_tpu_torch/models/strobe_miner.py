@@ -225,16 +225,25 @@ def strobe_mine_genome(
                     if genome_dev is not None:
                         gcodes = genome_dev[record_idx][:seq_len]
                     else:
-                        gcodes = torch.from_numpy(record.codes).to(dev)
-                    sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
-                else:
-                    sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
-                xstar = int(sc[w])
+                        with trace.span("stage") as sp_stage:
+                            sp_stage.add(bytes=seq_len)
+                            gcodes = torch.from_numpy(record.codes).to(dev)
+                with trace.span("extract") as sp_extract:
+                    if device_extract:
+                        sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
+                    else:
+                        sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
+                    # reading x* waits for a device extraction to finish
+                    xstar = int(sc[w])
+                    sp_extract.add(bp=seq_len, windows=int(sc.shape[0]))
                 eng = engines.get(xstar)
                 if eng is None:
-                    if len(engines) > 16:
-                        engines.clear()
-                    eng = engines[xstar] = engine_factory(profile, xstar)
+                    with trace.span("engine") as sp_engine:
+                        if len(engines) > 16:
+                            engines.clear()
+                        eng = engines[xstar] = engine_factory(profile, xstar)
+                        sp_engine.add(xstar=xstar)
+                    trace.add_to_call(engines_built=1)
                 dist0, stream, dists = eng.record_stream(sc[: n_steps + w], thr, collect_dists=do_return_dists)
             stats.records_scanned += 1
             stats.bp_scanned += seq_len
@@ -260,12 +269,14 @@ def strobe_mine_genome(
                 ]
                 stats.windows_aligned += len(windows)
                 alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=dev)
+            score_filtered = 0
             for hit_i, hit in enumerate(raw_hits):
                 lo, hi = hit.start, hit.stop
                 rng = (lo, hi)
                 if do_align:
                     aln = alns[hit_i]
                     if aln.score < score_threshold:
+                        score_filtered += 1
                         continue  # ref Alignment.jl:96-98 score filter
                     if do_return_align:
                         res.alignments.append(aln)
@@ -280,6 +291,7 @@ def strobe_mine_genome(
                 res.hits.append(FastaRecord(desc, seq_slice(record, rng[0] - 1, rng[1]).upper()))
                 if get_hit_loci:
                     res.hit_loci.append(rng[0] + genome_pos)
+            sp.add(score_filtered=score_filtered)
         genome_pos += seq_len
         if ckpt:
             ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])

@@ -918,7 +918,7 @@ class ScanEngine:
         s_dev = self.s_dev if s_dev is None else s_dev
         depth = self.ws - self.k if self.bound_depth is None else self.bound_depth
         with trace.span("bitmap") as sp:
-            sp.add(profiles=1, windows=nw)
+            sp.add(profiles=1, windows=nw, depth=depth)
             if not self.on_k1:
                 return self._depth_bitmap(prep, nw, thr_int, depth, s_dev)
             from .scan_fused import fused_record_bitmaps

@@ -18,18 +18,28 @@ in memory; the program opens them from one host thread.
 The spans, by where they open:
 
 - ``call``: ``api.find_genes``, ``find_genes_cluster_mode``,
-  ``strobemer_find_genes`` (``api_call``): the call's ``ScanStats``, and
-  ``launches``, each kernel wrapper's launches over the call (``KERNELS``);
+  ``strobemer_find_genes`` (``api_call``): the call's ``ScanStats``,
+  ``launches``, each kernel wrapper's launches over the call (``KERNELS``),
+  and in the strobemer miner engines_built, the span engines it built;
 - ``parse``: ``utils/fasta.as_records``: records, bp; from the native
   loader also threads (chunks parsed at once), lines and slow_lines (lines
   that failed the one-check-a-line fast path);
 - ``prep``: the API's preparation (profile or clusters, thresholds): profiles;
-- ``record``: a miner's work on one record: bp, windows, candidates;
+- ``record``: a miner's work on one record: bp, windows, candidates; in
+  the strobemer miner also score_filtered, the hits its alignment-score
+  filter dropped;
 - ``stage``: a copy of host codes to the device through pinned staging
-  (``ops/scan.PinnedStaging``), or their padding on the CPU: bytes,
-  waits on a busy staging buffer, staging buffers grown;
+  (``ops/scan.PinnedStaging``), or their padding on the CPU, or the
+  strobemer miner's copy of a record's int8 codes: bytes, and for pinned
+  staging waits on a busy staging buffer and staging buffers grown;
+- ``extract``: the strobemer miner's randstrobe extraction of a record,
+  on the device or the host, and the read of the record's x*, which waits
+  for a device extraction to finish: bp, windows (strobe codes);
+- ``engine``: the strobemer miner's build of the span engine of an x* it
+  has no engine for: xstar;
 - ``bitmap``: the block bitmap pass (K1, K4, K3 or K5/K4/K6): profiles,
-  windows;
+  windows, and in ``ScanEngine`` depth, the pair depth of the pass (ws - k
+  in exact mode);
 - ``plan``: the planned pass (``ops/scan._planned_streams``): region plan,
   K2 recompute, R1, stream assembly: k2_rows, rspan, regions_valid,
   region_reruns, run_reruns;
@@ -40,7 +50,8 @@ The spans, by where they open:
 - ``align``: a batch of the aligner: windows.
 
 No span synchronises the device: where the host waits on it, the wait
-lies inside a span (``fetch``, or ``stage`` waiting on a busy buffer), so
+lies inside a span (``fetch``, ``stage`` waiting on a busy buffer, or
+``extract`` reading x*), so
 a traced run's device timeline is an untraced run's.
 
 The shared clock: on, each span also opens a

@@ -34,7 +34,7 @@ _TREE = {
 TREES = {
     "find_genes": _TREE | {("align", "record")},
     "find_genes_cluster_mode": _TREE | {("align", "replay")},
-    "strobemer_find_genes": _TREE | {("align", "record")},
+    "strobemer_find_genes": _TREE | {("align", "record"), ("extract", "record"), ("engine", "record")},
 }
 
 
@@ -112,6 +112,50 @@ def test_off_records_nothing_and_hands_out_one_no_op():
     trace.add_to_call(hits=1)
     assert _call("find_genes")[0]
     assert trace.log() == []
+
+
+def test_the_strobe_call_opens_its_spans_with_their_counters():
+    """A strobemer call on the one-contig locus: one ``extract`` and one
+    ``engine`` span in its ``record`` span, one engine built, K4's pass at
+    depth ws - k, the replay's hits that the score filter drops; the record's int8 crossing is a ``stage`` span where the
+    miner extracts on the device (here the CPU stands in for it).  Off,
+    the same calls record nothing."""
+    from kmergma_tpu_torch.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+
+    n = 41_260
+    profile = gen_strobe_ref_ws_cons(REF)
+    for on in (True, False):
+        trace.reset()
+        if on:
+            trace.enable()
+        try:
+            _call("strobemer_find_genes")
+            strobe_mine_genome(GENOME, profile, thr=30, device="cpu", device_extract=True)
+        finally:
+            trace.disable()
+        log = trace.log()
+        if not on:
+            assert log == []
+            continue
+        api_log, miner_log = [s for s in log if s["call"] == 0], [s for s in log if s["call"] is None]
+        (call,) = [s for s in api_log if s["name"] == "call"]
+        assert call["counters"]["engines_built"] == 1
+        for part in (api_log, miner_log):
+            by = {name: [s for s in part if s["name"] == name] for name in ("record", "extract", "engine", "bitmap")}
+            assert [s["counters"] for s in by["extract"]] == [{"bp": n, "windows": n - 5}]
+            (engine,) = by["engine"]
+            assert set(engine["counters"]) == {"xstar"} and 0 <= engine["counters"]["xstar"] < 256
+            assert [s["counters"]["depth"] for s in by["bitmap"]] == [profile.windowsize - profile.k - 1]
+            # the three hits of the locus stay; the score filter drops the rest of the replay's
+            (replay,) = [s for s in part if s["name"] == "replay"]
+            assert [s["counters"]["score_filtered"] for s in by["record"]] == [replay["counters"]["hits"] - 3]
+            assert replay["counters"]["hits"] > 3
+            for s in by["extract"] + by["engine"]:
+                assert log[s["parent"]]["name"] == "record"
+        stages = [s for s in miner_log if s["name"] == "stage"]
+        assert [s["counters"] for s in stages] == [{"bytes": n}]
+        assert log[stages[0]["parent"]]["name"] == "record"
+    trace.reset()
 
 
 def test_the_call_span_holds_the_mine_stats(tracing, monkeypatch):
