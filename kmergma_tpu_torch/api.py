@@ -27,6 +27,7 @@ from .models.miner import mine_genome
 from .ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
 from .ops.scan import resolve_device
 from .ops.thresholds import estimate_optimal_threshold, estimate_optimal_thresholds
+from .ops.thresholds import last_counters as estimate_counters
 from .utils import trace
 from .utils.fasta import FastaRecord, write_fasta
 
@@ -98,7 +99,7 @@ def find_genes(
         estimated = estimate_optimal_threshold(
             profile.mean_kfv, profile.windowsize, buffer=kmer_dist_threshold_buffer
         )
-        sp.add(profiles=1)
+        sp.add(profiles=1, **estimate_counters)
     if kmer_dist_thr == 0:
         kmer_dist_thr = estimated
     elif kmer_dist_thr < estimated:
@@ -184,7 +185,7 @@ def find_genes_cluster_mode(
         estimated = estimate_optimal_thresholds(
             clusters.kfvs, clusters.windowsizes, buffer=kmer_dist_threshold_buffer
         )
-        sp.add(profiles=len(clusters.profiles))
+        sp.add(profiles=len(clusters.profiles), **estimate_counters)
     if kmer_dist_thrs is None or (len(kmer_dist_thrs) and kmer_dist_thrs[0] == 0):
         kmer_dist_thrs = estimated
     else:

@@ -523,3 +523,29 @@ extern "C" int semiglobal_batch(
     }
     return rc.load();
 }
+
+// ---------------------------------------------------------------------------
+// Xoshiro256++ in bulk: the next n outputs of the stream whose state is
+// state[0..3], written to out[0..n), and the state advanced in place to
+// where n single draws leave it.  The generator of Julia >= 1.7's
+// task-local RNG, which kmergma_tpu_torch/utils/julia_rand.py seeds as
+// Julia does; one call replaces n calls of its Python rand_u64.
+
+extern "C" void xoshiro256pp_fill(uint64_t* state, long n, uint64_t* out) {
+    uint64_t s0 = state[0], s1 = state[1], s2 = state[2], s3 = state[3];
+    for (long i = 0; i < n; ++i) {
+        const uint64_t x = s0 + s3;
+        out[i] = ((x << 23) | (x >> 41)) + s0;
+        const uint64_t t = s1 << 17;
+        s2 ^= s0;
+        s3 ^= s1;
+        s1 ^= s2;
+        s0 ^= s3;
+        s2 ^= t;
+        s3 = (s3 << 45) | (s3 >> 19);
+    }
+    state[0] = s0;
+    state[1] = s1;
+    state[2] = s2;
+    state[3] = s3;
+}

@@ -14,6 +14,8 @@ little-endian UInt32 limbs of the seed, so the whole stream is replicable:
   * ``rand_index`` - Julia's near-division-less Lemire range sampler
     (Random/src/generation.jl SamplerRangeNDL), used by ``rand(1:n)`` and
     vector sampling ``rand(v)``;
+  * ``rand_u64s`` - the next n draws at once, from one call of the
+    native library (``utils/native.py``), else a Python loop;
   * ``randdnaseq_codes`` - BioSequences v3 ``randseq(::DNAAlphabet{4})``:
     one ``rand(UInt64)`` per 16-nucleotide chunk; the packed chunk is built
     by a shift-left loop over the draw's low 32 bits, so chunk nucleotide j
@@ -31,6 +33,8 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+
+from . import native
 
 _MASK64 = (1 << 64) - 1
 
@@ -75,6 +79,16 @@ class JuliaXoshiro:
         self.s0, self.s1, self.s2, self.s3 = s0, s1, s2, s3
         return res
 
+    def rand_u64s(self, n: int) -> np.ndarray:
+        """The next ``n`` draws as uint64[n]; the state ends where ``n``
+        calls of ``rand_u64`` leave it.  One call of the native library,
+        else a Python loop where it cannot be built."""
+        drawn = native.xoshiro256pp_native((self.s0, self.s1, self.s2, self.s3), n)
+        if drawn is None:
+            return np.fromiter((self.rand_u64() for _ in range(n)), dtype=np.uint64, count=n)
+        out, (self.s0, self.s1, self.s2, self.s3) = drawn
+        return out
+
     def rand_float64(self) -> float:
         """Julia rand(): Float64 in [0, 1) from the top 53 bits."""
         return (self.rand_u64() >> 11) * (2.0**-53)
@@ -93,6 +107,10 @@ class JuliaXoshiro:
         return m >> 64
 
 
+#: the shift of chunk nucleotide j = 1..16 in its draw: 32 - 2j
+_SHIFTS = np.arange(30, -1, -2, dtype=np.uint64)
+
+
 def randdnaseq_codes(rng: JuliaXoshiro, length: int) -> np.ndarray:
     """2-bit codes (A=0 C=1 G=2 T=3) of BioSequences' ``randdnaseq(length)``.
 
@@ -103,15 +121,17 @@ def randdnaseq_codes(rng: JuliaXoshiro, length: int) -> np.ndarray:
     it to the 4-bit code ``1 << v`` - i.e. the 2-bit value IS the ACGT
     index.  Consumes ceil(length/16) u64 draws.
     """
+    return randdnaseq_codes_batch(rng, 1, length)[0]
+
+
+def randdnaseq_codes_batch(rng: JuliaXoshiro, n_seqs: int, length: int) -> np.ndarray:
+    """int8[n_seqs, length]: row i is ``randdnaseq_codes(rng, length)`` of
+    the i-th of ``n_seqs`` calls in turn.  Draws all n_seqs * ceil(length/16)
+    u64s at once and unpacks their 16 fields with one shift and mask."""
     n_chunks = -(-length // 16)
-    out = np.empty(n_chunks * 16, dtype=np.int8)
-    pos = 0
-    for _ in range(n_chunks):
-        x = rng.rand_u64()
-        for j in range(1, 17):
-            out[pos] = (x >> (32 - 2 * j)) & 3
-            pos += 1
-    return out[:length]
+    x = rng.rand_u64s(n_seqs * n_chunks)
+    codes = ((x[:, None] >> _SHIFTS) & np.uint64(3)).astype(np.int8)
+    return codes.reshape(n_seqs, n_chunks * 16)[:, :length]
 
 
 # DistanceTesting.jl:38-42 mutation_dict, as ACGT-code lists

@@ -53,7 +53,7 @@ def _build_lib() -> "ctypes.CDLL | None":
             )
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(str(so_path))
-        lib.fasta_plan, lib.semiglobal_batch  # newest symbols check (stale .so -> AttributeError)
+        lib.fasta_plan, lib.xoshiro256pp_fill  # newest symbols check (stale .so -> AttributeError)
     except (OSError, subprocess.SubprocessError, AttributeError):
         return None
 
@@ -82,6 +82,8 @@ def _build_lib() -> "ctypes.CDLL | None":
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ops_flat, ops_off, n_ops
         ctypes.c_void_p, ctypes.c_int,            # scores, n_threads
     ]
+    lib.xoshiro256pp_fill.restype = None
+    lib.xoshiro256pp_fill.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p]
     return lib
 
 
@@ -135,6 +137,19 @@ def get_lib() -> "ctypes.CDLL | None":
         if _LIB is None:
             _LIB = _build_lib() or False
     return _LIB or None
+
+
+def xoshiro256pp_native(state: "tuple[int, int, int, int]", n: int) -> "tuple[np.ndarray, tuple] | None":
+    """The next ``n`` Xoshiro256++ outputs (uint64[n]) of the stream at the
+    four state words ``state``, and the four words ``n`` single draws leave;
+    None if the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    words = np.array(state, dtype=np.uint64)
+    out = np.empty(n, dtype=np.uint64)
+    lib.xoshiro256pp_fill(words.ctypes.data, ctypes.c_long(n), out.ctypes.data)
+    return out, tuple(int(w) for w in words)
 
 
 def parse_threads(n_bytes: int) -> int:

@@ -24,7 +24,10 @@ The spans, by where they open:
 - ``parse``: ``utils/fasta.as_records``: records, bp; from the native
   loader also threads (chunks parsed at once), lines and slow_lines (lines
   that failed the one-check-a-line fast path);
-- ``prep``: the API's preparation (profile or clusters, thresholds): profiles;
+- ``prep``: the API's preparation (profile or clusters, thresholds):
+  profiles; in ``find_genes`` and cluster mode also trials (random
+  sequences the threshold estimate scored), draws (u64s it drew) and
+  rng_native (1 where the native library drew them, ``ops/thresholds``);
 - ``record``: a miner's work on one record: bp, windows, candidates; in
   the strobemer miner also score_filtered, the hits its alignment-score
   filter dropped;

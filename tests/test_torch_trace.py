@@ -102,6 +102,22 @@ def test_tracing_leaves_the_hit_records_unchanged(runs, entry):
     assert plain and traced == plain
 
 
+#: the ``prep`` span's threshold-estimate counters a call on the locus:
+#: 100 random sequences a profile, ceil(length / 16) draws each
+PREP_COUNTERS = {
+    "find_genes": {"profiles": 1, "trials": 100, "draws": 1900},
+    "find_genes_cluster_mode": {"profiles": 6, "trials": 600, "draws": 11100},
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PREP_COUNTERS))
+def test_the_prep_span_counts_the_threshold_estimate(runs, entry):
+    (prep,) = [s for s in runs[entry][2] if s["name"] == "prep"]
+    counters = dict(prep["counters"])
+    assert counters.pop("rng_native") in (0, 1)
+    assert counters == PREP_COUNTERS[entry]
+
+
 def test_off_records_nothing_and_hands_out_one_no_op():
     assert not trace.enabled()
     trace.reset()
