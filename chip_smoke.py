@@ -13,8 +13,7 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   (bit-identical: the scan is integer arithmetic), the golden hits through ``kmergma_tpu_torch.find_genes``,
   then a 64 Mbp synthetic genome (four 16 Mbp contigs of hashed background
   with the 84 Alp_V reference genes planted every 500 kb) mined against the
-  int64 host oracle, and where one call's wall goes: each stage timed
-  alone, and the device's busy share of one profiled call;
+  int64 host oracle;
 * cluster mode (the Alp_V set in six clusters): K3, K8 and K5 against
   their twins (K3 also per stage with its grid, and on the ``__ldg`` route
   over the same contig at k = 7; K8's device time from torch.profiler and
@@ -22,7 +21,7 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   goldens through ``find_genes_cluster_mode``
   (the split route, so K5), both routes on one record, then the same
   genome plus one short contig (the split route again) mined against an
-  int64 host cluster oracle, and where one call's wall goes; K5 with its
+  int64 host cluster oracle; K5 with its
   device time and launch shape on 60 kb, 16 kb and 4 Mbp records; then a
   fragmented assembly (1,024 records of 16 kb, 16.4 Mbp, each on the
   split route) through ``ClusterScanEngine.record_streams``, the first 64
@@ -41,7 +40,7 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   the sliding-histogram route) against its twin, and its depth-loop route
   on int32 strobe codes at s = 3, the strobe goldens through ``strobemer_find_genes``,
   then the same genome mined against an int64 host oracle of the strobe
-  recurrence, and where one call's wall goes;
+  recurrence;
 * R1, the planned record's run reduce (``run_reduce_multi``: the below
   mask and the segmented (min, first-argmin) scan of every profile of a
   planned pass in one call): its launches in each path's run (one call a
@@ -50,9 +49,7 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   captured from a planned pass of the single-profile, cluster,
   fragmented, strobe and many-clusters (m = 35, 84) cells' calls (wrapper
   and device times beside the chain's) and on the edge cases of
-  ``tests/_r1_cases.py`` (33 and 84 profiles among them); every profiled call's device
-  time beside the same call's before R1, with no scatter or gather
-  kernel in it;
+  ``tests/_r1_cases.py`` (33 and 84 profiles among them);
 * the device aligner: A1 (``align_dp``, ``align_cigar``) against its
   plain twins on the card (scores, JAX runs, run counts, endpoints, CIGAR
   runs, their counts) on the windows the single-profile and strobe API
@@ -118,8 +115,7 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   host engine over each whole record, the dense row's hits against
   ``mine_genome`` on it, the cluster streams against the int64 host
   cluster oracle and the strobe hits against the int64 host strobe
-  oracle; with the 3.2 Gbp row's peak device memory and the device's busy
-  share of one headline and one hit-dense row.
+  oracle; with the 3.2 Gbp row's peak device memory.
 
 Each path's kernels are shown to have launched in that path's run: their
 launch counts are set to 0 just before it and read just after.  Kernel
@@ -128,8 +124,8 @@ median of five windows with the fastest beside it.
 
 ``python3 chip_smoke.py --pair-kernels`` times K2, K4, K6 and K5 alone
 at those shapes, then the planned pass's engine calls (single, cluster,
-strobe and 64 fragments: wall and device ms) and the three API calls'
-walls on the 64 Mbp genome (one JSON line); a copy of
+strobe and 64 fragments: wall and device ms) and R1 alone on their
+inputs (one JSON line); a copy of
 this file placed in the root of an earlier checkout times that
 checkout's kernels the same way.  It is the parent-against-change tool
 of the pair kernels' redesigns and of R1.
@@ -470,226 +466,6 @@ def max_err(*pairs) -> int:
     return max(int((a.to(b.dtype) - b).abs().max()) if a.numel() else 0 for a, b in pairs)
 
 
-def print_breakdown(what: str, names: list, runs: list, wall_s: float, label: str, skip=()) -> None:
-    reps = len(runs)
-    print(f"stage breakdown of one {what} call, median of {reps} per stage, shares of the "
-          f"{wall_s * 1e3:.3f} ms median wall [{label}]:")
-    staged = 0.0
-    width = max(len(n) for n in names) + 2
-    for i, name in enumerate(names):
-        med = statistics.median(run_ms[name] for run_ms in runs)
-        if i not in skip:
-            staged += med
-        print(f"  {name:<{width}} {med:10.3f} ms  {100 * med / (wall_s * 1e3):6.2f}%")
-    note = " (indented stages not added)" if skip else ""
-    print(f"  {'sum of the stages' + note:<{width}} {staged:10.3f} ms  {100 * staged / (wall_s * 1e3):6.2f}%")
-
-
-def stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
-    """Print where one ``find_genes`` call on ``fasta`` spends its wall.
-
-    Each stage of the call runs alone with a device synchronise around it
-    (median of ``reps`` over all records); shares are of ``wall_s``, the
-    unprofiled median wall.  Then one call runs under torch.profiler, after
-    a first profiled call that only starts the tracer: the device's busy
-    time (the union of its kernel, copy and fill intervals) and the wall
-    are both read from that one call."""
-    import kmergma_tpu_torch as kt
-    from kmergma_tpu_torch.models.state_machine import replay_single
-    from kmergma_tpu_torch.ops.align import semiglobal_align_batch
-    from kmergma_tpu_torch.ops.reference import gen_ref_ws_cons
-    from kmergma_tpu_torch.ops.scan import ScanEngine
-    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_threshold
-    from kmergma_tpu_torch.utils.fasta import as_records
-
-    k, ws, r = profile.k, profile.windowsize, profile.n_records
-
-    names = [
-        "FASTA parse (as_records)", "reference profile (gen_ref_ws_cons)", "threshold estimate",
-        "ScanEngine set-up (S to the device)", "H2D from pinned staging, tail zeroed on the device (prepare_codes)",
-        "planned pass: K1 + plan + K2 + R1 + D2H", "  of which K1 bitmap alone (incl. l0, bases)",
-        "replay (replay_single)", "alignment (semiglobal_align_batch)",
-    ]
-    runs = []
-    for _ in range(reps):
-        ms = dict.fromkeys(names, 0.0)
-        ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
-        ms[names[1]], _ = clock(lambda: gen_ref_ws_cons(REF, k), sync)
-        ms[names[2]], _ = clock(lambda: estimate_optimal_threshold(profile.mean_kfv, ws, buffer=8.0), sync)
-        ms[names[3]], engine = clock(lambda: ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device), sync)
-        thr_int = int(engine._thr_int(thr))
-        for rec in records:
-            nw = len(rec) - ws + 1
-            t, prep = clock(lambda: engine.prepare_codes(rec.codes), sync)
-            ms[names[4]] += t
-            t, (dist0, stream) = clock(lambda: engine._planned_record(prep, nw, thr), sync)
-            ms[names[5]] += t
-            t, _ = clock(lambda: engine._record_bitmap(prep, nw, thr_int), sync)
-            ms[names[6]] += t
-            t, raw = clock(lambda: replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=len(rec), buff=50), sync)
-            ms[names[7]] += t
-            windows = [rec.seq[h.start - 1 : h.stop].decode("ascii").upper() for h in raw]
-            if windows:
-                t, _ = clock(lambda: semiglobal_align_batch(profile.consensus_ws, windows, -69, -1), sync)
-                ms[names[8]] += t
-        runs.append(ms)
-    print_breakdown("find_genes", names, runs, wall_s, label, skip=(6,))
-    device_share("find_genes", lambda: kt.find_genes(str(fasta), REF, verbose=False, device=device), sync, device, label,
-                 before_ms=6.472)
-
-
-def cluster_stage_breakdown(fasta: Path, thrs: list, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
-    """Print where one ``find_genes_cluster_mode`` call on ``fasta`` spends
-    its wall, each stage run alone with a device synchronise around it,
-    median of ``reps`` over all records; shares are of ``wall_s``.  The
-    replay and the alignment are timed through ``mine_genome_clusters`` on
-    the streams already computed (without, then with, the alignment)."""
-    from kmergma_tpu_torch.models.omn_miner import mine_genome_clusters
-    from kmergma_tpu_torch.ops.reference import cluster_ref_api, eliminate_null_params
-    from kmergma_tpu_torch.ops.scan import _planned_streams
-    from kmergma_tpu_torch.ops.scan_cluster import ClusterScanEngine
-    from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
-    from kmergma_tpu_torch.utils.fasta import as_records
-
-    class Recorded:
-        def __init__(self, streams):
-            self.streams = iter(streams)
-
-        def record_streams(self, codes, thrs, codes_dev=None, seg_tracker=None):
-            return next(self.streams)
-
-    names = [
-        "FASTA parse (as_records)", "clustering (cluster_ref_api)", "threshold estimates",
-        "ClusterScanEngine set-up (S to the device)", "H2D from pinned staging, tail zeroed on the device (prepare_codes)",
-        "bitmap pass: K3 (K8 on the first record), or K5's split pass", "planned passes of all clusters + one D2H",
-        "replay (replay_omn)", "alignment, one candidate at a time",
-    ]
-    runs = []
-    for _ in range(reps):
-        ms = dict.fromkeys(names, 0.0)
-        ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
-        ms[names[1]], clusters = clock(lambda: eliminate_null_params(cluster_ref_api(REF, 6)), sync)
-        ms[names[2]], _ = clock(lambda: estimate_optimal_thresholds(clusters.kfvs, clusters.windowsizes, buffer=7.0), sync)
-        ms[names[3]], eng = clock(lambda: ClusterScanEngine(clusters.profiles, k=6, device=device), sync)
-        kept, streams = [], []
-        for rec in records:
-            n = len(rec)
-            if n - eng.max_ws - eng.k + 2 < 1:
-                continue
-            kept.append(rec)
-            nws = [n - e.ws + 1 for e in eng.engines]
-            thr_ints = [int(e._thr_int(x)) for e, x in zip(eng.engines, thrs)]
-            t, prep = clock(lambda: eng.prepare_codes(rec.codes), sync)
-            ms[names[4]] += t
-            split = max(nws) < eng.fused_min_windows
-            t, bm = clock(lambda: (eng._split_bitmaps if split else eng._fused_bitmaps)(prep, nws, thr_ints), sync)
-            ms[names[5]] += t
-            mis = [min(nw - 1, n - eng.max_ws - eng.k + 2) for nw in nws]
-            t, pairs = clock(lambda: _planned_streams(eng.engines, prep, list(bm), nws, thrs, mis), sync)
-            ms[names[6]] += t
-            streams.append(pairs)
-        kw = dict(thr_vec=thrs, buff=100)
-        ms[names[7]], _ = clock(lambda: mine_genome_clusters(kept, clusters.profiles, do_align=False, engine=Recorded(streams), **kw), sync)
-        t, _ = clock(lambda: mine_genome_clusters(kept, clusters.profiles, engine=Recorded(streams), **kw), sync)
-        ms[names[8]] = t - ms[names[7]]
-        runs.append(ms)
-    print_breakdown("find_genes_cluster_mode", names, runs, wall_s, label)
-
-
-def strobe_stage_breakdown(fasta: Path, profile, thr: float, wall_s: float, sync, device, label: str, reps: int = 3) -> None:
-    """Print where one ``strobemer_find_genes`` call on ``fasta`` spends its
-    wall, each stage run alone with a device synchronise around it, median
-    of ``reps`` over all records; shares are of ``wall_s``.  Then the
-    device's busy share of one profiled call."""
-    import torch
-
-    import kmergma_tpu_torch as kt
-    from kmergma_tpu_torch.models.state_machine import replay_single
-    from kmergma_tpu_torch.models.strobe_miner import StrobeSpanEngine, gen_strobe_ref_ws_cons
-    from kmergma_tpu_torch.ops.align import align_hits_batch
-    from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
-    from kmergma_tpu_torch.utils.fasta import as_records
-
-    k, ws = profile.k, profile.windowsize
-    w = ws - k
-    names = [
-        "FASTA parse (as_records)", "strobe profile (gen_strobe_ref_ws_cons)",
-        "H2D of int8 genome codes + strobe extraction on the device", "StrobeSpanEngine set-up (S - r e_x to the device)",
-        "device zero-padding of the strobe codes (prepare_codes)",
-        "planned pass: K4r exact bitmap + plan + K2 + R1 + D2H", "  of which the K4r exact bitmap alone",
-        "replay (replay_single)", "alignment (align_hits_batch, -69/-5)",
-    ]
-    runs = []
-    for _ in range(reps):
-        ms = dict.fromkeys(names, 0.0)
-        ms[names[0]], records = clock(lambda: as_records(str(fasta)), sync)
-        ms[names[1]], _ = clock(lambda: gen_strobe_ref_ws_cons(REF), sync)
-        for rec in records:
-            n_steps = len(rec) - ws - 1
-            t, sc = clock(lambda: strobe_2_mer_codes_torch(torch.from_numpy(rec.codes).to(device), 2, 3, 5, 5), sync)
-            ms[names[2]] += t
-            t, eng = clock(lambda: StrobeSpanEngine(profile, int(sc[w]), device=device), sync)
-            ms[names[3]] += t
-            t, prep = clock(lambda: eng.prepare_codes(sc[: n_steps + w]), sync)
-            ms[names[4]] += t
-            t, (dist0, stream) = clock(lambda: eng._planned_record(prep, n_steps + 1, thr), sync)
-            ms[names[5]] += t
-            t, _ = clock(lambda: eng._record_bitmap(prep, n_steps + 1, int(eng._thr_int(thr))), sync)
-            ms[names[6]] += t
-            t, raw = clock(lambda: replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=len(rec), buff=50, cmi_offset=0), sync)
-            ms[names[7]] += t
-            windows = [rec.seq[h.start - 1 : h.stop].decode("ascii").upper() for h in raw]
-            if windows:
-                t, _ = clock(lambda: align_hits_batch(profile.consensus[:ws], windows, -69, -5), sync)
-                ms[names[8]] += t
-        runs.append(ms)
-    print_breakdown("strobemer_find_genes", names, runs, wall_s, label, skip=(6,))
-    device_share("strobemer_find_genes", lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, device=device),
-                 sync, device, label, before_ms=22.754)
-
-
-def device_share(what: str, call, sync, device, label: str, before_ms: float | None = None) -> None:
-    """Run ``call`` under torch.profiler, after a first profiled call that
-    only starts the tracer, and print the device's busy time (the union of
-    its kernel, copy and fill intervals) and the wall, both from that one
-    call, with the ten largest device totals by name; ``before_ms`` is the
-    same call's busy time at commit 3cc3093, before R1, when two
-    ``scatter_reduce_`` passes a profile did the run reduce (NVIDIA H100
-    80GB HBM3, 700.00 W), printed beside.  Every such call runs a planned pass, whose
-    run reduce is R1 now: a scatter or gather kernel in it fails the run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    on_card = str(device).startswith("cuda")
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-    with torch_profile(activities=activities):
-        call()
-    with torch_profile(activities=activities) as prof:
-        sync()
-        t0 = time.perf_counter()
-        call()
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in dev_events):
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    before = "" if before_ms is None else f", before R1 (3cc3093) {before_ms:.3f} ms"
-    print(f"profiled {what} call: wall {wall_ms:.3f} ms, device busy {busy_us / 1e3:.3f} ms{before} "
-          f"(union of {len(dev_events)} device intervals), busy share {busy_us / 1e3 / wall_ms:.4f}, "
-          f"idle share {1 - busy_us / 1e3 / wall_ms:.4f} [{label}]")
-    totals: dict = {}
-    for ev in dev_events:
-        n, t = totals.get(ev.name, (0, 0.0))
-        totals[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
-    for name, (n, t) in sorted(totals.items(), key=lambda kv: -kv[1][1])[:10]:
-        print(f"  device: {t / 1e3:9.3f} ms in {n:4d} x {name[:90]}")
-    scatter = [name[:90] for name in totals if "scatter_gather" in name]
-    require(not scatter, f"the profiled {what} call ran a scatter/gather kernel: {scatter}")
-
-
 def timed_calls(call, sync, runs: int) -> tuple[list, object]:
     """Host wall in seconds of ``runs`` calls after one warm-up, each
     between device synchronises; returns (times, last result)."""
@@ -915,8 +691,8 @@ def single_profile_phase(ctx) -> list:
     from kmergma_tpu_torch.ops.scan_kernels import scan_window_distances_kernel
     from kmergma_tpu_torch.utils.native import scan_rolling_i64_native
 
-    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
-    profile, thr, contigs, runs = ctx["profile"], ctx["thr"], ctx["contigs"], ctx["runs"]
+    device, on_card, label = ctx["device"], ctx["on_card"], ctx["label"]
+    profile, thr, contigs = ctx["profile"], ctx["thr"], ctx["contigs"]
     k, ws, r = profile.k, profile.windowsize, profile.n_records
     engine = ScanEngine(profile.sum_kfv, k=k, ws=ws, r=r, device=device)
 
@@ -994,31 +770,23 @@ def single_profile_phase(ctx) -> list:
     fasta, total_bp = ctx["fasta"], ctx["total_bp"]
     cap = R1Capture()
     ctx["launches"].reset()
-    times, out = timed_calls(
-        cap.once(lambda: kt.find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device)), sync, runs
-    )
+    out = cap.once(lambda: kt.find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device))()
     hits = out[0]
     ctx["uninterrupted"]["single"] = out
     launches = ctx["launches"].read()
     require(cap.args is not None, "find_genes made no R1 call")
     ctx["r1_inputs"]["single"], ctx["r1_launches"]["single"] = cap.args, launches["run_reduce_multi"]
     ctx["r1_kernel_launches"]["single"] = launches["run_reduce_multi_kernel"]
-    t_med = statistics.median(times)
-    print(
-        f"find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
-        f"= {total_bp / t_med / 1e6:.2f} Mbp/s (runs {', '.join(f'{x:.3f}' for x in times)} s), "
-        f"{len(hits)} hits [{label}]"
-    )
+    print(f"find_genes {total_bp} bp ({len(contigs)} contigs): {len(hits)} hits [{label}]")
     t0 = time.perf_counter()
     oracle_res = mine_genome(str(fasta), profile, thr=thr, engine=HostScanEngine(profile.sum_kfv, k=k, ws=ws, r=r))
     print(f"int64 host oracle (HostScanEngine): {time.perf_counter() - t0:.3f} s, {len(oracle_res.hits)} hits [{label}]")
-    stage_breakdown(fasta, profile, thr, t_med, sync, device, label, reps=runs)
     require(len(hits) > 0, "no hits on the planted genome")
     require(
         [(h.description, h.seq) for h in hits] == [(h.description, h.seq) for h in oracle_res.hits],
         "find_genes hits differ from the int64 host oracle",
     )
-    print(f"hits equal the host oracle's; launch counts over the {runs + 1} runs: {launches}")
+    print(f"hits equal the host oracle's; launch counts of the call: {launches}")
     if on_card:
         require(launches["fused_record_bitmaps"] > 0 and launches["match_counts"] > 0
                 and launches["run_reduce_multi"] > 0, f"a kernel of the single-profile path never launched: {launches}")
@@ -1111,8 +879,8 @@ def cluster_phase(ctx) -> list:
     )
     from kmergma_tpu_torch.ops.thresholds import estimate_optimal_thresholds
 
-    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
-    contigs, runs, clusters, cthrs = ctx["contigs"], ctx["runs"], ctx["clusters"], ctx["cthrs"]
+    device, on_card, label = ctx["device"], ctx["on_card"], ctx["label"]
+    contigs, clusters, cthrs = ctx["contigs"], ctx["clusters"], ctx["cthrs"]
     profiles = clusters.profiles
     k = 6
     ceng = ClusterScanEngine(profiles, k=k, device=device)
@@ -1228,10 +996,8 @@ def cluster_phase(ctx) -> list:
     write_fasta(fasta, ccontigs)
     cap = R1Capture()
     ctx["launches"].reset()
-    times, out = timed_calls(
-        cap.once(lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device)),
-        sync, runs,
-    )
+    out = cap.once(lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, do_return_hit_loci=True,
+                                                      device=device))()
     chits = out[0]
     ctx["uninterrupted"]["cluster"] = out
     claunches = ctx["launches"].read()
@@ -1242,26 +1008,18 @@ def cluster_phase(ctx) -> list:
     ctx["r1_kernel_launches"]["cluster"] = claunches["run_reduce_multi_kernel"]
     print(f"cluster mode: R1 calls of one find_genes_cluster_mode call held {cap.profiles} profiles ({len(ccontigs)} "
           f"records, {m} clusters) [{label}]")
-    t_med = statistics.median(times)
-    print(
-        f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
-        f"median of {runs} {t_med:.3f} s = {ctotal / t_med / 1e6:.2f} Mbp/s "
-        f"(runs {', '.join(f'{x:.3f}' for x in times)} s), {len(chits)} hits [{label}]"
-    )
+    print(f"find_genes_cluster_mode {ctotal} bp ({len(ccontigs)} contigs, the last {SHORT_CONTIG_BP} bp): "
+          f"{len(chits)} hits [{label}]")
     t0 = time.perf_counter()
     coracle = mine_genome_clusters(str(fasta), profiles, thr_vec=cthrs, buff=100, engine=HostClusterOracle(profiles, k))
     print(f"int64 host cluster oracle ({m} x HostScanEngine): {time.perf_counter() - t0:.3f} s, "
           f"{len(coracle.hits)} hits [{label}]")
-    cluster_stage_breakdown(fasta, cthrs, t_med, sync, device, label, reps=runs)
-    device_share("find_genes_cluster_mode",
-                 lambda: kt.find_genes_cluster_mode(str(fasta), REF, verbose=False, device=device), sync, device, label,
-                 before_ms=30.611)
     require(len(chits) > 0, "no cluster hits on the planted genome")
     require(
         [(h.description, h.seq) for h in chits] == [(h.description, h.seq) for h in coracle.hits],
         "find_genes_cluster_mode hits differ from the int64 host cluster oracle",
     )
-    print(f"cluster hits equal the host oracle's; launch counts over the {runs + 1} runs: {claunches}")
+    print(f"cluster hits equal the host oracle's; launch counts of the call: {claunches}")
     if on_card:
         missing = [n for n in ("fused_cluster_record_bitmaps", "codes_pair_multi", "lookup_roundtrip", "match_counts",
                                "run_reduce_multi") if claunches[n] == 0]
@@ -1391,8 +1149,8 @@ def strobe_phase(ctx) -> list:
     from kmergma_tpu_torch.ops.scan_kernels import _codes_pair_ab_kcodes_plain, codes_pair_ab_kcodes
     from kmergma_tpu_torch.ops.strobemers import strobe_2_mer_codes_torch
 
-    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
-    contigs, runs = ctx["contigs"], ctx["runs"]
+    device, on_card, label = ctx["device"], ctx["on_card"], ctx["label"]
+    contigs = ctx["contigs"]
     thr = 30.0  # strobemer_find_genes' default kmer_dist_thr (no estimate)
     profile = gen_strobe_ref_ws_cons(REF)
     k, ws = profile.k, profile.windowsize
@@ -1463,34 +1221,26 @@ def strobe_phase(ctx) -> list:
     fasta, total_bp = ctx["fasta"], ctx["total_bp"]
     cap = R1Capture()
     ctx["launches"].reset()
-    times, out = timed_calls(
-        cap.once(lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True, device=device)),
-        sync, runs,
-    )
+    out = cap.once(lambda: kt.strobemer_find_genes(str(fasta), REF, verbose=False, do_return_hit_loci=True,
+                                                   device=device))()
     shits = out[0]
     ctx["uninterrupted"]["strobe"] = out
     slaunches = ctx["launches"].read()
     require(cap.args is not None, "strobemer_find_genes made no R1 call")
     ctx["r1_inputs"]["strobe"], ctx["r1_launches"]["strobe"] = cap.args, slaunches["run_reduce_multi"]
     ctx["r1_kernel_launches"]["strobe"] = slaunches["run_reduce_multi_kernel"]
-    t_med = statistics.median(times)
-    print(
-        f"strobemer_find_genes {total_bp} bp ({len(contigs)} contigs): median of {runs} {t_med:.3f} s "
-        f"= {total_bp / t_med / 1e6:.2f} Mbp/s (runs {', '.join(f'{x:.3f}' for x in times)} s), "
-        f"{len(shits)} hits [{label}]"
-    )
+    print(f"strobemer_find_genes {total_bp} bp ({len(contigs)} contigs): {len(shits)} hits [{label}]")
     t0 = time.perf_counter()
     soracle = strobe_mine_genome(str(fasta), profile, thr=thr, device_extract=False, device=device,
                                  engine_factory=HostStrobeOracle)
     print(f"int64 host strobe oracle (sorted-key window counts, all {len(contigs)} contigs): "
           f"{time.perf_counter() - t0:.3f} s, {len(soracle.hits)} hits [{label}]")
-    strobe_stage_breakdown(fasta, profile, thr, t_med, sync, device, label, reps=runs)
     require(len(shits) > 0, "no strobe hits on the planted genome")
     require(
         [(h.description, h.seq) for h in shits] == [(h.description, h.seq) for h in soracle.hits],
         "strobemer_find_genes hits differ from the int64 host strobe oracle",
     )
-    print(f"strobe hits equal the host oracle's; launch counts over the {runs + 1} runs: {slaunches}")
+    print(f"strobe hits equal the host oracle's; launch counts of the call: {slaunches}")
     if on_card:
         require(slaunches["codes_pair_ab_kcodes"] > 0 and slaunches["match_counts"] > 0
                 and slaunches["run_reduce_multi"] > 0, f"a kernel of the strobe path never launched: {slaunches}")
@@ -2191,9 +1941,6 @@ def fragmented_phase(ctx, short_contig) -> dict:
     cap.once(lambda: eng.record_streams(recs[hit], cthrs))()
     ctx["r1_inputs"]["fragmented"] = cap.args
     print(f"the first {n_oracle} fragments' streams equal the int64 host cluster oracle's [{label}]")
-    device_share(f"{n_oracle}-fragment record_streams",
-                 lambda: [eng.record_streams(r, cthrs) for r in recs[:n_oracle]], sync, device, label,
-                 before_ms=167.404 if n_oracle == ORACLE_FRAGMENTS else None)
     passes = {str(n_bp): split_pass_profile(profiles, k, codes, cthrs, device, on_card, label)
               for n_bp, codes in ((FRAGMENT_BP, recs[0]), (SHORT_CONTIG_BP, short_contig))}
     return {"records": n_rec, "record_bp": FRAGMENT_BP, "wall_s": wall_s, "mbps": mbps,
@@ -2288,8 +2035,7 @@ def k3_stage_ms(args: dict, l0s, reps: int = 20) -> list:
 def device_ms_per_call(call, reps: int = 20) -> tuple[float, str]:
     """(device ms per call, kernel names) of ``reps`` calls of ``call`` under
     torch.profiler, after a first profiled call that only starts the
-    tracer: the sum of the device intervals over ``reps`` (as
-    ``device_share`` reads them)."""
+    tracer: the sum of the device intervals over ``reps``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -2418,7 +2164,7 @@ def bench_phase(ctx) -> list:
     from kmergma_tpu_torch.ops.scan_host import HostScanEngine
     from kmergma_tpu_torch.utils.fasta import FastaRecord, as_records
 
-    device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
+    device, on_card, label = ctx["device"], ctx["on_card"], ctx["label"]
     sizes = ctx["bench_sizes"]
     piece = 64_000_000  # bp per K7 / K1 twin comparison on the headline genome
 
@@ -2469,17 +2215,7 @@ def bench_phase(ctx) -> list:
           f"int64 host engine's over the whole record ({n_host} host stream entries, "
           f"{time.perf_counter() - t0:.3f} s) [{label}]")
 
-    # --- the device's busy share of the headline and hit-dense rows ----------
-    device_share(f"bench headline row ({n_head} bp, record_stream)", lambda: eng.record_stream(genome, rnd["thr"]),
-                 sync, device, label, before_ms=8.735)
     dgenome = torch.from_numpy(dense["codes"]).to(device)
-
-    def dense_row():
-        d0, st, _ = eng.record_stream(dgenome, dense["thr"])
-        return replay_single(st, d0, dense["thr"], p.k, p.windowsize, dgenome.shape[0], 50)
-
-    device_share(f"bench hit-dense row ({dgenome.shape[0]} bp, record_stream + replay)", dense_row, sync, device, label,
-                 before_ms=1.835)
     del genome
 
     # --- the dense row: K1 vs its twin, hits against the int64 host engine ----
@@ -3647,46 +3383,15 @@ def r1_kernels(device, label: str = "", contig_bp: int = 16_000_000, many=(35, 8
     return r1_alone(record, profile, clusters, cthrs, thr, device, on_card, label, many=many)
 
 
-def api_walls(contigs, device, on_card: bool, label: str, runs: int = 3) -> dict:
-    """The three API calls on a FASTA of ``contigs`` (the API cells'
-    genome at size): wall ms a call, host clock between synchronises,
-    median and fastest of ``runs`` after a warm-up; the end-to-end side of
-    R1's parent-against-change measure.  {name: {ms, ms_min, device_ms}},
-    device_ms None (``device_share`` reads it in the full run)."""
-    import torch
-
-    import kmergma_tpu_torch as kt
-
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        fasta = str(Path(tmp) / "genome.fasta")
-        write_fasta(Path(fasta), contigs)
-        calls = {
-            "api_single": lambda: kt.find_genes(fasta, REF, verbose=False, device=device),
-            "api_cluster": lambda: kt.find_genes_cluster_mode(fasta, REF, verbose=False, device=device),
-            "api_strobe": lambda: kt.strobemer_find_genes(fasta, REF, verbose=False, device=device),
-        }
-        for name, call in calls.items():
-            times, _ = timed_calls(call, sync, runs)
-            out[name] = {"ms": statistics.median(times) * 1e3, "ms_min": min(times) * 1e3, "device_ms": None}
-            print(f"{name}: {out[name]['ms']:.3f} ms a call (fastest {out[name]['ms_min']:.3f}), "
-                  f"{sum(c.shape[0] for c in contigs)} bp [{label}]")
-    return out
-
-
-def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp: int = 4_000_000, api_runs: int = 3) -> dict:
+def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp: int = 4_000_000) -> dict:
     """K2, K4, K6 and K5 alone at the shapes the main paths give them
     (``python3 chip_smoke.py --pair-kernels``): the first contig of the
     synthetic genome, K1's bitmap over it for K2's region rows, the
     whole-record scan's rows, the mixed-depth split pass's K4 and K6
     shapes, and the cluster split pass's K5 on its first 60 kb, 16 kb and
     ``whole_bp``, each against its plain twin; then the planned pass's
-    engine calls (``planned_pass_walls``) and the three API calls on the
-    four-contig genome (``api_walls``, ``api_runs`` timed), and R1 alone
-    on the inputs of a planned pass at m = 1 and 6 (``r1_alone``): R1's
-    measure.  It calls only
+    engine calls (``planned_pass_walls``), and R1 alone on the inputs of a
+    planned pass at m = 1 and 6 (``r1_alone``): R1's measure.  It calls only
     the package's public wrappers and engines, so the same script times an
     earlier checkout of the package: run from a copy of this file placed
     in that checkout's root.  Returns {shape: {ms, ms_min, device_ms}}."""
@@ -3730,14 +3435,13 @@ def pair_kernels(device, label: str = "", contig_bp: int = 16_000_000, whole_bp:
         out[f"K5_{n_bp}bp"] = {"ms": float(v["ms"]), "ms_min": v["ms"].min, "device_ms": v["device_ms"]}
     out.update(planned_pass_walls(record, profile, clusters, cthrs, thr, device, on_card, label))
     out.update(r1_alone(record, profile, clusters, cthrs, thr, device, on_card, label))
-    out.update(api_walls(contigs, device, on_card, label, runs=api_runs))
     return out
 
 
 def run(device, contig_bp: int = 16_000_000, n_contigs: int = 4, plant_every: int = 500_000, whole_bp: int = 4_000_000, runs: int = 3, label: str = "", bench_sizes: dict | None = None, fragments: int = FRAGMENTS, long_bp: int = LONG_BP, long_chunk: int | None = None, max_k: int = MAX_K, two_axis_tile: int = TWO_AXIS_TILE) -> dict:
     """All phases on ``device``; raises SmokeFailure on any failed check.
-    ``runs`` timed runs follow one warm-up at size, and each stage of the
-    breakdowns is the median of ``runs``; ``bench_sizes`` are the bench
+    ``runs`` timed runs follow one warm-up in the TP and two-axis
+    phases; ``bench_sizes`` are the bench
     phase's row sizes (``BENCH_SIZES`` by default), ``fragments`` the
     fragmented assembly's record count; ``long_bp`` the long record's
     length and ``long_chunk`` its engine's ``chunk_windows`` (the default

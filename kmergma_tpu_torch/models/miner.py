@@ -3,14 +3,20 @@
 
 Per contig (records shorter than the windowsize are skipped):
   1. device: the planned scan (ops/scan.ScanEngine) emits the sparse
-     candidate stream; the next eligible record's copy to the device is
-     queued first (cross-record prefetch), and a long record resumes
-     from its last finished segment when a checkpoint holds one,
+     candidate stream; the next record's copy to the device is queued
+     first where the engine takes it whole (cross-record prefetch), and a
+     long record resumes from its last finished segment when a checkpoint
+     holds one,
   2. host: exact replay of the minima state machine (``replay_single``),
   3. optional semi-global alignment trim of every hit of the record in
      one batch (``align_hits_batch``: the native host DP, or the device
      aligner under ``KMERGMA_ALIGN_DEVICE=1``),
   4. hit records formatted exactly like the reference.
+
+The record loop (``mine_records``: checkpoint, short records,
+``GenomePos``, the ``record`` span and its counters, the prefetch) and
+the batched trim and format of hits (``add_hits``) are shared with the
+cluster and strobemer miners.
 """
 
 from __future__ import annotations
@@ -152,6 +158,133 @@ def record_kmergma(
     return hits
 
 
+@dataclass
+class RecordScan:
+    """One record of a mine run, as ``mine_records`` hands it to the
+    miner: its index in the genome, the record, its ``GenomePos``, its
+    codes already on the engine's device where they were copied while the
+    record before it was scanned (else None), its checkpoint's segment
+    tracker (else None), and its ``record`` span."""
+
+    idx: int
+    record: FastaRecord
+    genome_pos: int
+    codes_dev: object
+    seg_tracker: object
+    span: object
+    stats: ScanStats
+
+    def scanned(self, windows: int, candidates: int) -> None:
+        """Count the record's scan: the windows it scanned (every
+        cluster's, in cluster mode) and its candidate stream entries."""
+        n = len(self.record)
+        st = self.stats
+        st.records_scanned += 1
+        st.bp_scanned += n
+        st.windows_scanned += windows
+        st.candidate_windows += candidates
+        self.span.add(bp=n, windows=windows, candidates=candidates)
+
+
+def genome_name(genome: PathOrRecords) -> str:
+    """The genome's part of a checkpoint's identity string."""
+    return genome if isinstance(genome, str) else "records"
+
+
+def mine_records(res: MineResult, parse, genome_id: str, checkpoint_path: str | None, scan, *,
+                 min_len: int, skip_advances: bool = False, engine=None) -> None:
+    """The record loop of the three miners.  ``parse()`` gives the records
+    (the miner's own ``as_records`` call); ``scan(rec)`` does the miner's
+    work on one record (a ``RecordScan``) inside its ``record`` span: it
+    scans, counts the scan (``rec.scanned``), replays and adds the
+    record's hits and loci to ``res``.
+
+    With ``checkpoint_path`` the run opens the checkpoint of identity
+    ``genome_id`` and restores its hits and loci, skips the records it has
+    done, records each record as done and removes the file at the end.  A
+    record shorter than ``min_len`` is skipped; it advances ``GenomePos``
+    only with ``skip_advances`` (cluster mode; the single and strobemer
+    miners keep the reference's ``continue``, which skips it too).  Where
+    ``engine.takes_whole`` says the engine takes the next record to be
+    scanned whole, that record's copy to the device is queued before the
+    current one is scanned, so the two overlap.  Sets ``res.stats``, its
+    ``hits`` and its ``wall_seconds``, which cover the parse."""
+    t_start = time.perf_counter()
+    res.stats = stats = ScanStats()
+    ckpt = None
+    if checkpoint_path is not None:
+        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
+        res.hits.extend(ckpt.restore_hits())
+        res.hit_loci.extend(ckpt.hit_loci)
+    records = parse()
+    takes_whole = getattr(engine, "takes_whole", None)
+    genome_pos = ckpt.genome_pos if ckpt else 0
+    ahead = None  # the next record to scan, on the device, where copied ahead
+    for idx in range(ckpt.next_record if ckpt else 0, len(records)):
+        record = records[idx]
+        hits_before, loci_before = len(res.hits), len(res.hit_loci)
+        if len(record) < min_len:
+            stats.records_skipped += 1
+            if skip_advances:
+                genome_pos += len(record)
+            if ckpt:
+                ckpt.record_done(idx, genome_pos, [], [])
+            continue
+        with trace.span("record") as sp:
+            codes_dev, ahead = ahead, None
+            nxt = next((j for j in range(idx + 1, len(records)) if len(records[j]) >= min_len), None)
+            if takes_whole is not None and nxt is not None and takes_whole(len(records[nxt])):
+                ahead = engine.prepare_codes(records[nxt].codes)
+            scan(RecordScan(idx, record, genome_pos, codes_dev, ckpt.segment_tracker(idx) if ckpt else None, sp, stats))
+        genome_pos += len(record)
+        if ckpt:
+            ckpt.record_done(idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
+    if ckpt:
+        ckpt.done()
+    stats.hits = len(res.hits)
+    stats.wall_seconds = time.perf_counter() - t_start
+
+
+def hit_windows(record: FastaRecord, raw_hits) -> list[str]:
+    """Each hit's window of ``record``, upper-case, as the aligner takes it."""
+    return [seq_slice(record, h.start - 1, h.stop).decode("ascii").upper() for h in raw_hits]
+
+
+def add_hits(res: MineResult, rec: RecordScan, raw_hits, alns, *, keep_align: bool, keep_loci: bool,
+             min_score: int | None = None) -> int:
+    """Add a record's hits to ``res`` in the reference's format, each
+    trimmed to its alignment where ``alns`` (one a hit) is given, with its
+    alignment (``keep_align``) and locus (``keep_loci``).  With
+    ``min_score``, a hit whose alignment scores below it is dropped
+    (StrobeGMA's filter, Alignment.jl:96-98).  Returns the hits dropped."""
+    record, genome_pos, seq_len = rec.record, rec.genome_pos, len(rec.record)
+    dropped = 0
+    for hit_i, hit in enumerate(raw_hits):
+        start, stop = hit.start, hit.stop
+        if alns is not None:
+            aln = alns[hit_i]
+            if min_score is not None and aln.score < min_score:
+                dropped += 1
+                continue
+            if keep_align:
+                res.alignments.append(aln)
+            # the CIGAR range counts query-only (I) ops too, so the trimmed
+            # range can extend beyond the window, clamped only at the
+            # contig end
+            lo, hi = cigar_to_unitrange(aln)
+            start, stop = max(1, hit.start + lo - 1), min(hit.start + hi - 1, seq_len)
+        desc = (
+            f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
+            f" | MatchPos = {start}:{stop}"
+            f" | GenomePos = {genome_pos}"
+            f" | Len = {stop - start + 1}"
+        )
+        res.hits.append(FastaRecord(desc, seq_slice(record, start - 1, stop).upper()))
+        if keep_loci:
+            res.hit_loci.append(start + genome_pos)
+    return dropped
+
+
 def mine_genome(
     genome: PathOrRecords,
     profile: RefProfile,
@@ -184,106 +317,31 @@ def mine_genome(
     k, ws = profile.k, profile.windowsize
     if engine is None:
         engine = _default_engine(profile, device)
-    consensus_ws = profile.consensus_ws
     res = MineResult()
-    res.stats = stats = ScanStats()
     dist_parts: list[np.ndarray] = []
-    t_start = time.perf_counter()
 
-    ckpt = None
-    if checkpoint_path is not None:
-        genome_id = f"{genome if isinstance(genome, str) else 'records'}|k={k}|ws={ws}|thr={thr}"
-        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
-        res.hits.extend(ckpt.restore_hits())
-        res.hit_loci.extend(ckpt.hit_loci)
+    def scan(rec: RecordScan) -> None:
+        record, seq_len = rec.record, len(rec.record)
+        dist0, stream, dists = engine.record_stream(
+            record.codes, thr, collect_dists=do_return_dists, codes_dev=rec.codes_dev, seg_tracker=rec.seg_tracker,
+        )
+        rec.scanned(seq_len - ws + 1, len(stream))
+        if dists is not None:
+            dist_parts.append(dists[1:])  # the reference records only the iterative phase
+        with trace.span("replay") as sp_replay:
+            raw_hits = replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=seq_len, buff=buff)
+            sp_replay.add(hits=len(raw_hits))
+        res.stats.replay_hits += len(raw_hits)
+        alns = None
+        if do_align and raw_hits:
+            windows = hit_windows(record, raw_hits)
+            res.stats.windows_aligned += len(windows)
+            alns = align_hits_batch(profile.consensus_ws, windows, gap_open, gap_extend, device=device)
+        add_hits(res, rec, raw_hits, alns, keep_align=do_return_align, keep_loci=get_hit_loci)
 
-    records = as_records(genome)
-
-    # cross-record prefetch: the next eligible record's copy to the device
-    # is queued before the current record is scanned, so it overlaps the
-    # scan; records long enough to be segmented manage their own copies,
-    # and engines that copy per shard (sharded) opt out
-    prefetched: dict[int, object] = {}
-
-    def _prefetch_after(idx: int) -> None:
-        if not getattr(engine, "prefetch_h2d", False):
-            return
-        for j in range(idx + 1, len(records)):
-            if ckpt and j < ckpt.next_record:
-                continue
-            n_j = len(records[j])
-            if n_j >= ws and (n_j - ws + 1) <= 2 * engine.chunk:
-                if j not in prefetched:
-                    prefetched[j] = engine.prepare_codes(records[j].codes)
-                return
-
-    genome_pos = ckpt.genome_pos if ckpt else 0
-    for record_idx, record in enumerate(records):
-        if ckpt and record_idx < ckpt.next_record:
-            continue
-        hits_before, loci_before = len(res.hits), len(res.hit_loci)
-        seq_len = len(record)
-        if seq_len < ws:
-            # the reference's `continue` also skips genome_pos
-            stats.records_skipped += 1
-            if ckpt:
-                ckpt.record_done(record_idx, genome_pos, [], [])
-            continue
-        with trace.span("record") as sp:
-            codes_dev = prefetched.pop(record_idx, None)
-            _prefetch_after(record_idx)
-            dist0, stream, dists = engine.record_stream(
-                record.codes, thr, collect_dists=do_return_dists, codes_dev=codes_dev,
-                seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
-            )
-            stats.records_scanned += 1
-            stats.bp_scanned += seq_len
-            stats.windows_scanned += seq_len - ws + 1
-            stats.candidate_windows += len(stream)
-            sp.add(bp=seq_len, windows=seq_len - ws + 1, candidates=len(stream))
-            if dists is not None:
-                dist_parts.append(dists[1:])  # the reference records only the iterative phase
-
-            with trace.span("replay") as sp_replay:
-                raw_hits = replay_single(stream, dist0, thr, k=k, ws=ws, seq_len=seq_len, buff=buff)
-                sp_replay.add(hits=len(raw_hits))
-            stats.replay_hits += len(raw_hits)
-            alns = None
-            if do_align and raw_hits:
-                windows = [
-                    seq_slice(record, h.start - 1, h.stop).decode("ascii").upper()
-                    for h in raw_hits
-                ]
-                stats.windows_aligned += len(windows)
-                alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=device)
-            for hit_i, hit in enumerate(raw_hits):
-                start, stop = hit.start, hit.stop
-                if do_align:
-                    # the CIGAR range counts query-only (I) ops too, so the
-                    # trimmed range can extend beyond the window, clamped only
-                    # at the contig end
-                    aln = alns[hit_i]
-                    if do_return_align:
-                        res.alignments.append(aln)
-                    lo, hi = cigar_to_unitrange(aln)
-                    start, stop = max(1, hit.start + lo - 1), min(hit.start + hi - 1, seq_len)
-                desc = (
-                    f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
-                    f" | MatchPos = {start}:{stop}"
-                    f" | GenomePos = {genome_pos}"
-                    f" | Len = {stop - start + 1}"
-                )
-                res.hits.append(FastaRecord(desc, seq_slice(record, start - 1, stop).upper()))
-                if get_hit_loci:
-                    res.hit_loci.append(start + genome_pos)
-        genome_pos += seq_len
-        if ckpt:
-            ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
-
-    if ckpt:
-        ckpt.done()
-    stats.hits = len(res.hits)
-    stats.wall_seconds = time.perf_counter() - t_start
+    # the reference's `continue` on a record shorter than ws also skips genome_pos
+    mine_records(res, lambda: as_records(genome), f"{genome_name(genome)}|k={k}|ws={ws}|thr={thr}", checkpoint_path,
+                 scan, min_len=ws, engine=engine)
     if do_return_dists:
         res.dists = np.concatenate(dist_parts) if dist_parts else np.empty(0)
     return res

@@ -3,8 +3,9 @@
 
 Per contig (records too short for the widest cluster are skipped):
   1. device: one cluster pass (ops/scan_cluster.ClusterScanEngine) emits
-     the m per-cluster candidate streams; the next eligible record's copy
-     to the device is queued first (cross-record prefetch), and the sharded
+     the m per-cluster candidate streams; the next record's copy to the
+     device is queued first where the engine takes it whole (cross-record
+     prefetch, ``models/miner.mine_records``), and the sharded
      engine resumes a long record from its last finished segment batch,
   2. host: exact replay of the cluster minima state machine
      (``replay_omn``), streams merged in (window, cluster) order, with the
@@ -21,8 +22,6 @@ Per contig (records too short for the widest cluster are skipped):
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -30,9 +29,8 @@ from ..ops.align import cigar_to_unitrange, semiglobal_align_batch
 from ..ops.reference import RefProfile
 from ..ops.scan_cluster import ClusterScanEngine
 from ..utils import trace
-from ..utils.checkpoint import ScanCheckpoint
 from ..utils.fasta import FastaRecord, PathOrRecords, as_records, seq_slice
-from .miner import MineResult, ScanStats, fmt_dist
+from .miner import MineResult, RecordScan, fmt_dist, genome_name, mine_records
 from .state_machine import OmnHitEvent, replay_omn
 
 
@@ -57,12 +55,13 @@ def mine_genome_clusters(
     per-cluster ``engines[c].record_stream(codes, thr, collect_dists=True)``,
     such as an exact int64 host oracle; by default the device
     ``ClusterScanEngine`` on ``device`` (the card unless the caller asks
-    for the CPU).  An engine with ``prefetch_h2d`` set also needs
-    ``prepare_codes`` and ``chunk``.  ``checkpoint_path`` checkpoints and
-    resumes per record, as ``mine_genome``'s does, and mid-record where
-    the engine segments (the sharded one); a record too short to scan
-    advances ``GenomePos`` before it is recorded as done, as the JAX
-    miner's does."""
+    for the CPU).  An engine with ``takes_whole(n)`` also needs
+    ``prepare_codes``: a record it takes whole is copied to the device
+    while the record before it is scanned.  ``checkpoint_path``
+    checkpoints and resumes per record, as ``mine_genome``'s does, and
+    mid-record where the engine segments (the sharded one); a record too
+    short to scan advances ``GenomePos`` before it is recorded as done, as
+    the JAX miner's does."""
     m = len(profiles)
     if len(thr_vec) != m:
         raise ValueError(f"{m} cluster profiles but {len(thr_vec)} thresholds")
@@ -72,132 +71,79 @@ def mine_genome_clusters(
     cluster_engine = engine if engine is not None else ClusterScanEngine(profiles, k=k, device=device)
 
     res = MineResult()
-    res.stats = stats = ScanStats()
-    t_start = time.perf_counter()
     dist_parts: list[list[np.ndarray]] = [[] for _ in range(m)]
+
+    def scan(rec: RecordScan) -> None:
+        record, seq_len, genome_pos = rec.record, len(rec.record), rec.genome_pos
+        hits_before = len(res.hits)
+        imax = seq_len - maxws - k + 2
+        if do_return_dists:
+            # every window of every cluster, through each cluster's
+            # whole-record distance scan
+            dist0s, streams = [], []
+            for ind in range(m):
+                d0, stream, dists = cluster_engine.engines[ind].record_stream(
+                    record.codes, thr_vec[ind], collect_dists=True, codes_dev=rec.codes_dev,
+                )
+                dist0s.append(d0)
+                streams.append(stream)
+                dist_parts[ind].append(dists[1 : imax + 1])
+        else:
+            pairs = cluster_engine.record_streams(
+                record.codes, thr_vec, codes_dev=rec.codes_dev, seg_tracker=rec.seg_tracker,
+            )
+            dist0s = [p[0] for p in pairs]
+            streams = [p[1] for p in pairs]
+        rec.scanned(m * imax, sum(len(s) for s in streams))
+
+        prev_range = (0, 0)  # 1-based inclusive; (0, 0) matches Julia's 0:0
+
+        def process(ev: OmnHitEvent) -> bool:
+            nonlocal prev_range
+            res.stats.replay_hits += 1
+            cmi = ev.cmi
+            if prev_range[0] <= cmi <= prev_range[1]:
+                return False
+            ws_i = windowsizes[ev.cluster]
+            rng = (max(cmi - buff, 1), min(cmi + ws_i - 1 + buff, seq_len))
+            if do_align:
+                # against the stored cluster consensus as it is (truncated
+                # to ws for real clusters, full length for the appended
+                # average cluster; OmnGenomeMiner.jl:131)
+                lo, hi = rng
+                window = seq_slice(record, lo - 1, hi).decode("ascii").upper()
+                res.stats.windows_aligned += 1
+                aln = semiglobal_align_batch(profiles[ev.cluster].consensus, [window], gap_open, gap_extend)[0]
+                if do_return_align:
+                    # collected before the second overlap check
+                    # (OmnGenomeMiner.jl:132)
+                    res.alignments.append(aln)
+                alo, ahi = cigar_to_unitrange(aln)
+                rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
+            if not (rng[1] < prev_range[0] or rng[0] > prev_range[1]):
+                return False
+            desc = (
+                f"{record.identifier} | Dist = {fmt_dist(ev.dist)}"
+                f" | KFV = {ev.cluster + 1}"
+                f" | MatchPos = {rng[0]}:{rng[1]}"
+                f" | GenomePos = {genome_pos}"
+                f" | Len = {rng[1] - rng[0] + 1}"
+            )
+            res.hits.append(FastaRecord(desc, seq_slice(record, rng[0] - 1, rng[1]).upper()))
+            if get_hit_loci:
+                res.hit_loci.append(rng[0] + genome_pos)
+            prev_range = rng
+            return True
+
+        with trace.span("replay") as sp_replay:
+            replay_omn(streams, dist0s, thr_vec, k, windowsizes, seq_len, process)
+            sp_replay.add(hits=len(res.hits) - hits_before)
 
     # cluster-mode state (prev_range, per-cluster minima) resets per
     # record, so resuming from the next unfinished record is exact
-    ckpt = None
-    if checkpoint_path is not None:
-        genome_id = (
-            f"{genome if isinstance(genome, str) else 'records'}|cluster"
-            f"|k={k}|ws={windowsizes}|thr={list(thr_vec)}"
-        )
-        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
-        res.hits.extend(ckpt.restore_hits())
-        res.hit_loci.extend(ckpt.hit_loci)
-
-    records = as_records(genome)
-
-    # cross-record prefetch (as models/miner.py): the next eligible record's
-    # copy to the device is queued before the current record is scanned
-    prefetched: dict[int, object] = {}
-
-    def _prefetch_after(idx: int) -> None:
-        if not getattr(cluster_engine, "prefetch_h2d", False):
-            return
-        for j in range(idx + 1, len(records)):
-            if ckpt and j < ckpt.next_record:
-                continue
-            n_j = len(records[j])
-            if n_j - maxws - k + 2 >= 1:
-                if n_j <= 2 * cluster_engine.chunk and j not in prefetched:
-                    prefetched[j] = cluster_engine.prepare_codes(records[j].codes)
-                return
-
-    genome_pos = ckpt.genome_pos if ckpt else 0
-    for record_idx, record in enumerate(records):
-        if ckpt and record_idx < ckpt.next_record:
-            continue
-        hits_before, loci_before = len(res.hits), len(res.hit_loci)
-        seq_len = len(record)
-        imax = seq_len - maxws - k + 2
-        if imax < 1:
-            stats.records_skipped += 1
-            genome_pos += seq_len
-            if ckpt:
-                ckpt.record_done(record_idx, genome_pos, [], [])
-            continue
-        with trace.span("record") as sp:
-            stats.records_scanned += 1
-            stats.bp_scanned += seq_len
-            stats.windows_scanned += m * imax
-
-            codes_dev = prefetched.pop(record_idx, None)
-            _prefetch_after(record_idx)
-            if do_return_dists:
-                # every window of every cluster, through each cluster's
-                # whole-record distance scan
-                dist0s, streams = [], []
-                for ind in range(m):
-                    d0, stream, dists = cluster_engine.engines[ind].record_stream(
-                        record.codes, thr_vec[ind], collect_dists=True, codes_dev=codes_dev,
-                    )
-                    dist0s.append(d0)
-                    streams.append(stream)
-                    dist_parts[ind].append(dists[1 : imax + 1])
-            else:
-                pairs = cluster_engine.record_streams(
-                    record.codes, thr_vec, codes_dev=codes_dev,
-                    seg_tracker=ckpt.segment_tracker(record_idx) if ckpt else None,
-                )
-                dist0s = [p[0] for p in pairs]
-                streams = [p[1] for p in pairs]
-            candidates = sum(len(s) for s in streams)
-            stats.candidate_windows += candidates
-            sp.add(bp=seq_len, windows=m * imax, candidates=candidates)
-
-            prev_range = (0, 0)  # 1-based inclusive; (0, 0) matches Julia's 0:0
-
-            def process(ev: OmnHitEvent) -> bool:
-                nonlocal prev_range
-                stats.replay_hits += 1
-                cmi = ev.cmi
-                if prev_range[0] <= cmi <= prev_range[1]:
-                    return False
-                ws_i = windowsizes[ev.cluster]
-                rng = (max(cmi - buff, 1), min(cmi + ws_i - 1 + buff, seq_len))
-                if do_align:
-                    # against the stored cluster consensus as it is (truncated
-                    # to ws for real clusters, full length for the appended
-                    # average cluster; OmnGenomeMiner.jl:131)
-                    lo, hi = rng
-                    window = seq_slice(record, lo - 1, hi).decode("ascii").upper()
-                    stats.windows_aligned += 1
-                    aln = semiglobal_align_batch(profiles[ev.cluster].consensus, [window], gap_open, gap_extend)[0]
-                    if do_return_align:
-                        # collected before the second overlap check
-                        # (OmnGenomeMiner.jl:132)
-                        res.alignments.append(aln)
-                    alo, ahi = cigar_to_unitrange(aln)
-                    rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
-                if not (rng[1] < prev_range[0] or rng[0] > prev_range[1]):
-                    return False
-                desc = (
-                    f"{record.identifier} | Dist = {fmt_dist(ev.dist)}"
-                    f" | KFV = {ev.cluster + 1}"
-                    f" | MatchPos = {rng[0]}:{rng[1]}"
-                    f" | GenomePos = {genome_pos}"
-                    f" | Len = {rng[1] - rng[0] + 1}"
-                )
-                res.hits.append(FastaRecord(desc, seq_slice(record, rng[0] - 1, rng[1]).upper()))
-                if get_hit_loci:
-                    res.hit_loci.append(rng[0] + genome_pos)
-                prev_range = rng
-                return True
-
-            with trace.span("replay") as sp_replay:
-                replay_omn(streams, dist0s, thr_vec, k, windowsizes, seq_len, process)
-                sp_replay.add(hits=len(res.hits) - hits_before)
-        genome_pos += seq_len
-        if ckpt:
-            ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
-
-    if ckpt:
-        ckpt.done()
-    stats.hits = len(res.hits)
-    stats.wall_seconds = time.perf_counter() - t_start
+    mine_records(res, lambda: as_records(genome),
+                 f"{genome_name(genome)}|cluster|k={k}|ws={windowsizes}|thr={list(thr_vec)}", checkpoint_path,
+                 scan, min_len=maxws + k - 1, skip_advances=True, engine=cluster_engine)
     if do_return_dists:
         res.dists = [np.concatenate(parts) if parts else np.empty(0) for parts in dist_parts]
     return res

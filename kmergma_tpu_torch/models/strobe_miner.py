@@ -22,20 +22,18 @@ off-by-one right-boundary anchor (see ops/scan_strobe.py).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops.align import align_hits_batch, cigar_to_unitrange
+from ..ops.align import align_hits_batch
 from ..ops.consensus import Profile
 from ..ops.scan import ScanEngine, resolve_device
 from ..ops.strobemers import strobe_2_mer_codes, strobe_2_mer_codes_torch, ungapped_strobe_2_mer_count_into
 from ..utils import trace
-from ..utils.checkpoint import ScanCheckpoint
-from ..utils.fasta import FastaRecord, PathOrRecords, as_records, seq_slice
-from .miner import MineResult, ScanStats, fmt_dist
+from ..utils.fasta import PathOrRecords, as_records
+from .miner import MineResult, RecordScan, add_hits, genome_name, hit_windows, mine_records
 
 
 @dataclass
@@ -178,128 +176,74 @@ def strobe_mine_genome(
     consensus_ws = profile.consensus[:ws]
 
     res = MineResult()
-    res.stats = stats = ScanStats()
-    t_start = time.perf_counter()
     dist_parts: list[np.ndarray] = []
     # one span engine per x* (usually one)
     engines: dict[int, object] = engine_cache if engine_cache is not None else {}
 
-    ckpt = None
-    if checkpoint_path is not None:
-        genome_id = (
-            f"strobe|{genome if isinstance(genome, str) else 'records'}"
-            f"|s={s}|wmin={w_min}|wmax={w_max}|q={q}|ws={ws}|thr={thr}"
-        )
-        ckpt = ScanCheckpoint.load_or_create(checkpoint_path, genome_id)
-        res.hits.extend(ckpt.restore_hits())
-        res.hit_loci.extend(ckpt.hit_loci)
-
-    genome_pos = ckpt.genome_pos if ckpt else 0
-    for record_idx, record in enumerate(as_records(genome)):
-        if ckpt and record_idx < ckpt.next_record:
-            continue
-        hits_before, loci_before = len(res.hits), len(res.hit_loci)
-        seq_len = len(record)
-        if seq_len < ws:
-            # ref StrobeGenomeMiner.jl:36: `continue` skips genome_pos too
-            stats.records_skipped += 1
-            if ckpt:
-                ckpt.record_done(record_idx, genome_pos, [], [])
-            continue
-        with trace.span("record") as sp:
-            n_steps = seq_len - ws - 1
-            if n_steps < 1:
-                # degenerate record: only the init window exists
-                sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
-                sprof = torch.as_tensor(profile.sum_kfv.astype(np.int32), device=dev)
-                d_scaled = strobe_scan_from_codes(
-                    torch.as_tensor(sc.astype(np.int32), device=dev), sprof, w, r, max(n_steps, 0)
-                ).cpu().numpy()
-                dists = d_scaled.astype(np.float64) / scale
-                dist0, stream = float(dists[0]), list(candidate_stream_from_dists(dists, thr))
-            else:
+    def scan(rec: RecordScan) -> None:
+        record, seq_len = rec.record, len(rec.record)
+        n_steps = seq_len - ws - 1
+        if n_steps < 1:
+            # degenerate record: only the init window exists
+            sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
+            sprof = torch.as_tensor(profile.sum_kfv.astype(np.int32), device=dev)
+            d_scaled = strobe_scan_from_codes(
+                torch.as_tensor(sc.astype(np.int32), device=dev), sprof, w, r, max(n_steps, 0)
+            ).cpu().numpy()
+            dists = d_scaled.astype(np.float64) / scale
+            dist0, stream = float(dists[0]), list(candidate_stream_from_dists(dists, thr))
+        else:
+            if device_extract:
+                # the record crosses as int8 genome codes (or is already on
+                # the device); the strobe codes feed the span engine without
+                # leaving the device
+                if genome_dev is not None:
+                    gcodes = genome_dev[rec.idx][:seq_len]
+                else:
+                    with trace.span("stage") as sp_stage:
+                        sp_stage.add(bytes=seq_len)
+                        gcodes = torch.from_numpy(record.codes).to(dev)
+            with trace.span("extract") as sp_extract:
                 if device_extract:
-                    # the record crosses as int8 genome codes (or is already on
-                    # the device); the strobe codes feed the span engine without
-                    # leaving the device
-                    if genome_dev is not None:
-                        gcodes = genome_dev[record_idx][:seq_len]
-                    else:
-                        with trace.span("stage") as sp_stage:
-                            sp_stage.add(bytes=seq_len)
-                            gcodes = torch.from_numpy(record.codes).to(dev)
-                with trace.span("extract") as sp_extract:
-                    if device_extract:
-                        sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
-                    else:
-                        sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
-                    # reading x* waits for a device extraction to finish
-                    xstar = int(sc[w])
-                    sp_extract.add(bp=seq_len, windows=int(sc.shape[0]))
-                eng = engines.get(xstar)
-                if eng is None:
-                    with trace.span("engine") as sp_engine:
-                        if len(engines) > 16:
-                            engines.clear()
-                        eng = engines[xstar] = engine_factory(profile, xstar)
-                        sp_engine.add(xstar=xstar)
-                    trace.add_to_call(engines_built=1)
-                dist0, stream, dists = eng.record_stream(sc[: n_steps + w], thr, collect_dists=do_return_dists)
-            stats.records_scanned += 1
-            stats.bp_scanned += seq_len
-            stats.windows_scanned += n_steps + 1
-            stats.candidate_windows += len(stream)
-            sp.add(bp=seq_len, windows=n_steps + 1, candidates=len(stream))
-            if do_return_dists:
-                dist_parts.append(np.asarray(dists[1:]) if dists is not None else np.empty(0))
+                    sc = strobe_2_mer_codes_torch(gcodes, s, w_min, w_max, q)
+                else:
+                    sc = strobe_2_mer_codes(record.codes, s, w_min, w_max, q)
+                # reading x* waits for a device extraction to finish
+                xstar = int(sc[w])
+                sp_extract.add(bp=seq_len, windows=int(sc.shape[0]))
+            eng = engines.get(xstar)
+            if eng is None:
+                with trace.span("engine") as sp_engine:
+                    if len(engines) > 16:
+                        engines.clear()
+                    eng = engines[xstar] = engine_factory(profile, xstar)
+                    sp_engine.add(xstar=xstar)
+                trace.add_to_call(engines_built=1)
+            dist0, stream, dists = eng.record_stream(sc[: n_steps + w], thr, collect_dists=do_return_dists)
+        rec.scanned(n_steps + 1, len(stream))
+        if do_return_dists:
+            dist_parts.append(np.asarray(dists[1:]) if dists is not None else np.empty(0))
 
-            with trace.span("replay") as sp_replay:
-                raw_hits = replay_single(
-                    stream, dist0, thr,
-                    k=k, ws=ws, seq_len=seq_len, buff=buff, cmi_offset=0,
-                )
-                sp_replay.add(hits=len(raw_hits))
-            stats.replay_hits += len(raw_hits)
+        with trace.span("replay") as sp_replay:
+            raw_hits = replay_single(
+                stream, dist0, thr,
+                k=k, ws=ws, seq_len=seq_len, buff=buff, cmi_offset=0,
+            )
+            sp_replay.add(hits=len(raw_hits))
+        res.stats.replay_hits += len(raw_hits)
+        alns = None
+        if do_align and raw_hits:
+            windows = hit_windows(record, raw_hits)
+            res.stats.windows_aligned += len(windows)
+            alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=dev)
+        rec.span.add(score_filtered=add_hits(res, rec, raw_hits, alns, keep_align=do_return_align,
+                                             keep_loci=get_hit_loci, min_score=score_threshold))
 
-            alns = None
-            if do_align and raw_hits:
-                windows = [
-                    seq_slice(record, h.start - 1, h.stop).decode("ascii").upper()
-                    for h in raw_hits
-                ]
-                stats.windows_aligned += len(windows)
-                alns = align_hits_batch(consensus_ws, windows, gap_open, gap_extend, device=dev)
-            score_filtered = 0
-            for hit_i, hit in enumerate(raw_hits):
-                lo, hi = hit.start, hit.stop
-                rng = (lo, hi)
-                if do_align:
-                    aln = alns[hit_i]
-                    if aln.score < score_threshold:
-                        score_filtered += 1
-                        continue  # ref Alignment.jl:96-98 score filter
-                    if do_return_align:
-                        res.alignments.append(aln)
-                    alo, ahi = cigar_to_unitrange(aln)
-                    rng = (max(1, lo + alo - 1), min(lo + ahi - 1, seq_len))
-                desc = (
-                    f"{record.identifier} | dist = {fmt_dist(hit.dist)}"
-                    f" | MatchPos = {rng[0]}:{rng[1]}"
-                    f" | GenomePos = {genome_pos}"
-                    f" | Len = {rng[1] - rng[0] + 1}"
-                )
-                res.hits.append(FastaRecord(desc, seq_slice(record, rng[0] - 1, rng[1]).upper()))
-                if get_hit_loci:
-                    res.hit_loci.append(rng[0] + genome_pos)
-            sp.add(score_filtered=score_filtered)
-        genome_pos += seq_len
-        if ckpt:
-            ckpt.record_done(record_idx, genome_pos, res.hits[hits_before:], res.hit_loci[loci_before:])
-
-    if ckpt:
-        ckpt.done()
-    stats.hits = len(res.hits)
-    stats.wall_seconds = time.perf_counter() - t_start
+    # ref StrobeGenomeMiner.jl:36: `continue` on a record shorter than ws
+    # skips genome_pos too
+    mine_records(res, lambda: as_records(genome),
+                 f"strobe|{genome_name(genome)}|s={s}|wmin={w_min}|wmax={w_max}|q={q}|ws={ws}|thr={thr}",
+                 checkpoint_path, scan, min_len=ws)
     if do_return_dists:
         res.dists = np.concatenate(dist_parts) if dist_parts else np.empty(0)
     return res

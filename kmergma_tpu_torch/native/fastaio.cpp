@@ -306,26 +306,6 @@ long encode_seq(const char* buf, long n, signed char* out) {
 
 }  // extern "C"
 
-// Quarter-wise 2-bit packing for device transfer (see
-// the JAX package's ops/scan.py:_unpack_codes for the layout): byte j
-// packs code j of each padded-genome quarter in its four 2-bit fields.
-// Reads codes[0..n) and treats [n..total) as zero padding, so the caller
-// never materialises the padded copy.  total must be a multiple of 4;
-// out must hold total/4 bytes.
-extern "C" void pack_quarters(const signed char* codes, long n,
-                              unsigned char* out, long total) {
-    const long q = total / 4;
-    for (long j = 0; j < q; ++j) {
-        unsigned char b = 0;
-        for (int f = 0; f < 4; ++f) {
-            const long idx = (long)f * q + j;
-            const unsigned char c = idx < n ? (unsigned char)codes[idx] : 0;
-            b |= (unsigned char)((c & 3) << (2 * f));
-        }
-        out[j] = b;
-    }
-}
-
 // Exact int64 rolling-spectrum scan: the reference's O(1)/bp incremental
 // recurrence (KmerGMA.jl src/GenomeMiner.jl:42-77) in scaled integers
 // D[p] = ||R*c_p - S||^2 (see kmergma_tpu_torch/ops/scan.py).  Host fallback for

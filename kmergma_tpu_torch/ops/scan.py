@@ -695,11 +695,6 @@ class ScanEngine:
     segments, as in the JAX package.
     """
 
-    #: miners may copy the next record to the device before scanning the
-    #: current one (cross-record prefetch); engines that manage their own
-    #: copies (the sharded ones) opt out
-    prefetch_h2d = True
-
     #: host dtype of the record codes that cross to the device: 2-bit
     #: genome codes (int8); the strobemer span engine ships its strobe
     #: codes as uint8 (256 codes at s = 2) or int32 (s = 3)
@@ -781,6 +776,12 @@ class ScanEngine:
             bitmap_need = max(1, -(-nw // self.fused_t)) * self.fused_t + _k1_halo(w)
         return max(n + self.rspan + 1, bitmap_need)
 
+    def takes_whole(self, n: int) -> bool:
+        """Whether a record of ``n`` codes is scanned in one pass from
+        ``prepare_codes``, not in segments: then the miners copy it to the
+        device while the record before it is scanned."""
+        return self.ws <= n and n - self.ws + 1 <= 2 * self.chunk
+
     def prepare_codes(self, codes: "np.ndarray | torch.Tensor") -> torch.Tensor:
         """The record's codes on the device as ``codes_dtype``, zero-padded
         for the bitmap pass and for region rows near the record end
@@ -806,7 +807,7 @@ class ScanEngine:
         nw = n - self.ws + 1
         if nw < 1:
             raise ValueError(f"record of {n} bp is shorter than the windowsize {self.ws}")
-        if codes_dev is None and not collect_dists and not torch.is_tensor(codes) and nw > 2 * self.chunk:
+        if codes_dev is None and not collect_dists and not torch.is_tensor(codes) and not self.takes_whole(n):
             codes = np.asarray(codes, dtype=self.codes_dtype)
             flat = self._segmented_bitmaps(codes, nw, int(self._thr_int(thr)), seg_tracker)
             dist0, stream = _planned_streams([self], codes, [flat], [nw], [thr], [nw - 1])[0]

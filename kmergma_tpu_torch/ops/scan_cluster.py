@@ -154,10 +154,6 @@ class ClusterScanEngine:
     pass, as the JAX one does: ``chunk_windows`` only sets the miner's
     prefetch limit and the sharded engine's span."""
 
-    #: the miner may copy the next record to the device before scanning the
-    #: current one (``prepare_codes``)
-    prefetch_h2d = True
-
     def __init__(self, profiles: list[RefProfile], k: int, chunk_windows: int | None = None, *, bound_depth: int | None = 16, device: "str | torch.device" = "cuda"):
         if not profiles:
             raise ValueError("cluster mode takes at least one profile")
@@ -205,6 +201,11 @@ class ClusterScanEngine:
         to the region grid."""
         rspan = self.engines[0].rspan
         return -(-nw_max // rspan) * rspan
+
+    def takes_whole(self, n: int) -> bool:
+        """Whether the miner copies a record of ``n`` bp to the device while
+        the record before it is scanned: up to 2 x ``chunk_windows`` bp."""
+        return n <= 2 * self.chunk
 
     def prepare_codes(self, codes: "np.ndarray | torch.Tensor") -> torch.Tensor:
         """The record's int8 codes on the device, zero-padded for the widest

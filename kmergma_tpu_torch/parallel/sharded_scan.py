@@ -156,7 +156,9 @@ class ShardedScanEngine(ScanEngine):
     (``bound_depth=None``) and past ``MAX_BITMAP_DEPTH``, each shard's
     codes padded for that route's kernel."""
 
-    prefetch_h2d = False  # each shard's codes cross inside record_stream
+    def takes_whole(self, n: int) -> bool:
+        """Never: each shard's codes cross inside ``record_stream``."""
+        return False
 
     #: spans per shard in one segment batch on the checkpointed path
     _seg_spd = 4
@@ -249,7 +251,9 @@ class ShardedClusterScanEngine(ClusterScanEngine):
     streams, cut at the cluster loop's bound, are bit-identical to the
     one-device engine's."""
 
-    prefetch_h2d = False  # each shard's codes cross inside record_streams
+    def takes_whole(self, n: int) -> bool:
+        """Never: each shard's codes cross inside ``record_streams``."""
+        return False
 
     #: spans per shard in one segment batch on the checkpointed path
     _seg_spd = 4

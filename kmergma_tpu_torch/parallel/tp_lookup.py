@@ -112,7 +112,9 @@ class TPScanEngine(ScanEngine):
     ``_rows_d``, ``_chunk_distances``), its ``record_stream`` never takes
     the segmented path, and ``_depth_bitmap`` raises."""
 
-    prefetch_h2d = False
+    def takes_whole(self, n: int) -> bool:
+        """Never: the miners do not copy a record ahead for this engine."""
+        return False
 
     def __init__(self, s_profile: np.ndarray, k: int, ws: int, r: int, mesh: Mesh | None = None, chunk_windows: int | None = None, bound_depth: int | None = 16, *, device: "str | torch.device" = "cuda"):
         self.mesh = make_mesh(device=device) if mesh is None else mesh

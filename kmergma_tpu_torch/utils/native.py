@@ -65,10 +65,6 @@ def _build_lib() -> "ctypes.CDLL | None":
     lib.fasta_free.argtypes = [ctypes.c_void_p]
     lib.encode_seq.restype = ctypes.c_long
     lib.encode_seq.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p]
-    lib.pack_quarters.restype = None
-    lib.pack_quarters.argtypes = [
-        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
-    ]
     lib.scan_rolling_i64.restype = ctypes.c_int
     lib.scan_rolling_i64.argtypes = [
         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
@@ -210,28 +206,6 @@ def load_fasta_native(path: str, *, _threads: "int | None" = None, _min_chunk: i
     ends = np.cumsum(desc_lens).tolist()
     descs = [raw[e - d : e].decode("ascii") for e, d in zip(ends, desc_lens.tolist())]
     return codes, seq_bytes, offsets, lengths, descs, {"threads": used, "lines": lines, "slow_lines": slow}
-
-
-def pack_quarters_native(codes: np.ndarray, total: int) -> "np.ndarray | None":
-    """Quarter-wise 2-bit pack of ``codes`` zero-padded to ``total`` bases.
-
-    Returns uint8[total // 4] (the layout ops.scan._unpack_codes expects),
-    or None if the native library is unavailable.  Saves the padded int8
-    copy and ~5x the numpy packing time on genome-scale inputs.
-    """
-    lib = get_lib()
-    if lib is None:
-        return None
-    assert total % 4 == 0 and total >= codes.shape[0]
-    codes = np.ascontiguousarray(codes, dtype=np.int8)
-    out = np.empty(total // 4, dtype=np.uint8)
-    lib.pack_quarters(
-        codes.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_long(codes.shape[0]),
-        out.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_long(total),
-    )
-    return out
 
 
 def scan_rolling_i64_native(

@@ -282,8 +282,7 @@ def test_chip_smoke_phases_on_cpu(capsys):
     cluster mode, strobemers, the device aligner, checkpoint/resume of the
     three miners, long records and shards, the profile-sharded engine, the
     two-axis step, the paired spectrum, the mixed-depth cluster set, the engines' depth
-    options, the bench), the
-    stage breakdowns and the busy shares included, on CPU tensors at a
+    options, the bench) on CPU tensors at a
     small size: the wrappers take their plain twins, so the kernels' report
     shows no launch and no error."""
     import importlib.util
@@ -385,7 +384,6 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert "strobe goldens: Alp_V_locus 3 hits" in out
     assert "strobe hits equal the host oracle's" in out
     assert out.count("mixed-depth streams equal the int64 host oracle's") == 2
-    assert out.count("idle share") == 6
     # each miner killed on its third record and resumed to the uninterrupted hits, then find_genes resumed
     for name, scanned in (("single", "1 records scanned of 3"), ("cluster", "2 records scanned of 4"),
                           ("strobe", "1 records scanned of 3")):
@@ -409,7 +407,7 @@ def test_chip_smoke_phases_on_cpu(capsys):
 def test_chip_smoke_pair_kernels_on_cpu(capsys):
     """``chip_smoke.py --pair-kernels`` (K2, K4, K6 and K5 alone at the main
     paths' shapes, each held against its plain twin, then the planned
-    pass's engine calls, R1 alone on their inputs and the three API calls)
+    pass's engine calls and R1 alone on their inputs)
     on CPU tensors at a small
     size: every shape timed, no device time off the card."""
     import importlib.util
@@ -417,11 +415,11 @@ def test_chip_smoke_pair_kernels_on_cpu(capsys):
     spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000, api_runs=1)
+    out = cs.pair_kernels("cpu", label="cpu", contig_bp=150_000, whole_bp=20_000)
     assert sorted(out) == [
         "K2_region_rows", "K2_whole_record", "K4_depth14", "K4_depth16", "K5_16000bp", "K5_20000bp", "K5_60000bp",
-        "K6_depth14", "K6_depth16", "R1_cluster_m6", "R1_fragment_m6", "R1_single_m1", "api_cluster", "api_single",
-        "api_strobe", "planned_cluster", "planned_fragments", "planned_single", "planned_strobe",
+        "K6_depth14", "K6_depth16", "R1_cluster_m6", "R1_fragment_m6", "R1_single_m1",
+        "planned_cluster", "planned_fragments", "planned_single", "planned_strobe",
     ]
     assert (out["R1_single_m1"]["profiles"], out["R1_cluster_m6"]["profiles"]) == (1, 6)
     assert all(v["ms"] > 0 and v["ms_min"] <= v["ms"] and v["device_ms"] is None for v in out.values())

@@ -247,6 +247,38 @@ def test_cross_package_resume(miner, direction, tmp_path, setup, test_genome, ja
 
 
 @pytest.mark.parametrize("miner", MINERS)
+def test_short_record_between_scanned_records(miner, tmp_path, setup, mini_genome, monkeypatch):
+    """A record too short to scan between two scanned ones is skipped and
+    counted in ``records_skipped``; it advances ``GenomePos`` in cluster
+    mode only, as in the JAX miners.  The hits, loci and the ``GenomePos``
+    in their descriptions equal the JAX miner's, uninterrupted and resumed
+    from a checkpoint written after the skip."""
+    locus = as_records(mini_genome)[0]
+    genome = str(tmp_path / "short_between.fasta")
+    with open(genome, "w") as fh:
+        for name, seq in (("first", locus.seq), ("short", locus.seq[:100]), ("second", locus.seq)):
+            fh.write(f">{name}\n{seq.decode()}\n")
+    want, scanned = _jax(miner, setup, genome, monkeypatch=monkeypatch)
+    got = _port(miner, setup, genome)
+    _same(got, want)
+    assert scanned == got.stats.records_scanned == 2 and got.stats.records_skipped == 1
+    if miner != "strobe":  # the JAX strobe miner keeps no stats
+        assert want.stats.records_skipped == 1
+    genome_pos = len(locus) + (100 if miner == "cluster" else 0)
+    second = [h.description for h in got.hits if h.description.startswith("second ")]
+    assert second and all(f" | GenomePos = {genome_pos} | " in d for d in second)
+    ckpt = str(tmp_path / f"{miner}.ckpt")
+    with pytest.raises(KeyboardInterrupt):
+        _port(miner, setup, genome, ckpt, kill_at=1)
+    with open(ckpt) as fh:
+        state = json.load(fh)
+    assert (state["next_record"], state["genome_pos"]) == (2, genome_pos)
+    resumed = _port(miner, setup, genome, ckpt)
+    _same(resumed, want)
+    assert (resumed.stats.records_scanned, resumed.stats.records_skipped) == (1, 0)
+
+
+@pytest.mark.parametrize("miner", MINERS)
 def test_stale_identity_is_ignored(miner, tmp_path, setup, test_genome, jax_full):
     """A checkpoint of a run with another threshold is not resumed: the
     run starts afresh and rewrites it."""

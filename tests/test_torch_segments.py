@@ -285,22 +285,31 @@ def test_prefetched_record_equals_unprefetched(mini_genome, ref_fasta, miner):
         assert got == eng.record_streams(record.codes, CLUSTER_THRS)
 
 
-@pytest.mark.parametrize("miner", ["single", "cluster"])
+@pytest.mark.parametrize("miner", ["single", "cluster", "single_segmented"])
 def test_miner_prefetch_skips_checkpointed_records(tmp_path, test_genome, ref_fasta, miner):
     """In the multi-record loop each record after the first is copied
     once, while the record before it is scanned, and a record the
-    checkpoint has done is never copied."""
+    checkpoint has done is never copied.  Only the next record to scan is
+    copied ahead, and only where the engine takes it whole: with record 1
+    segmented (``single_segmented``: Loci's records reordered so that the
+    longest comes second, at a chunk that segments it alone), nothing is
+    copied ahead while record 0 is scanned, and record 2 is copied while
+    record 1 is."""
     records = as_records(test_genome)
+    genome, chunk = test_genome, None
+    if miner == "single_segmented":
+        records = [records[3], records[2], records[1], records[0]]
+        genome, chunk = records, 65536
     lengths = [len(r) for r in records]
     prefetched = []
-    if miner == "single":
+    if miner != "cluster":
         p = tref.gen_ref_ws_cons(ref_fasta, 6)
-        eng = ScanEngine(p.sum_kfv, k=6, ws=p.windowsize, r=p.n_records, device="cpu")
-        full = tminer.mine_genome(test_genome, p, thr=30, engine=eng, get_hit_loci=True)
-        genome_id = f"{test_genome}|k=6|ws={p.windowsize}|thr=30"
+        eng = ScanEngine(p.sum_kfv, k=6, ws=p.windowsize, r=p.n_records, chunk_windows=chunk, device="cpu")
+        full = tminer.mine_genome(genome, p, thr=30, engine=eng, get_hit_loci=True)
+        genome_id = f"{genome if chunk is None else 'records'}|k=6|ws={p.windowsize}|thr=30"
 
         def run(**kw):
-            return tminer.mine_genome(test_genome, p, thr=30, engine=eng, get_hit_loci=True, **kw)
+            return tminer.mine_genome(genome, p, thr=30, engine=eng, get_hit_loci=True, **kw)
     else:
         clusters = tref.eliminate_null_params(tref.cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
         eng = ClusterScanEngine(clusters.profiles, k=6, device="cpu")
@@ -316,14 +325,28 @@ def test_miner_prefetch_skips_checkpointed_records(tmp_path, test_genome, ref_fa
     real = eng.prepare_codes
 
     def spy(codes):
-        prefetched.append(lengths.index(len(codes)))
+        prefetched.append(lengths.index(len(codes)) if len(codes) in lengths else "segment")
         return real(codes)
 
     eng.prepare_codes = spy
+    if chunk is not None:  # each scan's start too
+        real_stream = eng.record_stream
+
+        def stream_spy(codes, *args, **kwargs):
+            prefetched.append(f"scan {lengths.index(len(codes))}")
+            return real_stream(codes, *args, **kwargs)
+
+        eng.record_stream = stream_spy
     assert [(h.description, h.seq) for h in run().hits] == [(h.description, h.seq) for h in full.hits]
-    # record 1 is queued before record 0, which the scan copies itself; then
-    # each record's copy is queued before the one before it is scanned
-    assert prefetched == [1, 0, 2, 3]
+    if chunk is None:
+        # record 1 is queued before record 0, which the scan copies itself;
+        # then each record's copy is queued before the one before it is
+        # scanned
+        assert prefetched == [1, 0, 2, 3]
+    else:
+        n_segs = -(-(lengths[1] - p.windowsize + 1) // (2 * chunk))
+        assert n_segs == 2 and eng.takes_whole(lengths[2]) and not eng.takes_whole(lengths[1])
+        assert prefetched == ["scan 0", 0, 2, "scan 1", *["segment"] * n_segs, 3, "scan 2", "scan 3"]
     prefetched.clear()
     ckpt = tmp_path / "pf.ckpt"
     c = ScanCheckpoint.load_or_create(str(ckpt), genome_id)
@@ -333,7 +356,8 @@ def test_miner_prefetch_skips_checkpointed_records(tmp_path, test_genome, ref_fa
     c.record_done(1, lengths[0] + lengths[1], done2, full.hit_loci[len(done) : len(done) + len(done2)])
     resumed = run(checkpoint_path=str(ckpt))
     _same(resumed, full)
-    assert prefetched == [3, 2]  # records 0 and 1 are done, and never copied
+    # records 0 and 1 are done, and never copied
+    assert prefetched == ([3, 2] if chunk is None else [3, "scan 2", 2, "scan 3"])
 
 
 # --- pinned copies to the card ----------------------------------------------
