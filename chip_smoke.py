@@ -57,10 +57,11 @@ Builds the CUDA kernels from ``kmergma_tpu_torch/csrc`` (into
   genes, then on a subject past 511 letters, one past the shared-memory
   budget (decisions in device memory), a query past one strip, m = 0 and
   n = 0; its AlignResults against the native DP's, ``find_genes`` and
-  ``strobemer_find_genes`` under ``KMERGMA_ALIGN_DEVICE=1`` against their
-  default runs; A1's time beside PR 12's, its launch shape (registers,
-  shared memory, blocks an SM), the stages of ``semiglobal_align_device``
-  and the native DP's time for one window and on 1-8 threads;
+  ``strobemer_find_genes`` by default (A1 launched on the card) against
+  their runs under ``KMERGMA_ALIGN_DEVICE=0``, the host DP; A1's time
+  beside its first design's, its launch shape (registers, shared memory,
+  blocks an SM), the stages of ``semiglobal_align_device`` and the native
+  DP's time for one window and on 1-8 threads;
 * checkpoint/resume: each of the three miners, with ``checkpoint_path=``,
   killed on its third record of the genome its phase mined (an engine
   that raises ``KeyboardInterrupt``), then resumed on the card with its
@@ -2717,8 +2718,9 @@ def aligner_phase(ctx) -> dict:
     windows cut around every planted gene, then on the edge shapes (a
     subject past 511 letters, one whose decisions pass the shared-memory
     budget, a query past one strip, m = 0 and n = 0); ``find_genes`` and
-    ``strobemer_find_genes`` under ``KMERGMA_ALIGN_DEVICE=1`` against their
-    default runs; A1's times (wrapper and device), its launch shape, the
+    ``strobemer_find_genes`` by default (A1 on a card's batches of 16 or
+    more) against their runs under ``KMERGMA_ALIGN_DEVICE=0``, the host
+    DP; A1's times (wrapper and device), its launch shape, the
     stages of ``semiglobal_align_device`` and the native DP's times (one
     window, the thread scaling).  Returns A1's kernel row."""
     import os
@@ -2736,11 +2738,12 @@ def aligner_phase(ctx) -> dict:
     device, on_card, sync, label = ctx["device"], ctx["on_card"], ctx["sync"], ctx["label"]
     tad.semiglobal_align_device.overflowed = 0
 
-    def api(forced: bool):
+    def api(route: str):
         """((hits, loci, alignments), batches) of find_genes and of
-        strobemer_find_genes."""
+        strobemer_find_genes, ``KMERGMA_ALIGN_DEVICE`` set to ``route``
+        ("" is the default route)."""
         kwargs = dict(verbose=False, do_return_hit_loci=True, do_return_align=True, device=device)
-        with warnings.catch_warnings(), _env_set("KMERGMA_ALIGN_DEVICE", "1" if forced else ""):
+        with warnings.catch_warnings(), _env_set("KMERGMA_ALIGN_DEVICE", route):
             warnings.simplefilter("ignore")
             return (captured_alignments(lambda: kt.find_genes(str(ctx["fasta"]), REF, **kwargs)),
                     captured_alignments(lambda: kt.strobemer_find_genes(str(ctx["fasta"]), REF, **kwargs)))
@@ -2749,19 +2752,19 @@ def aligner_phase(ctx) -> dict:
         return ([(h.description, h.seq) for h in a[0]] == [(h.description, h.seq) for h in b[0]] and a[1] == b[1]
                 and [(x.score, x.cigar) for x in a[2]] == [(x.score, x.cigar) for x in b[2]])
 
-    (want_single, single_b), (want_strobe, strobe_b) = api(False)
+    (want_single, single_b), (want_strobe, strobe_b) = api("0")
     ctx["launches"].reset()
     t0 = time.perf_counter()
-    (got_single, _), (got_strobe, _) = api(True)
-    forced_s = time.perf_counter() - t0
+    (got_single, _), (got_strobe, _) = api("")
+    default_s = time.perf_counter() - t0
     launches = ctx["launches"].read()["align_dp"]
     require(same(got_single, want_single) and same(got_strobe, want_strobe),
-            "find_genes or strobemer_find_genes under KMERGMA_ALIGN_DEVICE=1 differs from the default run")
+            "find_genes or strobemer_find_genes by default differs from its run under KMERGMA_ALIGN_DEVICE=0")
     if on_card:
-        require(launches > 0, "A1 never launched under KMERGMA_ALIGN_DEVICE=1")
-    print(f"aligner: find_genes and strobemer_find_genes under KMERGMA_ALIGN_DEVICE=1 in {forced_s:.3f} s: hits, loci "
-          f"and alignments equal the default runs' ({len(want_single[0])} and {len(want_strobe[0])} hits), A1 "
-          f"{launches} launches [{label}]")
+        require(launches > 0, "A1 never launched on the default route")
+    print(f"aligner: find_genes and strobemer_find_genes by default in {default_s:.3f} s: hits, loci and alignments "
+          f"equal the runs' under KMERGMA_ALIGN_DEVICE=0, the host DP ({len(want_single[0])} and "
+          f"{len(want_strobe[0])} hits), A1 {launches} launches [{label}]")
 
     # the API cells' windows (every record's batch of one call), and a batch
     # cut around every planted gene

@@ -303,7 +303,7 @@ def run(
         with _env_set("KMERGMA_ALIGN_NATIVE", "0"):
             return semiglobal_align_batch(profile.consensus_ws, windows)
 
-    def run_align():  # the production router (the threaded native DP)
+    def run_align():  # the production router (A1 on a card for 16 windows or more)
         return align_hits_batch(profile.consensus_ws, windows, device=dev)
 
     host_aln = run_align_host()

@@ -9,8 +9,8 @@ Per contig (records shorter than the windowsize are skipped):
      holds one,
   2. host: exact replay of the minima state machine (``replay_single``),
   3. optional semi-global alignment trim of every hit of the record in
-     one batch (``align_hits_batch``: the native host DP, or the device
-     aligner under ``KMERGMA_ALIGN_DEVICE=1``),
+     one batch (``align_hits_batch``: the device aligner A1 for 16 hits
+     or more on a card, else the native host DP),
   4. hit records formatted exactly like the reference.
 
 The record loop (``mine_records``: checkpoint, short records,

@@ -17,7 +17,7 @@ Hits are rare (~10 per half-megabase), so this path is correctness-critical,
 not throughput-critical (SURVEY.md section 7 item 5); the DP is a NumPy
 row-vectorised wavefront on host, or the threaded native library's.  The
 device aligner (``ops/align_device.py``, kernel A1 on the card) takes a
-batch through ``align_hits_batch``.
+card's batches of 16 hits or more through ``align_hits_batch``.
 """
 
 from __future__ import annotations
@@ -263,33 +263,30 @@ def align_hits_batch(
     *,
     device: "str | torch.device" = "cuda",
 ) -> "list[AlignResult]":
-    """Batch-align a record's hits, bit-identical on every route (the JAX
-    package's router, with "TPU" read as "CUDA").
+    """Batch-align a record's hits, bit-identical on every route.
 
     ``KMERGMA_ALIGN_DEVICE=1`` forces the device aligner
-    (``ops/align_device.semiglobal_align_device``) on ``device``, the
-    caller's (on the CPU its plain twins); ``=0`` forbids it.  Unset, the
-    threaded native host DP runs when its library is present; otherwise
-    the device aligner when ``device`` is a CUDA device, CUDA is present
-    and there are at least 16 subjects, else the NumPy batch wavefront.
-    Either route runs in one ``align`` span (utils/trace.py)."""
+    (``ops/align_device.semiglobal_align_device``, A1) on ``device``, the
+    caller's (on the CPU its plain twins); ``=0`` forbids it.  Unset, A1
+    runs when ``device`` is a CUDA device, CUDA is present and there are
+    at least 16 subjects; otherwise ``semiglobal_align_batch`` (the
+    threaded native host DP where its library is present, else the NumPy
+    batch wavefront).  Either route runs in one ``align`` span
+    (utils/trace.py); A1's also counts its subjects as ``a1_windows``."""
     if not subjects:
         return []
     import os
 
     force = os.environ.get("KMERGMA_ALIGN_DEVICE", "")
-    use_device = force == "1"
     if force == "":
-        from ..utils.native import get_lib
-
-        native_ok = os.environ.get("KMERGMA_ALIGN_NATIVE", "") != "0" and get_lib() is not None
-        on_card = torch.device(device).type == "cuda" and torch.cuda.is_available()
-        use_device = not native_ok and on_card and len(subjects) >= 16
+        use_device = torch.device(device).type == "cuda" and torch.cuda.is_available() and len(subjects) >= 16
+    else:
+        use_device = force == "1"
     if use_device:
         from .align_device import semiglobal_align_device
 
         with trace.span("align") as sp:
-            sp.add(windows=len(subjects))
+            sp.add(windows=len(subjects), a1_windows=len(subjects))
             return semiglobal_align_device(query, subjects, gap_open, gap_extend, device=device)
     return semiglobal_align_batch(query, subjects, gap_open, gap_extend)
 

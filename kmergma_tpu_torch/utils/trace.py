@@ -50,7 +50,8 @@ The spans, by where they open:
 - ``replay``: the exact replay of the minima machine; in cluster mode
   the alignment and the formatting of its accepted hits run inside it:
   hits;
-- ``align``: a batch of the aligner: windows.
+- ``align``: a batch of the aligner: windows, and on the device
+  aligner's route (A1) a1_windows, the same count.
 
 No span synchronises the device: where the host waits on it, the wait
 lies inside a span (``fetch``, ``stage`` waiting on a busy buffer, or

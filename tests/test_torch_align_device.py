@@ -480,18 +480,76 @@ def test_router_forced_off(monkeypatch):
     assert seen == [] and _pairs(got) == _pairs(talign.semiglobal_align_batch(query, subjects + subjects))
 
 
+def _host_routes(monkeypatch) -> list:
+    """The host batches' routes as they run: "native" where the threaded
+    native DP took the batch, "numpy" where the NumPy wavefront did."""
+    routes = []
+    real = talign._align_batch_native
+
+    def spy(*args):
+        got = real(*args)
+        routes.append("numpy" if got is None else "native")
+        return got
+
+    monkeypatch.setattr(talign, "_align_batch_native", spy)
+    return routes
+
+
 def test_router_unset(monkeypatch):
-    """Unset: the native DP when present; without it the device aligner on
-    a CUDA device for 16 subjects or more, else the NumPy batch."""
+    """Unset: the device aligner on a CUDA device for 16 subjects or more;
+    any other batch to the native DP where its library is present, else
+    to the NumPy batch."""
+    from kmergma_tpu_torch.utils.native import get_lib
+
     query, subjects = _indel_mutants()
+    assert len(subjects) == 16 and get_lib() is not None  # the native DP is built here
     monkeypatch.delenv("KMERGMA_ALIGN_DEVICE", raising=False)
     monkeypatch.delenv("KMERGMA_ALIGN_NATIVE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)  # the spy runs the twins on the CPU
-    assert _router_calls(monkeypatch, query, subjects, "cuda")[1] == []  # the native DP is built here
+    routes = _host_routes(monkeypatch)
+    want = _pairs(talign.semiglobal_align_batch(query, subjects))
+    routes.clear()
+    for device in ("cuda", "cuda:0"):
+        got, seen = _router_calls(monkeypatch, query, subjects, device)
+        assert seen == [device] and routes == [] and _pairs(got) == want
+    got, seen = _router_calls(monkeypatch, query, subjects[:15], "cuda")
+    assert seen == [] and routes == ["native"] and _pairs(got) == want[:15]
+    got, seen = _router_calls(monkeypatch, query, subjects, "cpu")
+    assert seen == [] and routes == ["native"] * 2 and _pairs(got) == want
     monkeypatch.setenv("KMERGMA_ALIGN_NATIVE", "0")
-    assert _router_calls(monkeypatch, query, subjects, "cuda")[1] == ["cuda"]
-    assert _router_calls(monkeypatch, query, subjects[:15], "cuda")[1] == []
-    assert _router_calls(monkeypatch, query, subjects, "cpu")[1] == []
+    got, seen = _router_calls(monkeypatch, query, subjects, "cpu")
+    assert seen == [] and routes == ["native"] * 2 + ["numpy"] and _pairs(got) == want
+
+
+@pytest.mark.parametrize("device,n,native,route", [
+    ("cuda", 16, True, "a1"),
+    ("cuda", 15, True, "native"),
+    ("cpu", 16, True, "native"),
+    ("cpu", 16, False, "numpy"),
+])
+def test_align_span_counts_a1_windows(monkeypatch, device, n, native, route):
+    """Unset, each route runs in one ``align`` span that counts its
+    windows; only the device aligner's span carries ``a1_windows``, equal
+    to the batch size."""
+    from kmergma_tpu_torch.utils import trace
+
+    query, subjects = _indel_mutants()
+    monkeypatch.delenv("KMERGMA_ALIGN_DEVICE", raising=False)
+    monkeypatch.setenv("KMERGMA_ALIGN_NATIVE", "" if native else "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)  # the spy runs the twins on the CPU
+    routes = _host_routes(monkeypatch)
+    trace.reset()
+    trace.enable()
+    try:
+        got, seen = _router_calls(monkeypatch, query, subjects[:n], device)
+    finally:
+        trace.disable()
+    log = trace.log()
+    trace.reset()
+    assert (seen, routes) == (([device], []) if route == "a1" else ([], [route]))
+    assert _pairs(got) == _pairs(talign.semiglobal_align_batch(query, subjects[:n]))
+    want = {"windows": n, "a1_windows": n} if route == "a1" else {"windows": n}
+    assert [(s["name"], s["counters"]) for s in log] == [("align", want)]
 
 
 def test_router_unset_without_cuda(monkeypatch):
@@ -532,6 +590,31 @@ def test_mine_genome_align_device_env(monkeypatch):
     real = tad.align_cigar
     monkeypatch.setattr(tad, "align_cigar", lambda *a: calls.append(len(a[3])) or real(*a))
     assert run() == want and len(want[0]) == 3 and calls == [3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["find_genes", "strobemer_find_genes"])
+def test_default_route_takes_a1_on_card(entry, monkeypatch):
+    """On the card the default route sends a record's 16 hits or more to
+    A1 (the Alp_V locus at threshold 40: 28 windows in one batch for
+    find_genes, 32 for the strobe search), and the hits, loci and
+    alignments equal those of KMERGMA_ALIGN_DEVICE=0, the host DP."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (A1 has no CPU mode)")
+    import kmergma_tpu_torch as kt
+
+    def run() -> tuple:
+        tad.align_dp.launches = 0
+        hits, loci, alns = getattr(kt, entry)(str(DATA / "Alp_V_locus.fasta"), str(DATA / "Alp_V_ref.fasta"),
+                                              kmer_dist_thr=40, verbose=False, do_return_hit_loci=True,
+                                              do_return_align=True, device="cuda")
+        return ([(h.description, bytes(h.seq)) for h in hits], loci, _pairs(alns)), tad.align_dp.launches
+
+    monkeypatch.delenv("KMERGMA_ALIGN_DEVICE", raising=False)
+    got, launched = run()
+    monkeypatch.setenv("KMERGMA_ALIGN_DEVICE", "0")
+    want, host_launched = run()
+    assert got == want and len(want[0]) >= 3 and launched > 0 and host_launched == 0
 
 
 @pytest.mark.cuda

@@ -363,11 +363,12 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert [k["library_ms"] is not None for k in report["kernels"]] == [False, False, False, True, False, False, False, False, False,
                                                                         False, False]
     # A1 on the two API cells' hit windows and the batch cut around the planted genes, against its twins and the
-    # native DP; the API calls under KMERGMA_ALIGN_DEVICE=1 equal the default ones
+    # native DP; the API calls by default equal those under KMERGMA_ALIGN_DEVICE=0
     a1 = report["kernels"][-1]
     assert sorted(a1["shapes"]) == ["cut", "single", "strobe"] and a1["shapes"]["cut"]["windows"] == 6 * len(cs.ALIGN_SHIFTS)
     assert a1["shapes"]["strobe"]["gap"] == [-69, -5] and a1["overflowed"] == 0 and sorted(a1["native_threads_ms"]) == [1, 2, 4, 8]
-    assert "aligner: find_genes and strobemer_find_genes under KMERGMA_ALIGN_DEVICE=1 in " in out
+    assert "aligner: find_genes and strobemer_find_genes by default in " in out
+    assert "equal the runs' under KMERGMA_ALIGN_DEVICE=0, the host DP (" in out
     assert out.count("AlignResults equal [cpu]") == 3
     # the profile-sharded engine at k = 10 and 12 against the one-device and host engines, and the largest k
     assert out.count("TPScanEngine k = ") == 2 and "over 4 logical shards of cpu " in out
